@@ -3,34 +3,46 @@
 
     python3 chip_smoke.py [--n N] [--seed S]
 
-Builds the four CUDA kernels of `src/repro_torch/kernels/csrc/pack.cu` from
-source, then runs three chains through `repro_torch.core.pipeline`
-(`Pipeline.encode` -> `Encoded` -> `Pipeline.decode`) at n = 512**3 float32
-values (the size of one SDRBench NYX field), with data made on the card from
-`--seed`:
+Builds the eight CUDA kernels of `src/repro_torch/kernels/csrc/` (pack.cu
+and lossless.cu, one nvcc each, in parallel) from source, then runs six
+chains through `repro_torch.core.pipeline` (`Pipeline.encode` -> `Encoded`
+-> `Pipeline.decode`) at n = 512**3 float32 values (the size of one
+SDRBench NYX field), with data made on the card from `--seed`:
 
   * `rel:0.001|pack:16` on a NYX-like lognormal field, exp(1.4*N(0,1) + 8);
   * `noa:0.001|pack:16` on the same field;
   * `grad-wire-8` (`abs:1.0:cap=0.015625|pack:8`) on a gradient-like field,
     iid N(0,1)*3e-3, with a per-tensor bound eb = 2**-5 * rms(g) computed on
-    the card and passed as a 0-d CUDA tensor.
+    the card and passed as a 0-d CUDA tensor;
+  * `sci-rel-narrow` (`rel:0.001|pack:32|narrow`) on the NYX-like field;
+  * `grad-wire-16-narrow` (`abs:1.0:cap=0.015625|pack:16|narrow`) on an
+    embedding-table gradient, 8192 rows of n/8192 values, 1 % of the rows
+    touched with N(0,1)*3e-3 and the rest exactly zero, eb = 2**-5 * rms;
+  * `smoke-chain` (`rel:0.001|pack:8|zero|narrow`) on exp(0.02*N(0,1)), a
+    field within a few % of 1 whose REL bins fit 8 bits.
 
 The first 64 values of each field are the paper's eight special values
 (+inf, -inf, NaN, the NaN payload 0x7FC00123, +-1e-42, +-0.0), repeated.
 
-For each chain it checks that the kernels were launched on the main path,
-that every wire plane and every decoded float is bit-equal to the plain
-torch reference run on the card, that each kernel is bit-equal to its plain
-version, that a small ragged input agrees with the numpy oracle, and that
-every decoded value is within eb of its original or bit-identical to it
-(checked in float64).  It times each kernel with CUDA events (median of 25
-after warm-up) beside its bound and its plain version (which repeats the
-kernel's arithmetic and is no yardstick of speed).
+For each chain it checks that the kernels of its path were launched on the
+main path (every launch count is set to 0 just before the chain's encode
+and decode and read just after), that every wire plane and every decoded
+float is bit-equal to the plain torch reference run on the card, that
+each kernel is bit-equal to its plain version on the main path's inputs,
+that a small ragged input agrees with the numpy oracle, and that every
+decoded value is within eb of its original or bit-identical to it
+(checked in float64).  A code-sweep phase then holds the four chunk-coder
+kernels bit for bit against their plain versions on inputs where each
+chunk code covers at least 10 % of the chunks, at pack 8, 16 and 32, a
+ragged n and both stages.  Each kernel is timed with CUDA events (median
+of 25 after warm-up) beside its bound and its plain version (which
+repeats the kernel's arithmetic and is no yardstick of speed).
 
-Output: the card's name and power limit, one JSON line per chain, one JSON
-line {"kernels": [...]}, and last {"ok": true, "device": {...}}.  Any failed
-check exits non-zero; with no CUDA device, or outside a checkout, it exits
-non-zero before printing any result.
+Output: the card's name and power limit, one JSON line per chain, one
+JSON line for the code sweep, one JSON line {"kernels": [...]}, and last
+{"ok": true, "device": {...}}.  Any failed check exits non-zero; with no
+CUDA device, or outside a checkout, it exits non-zero before printing any
+result.
 """
 from __future__ import annotations
 
@@ -48,25 +60,37 @@ import torch
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 N_DEFAULT = 512 ** 3
+N_SWEEP = 3 * 2 ** 20 + 4099   # ragged: not a whole number of chunks
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM published peak
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 SPECIALS = np.array([np.inf, -np.inf, np.nan,
                      np.uint32(0x7FC00123).view(np.float32),
                      1e-42, -1e-42, 0.0, -0.0], dtype=np.float32)
-SOURCE = "src/repro_torch/kernels/csrc/pack.cu"
-REPLACES = {"_abs_pack": "src/repro/kernels/pack.py:141",
-            "_rel_pack": "src/repro/kernels/pack.py:152",
-            "_abs_unpack": "src/repro/kernels/pack.py:168",
-            "_rel_unpack": "src/repro/kernels/pack.py:180"}
-# float32 operations per element, counted in csrc/pack.cu (arithmetic,
-# rounding, conversions, abs and compares): abs_quantize 2 mul, rint, sub,
-# 2 conversions, 2 abs, 2 compares; rel_quantize the same plus log2approx
-# (add, conversion) and pow2approx (add, sub, 2 conversions) and the
-# screen/tiny compares; the ABS unpack a conversion and a mul; the REL
-# unpack a conversion, a mul and pow2approx.  The bound is set by bytes
-# whenever these are far under the card's float32 rate over its HBM rate.
+CSRC = "src/repro_torch/kernels/csrc/"
+# name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "_abs_pack": ("pack.cu", "src/repro/kernels/pack.py:141"),
+    "_rel_pack": ("pack.cu", "src/repro/kernels/pack.py:152"),
+    "_abs_unpack": ("pack.cu", "src/repro/kernels/pack.py:168"),
+    "_rel_unpack": ("pack.cu", "src/repro/kernels/pack.py:180"),
+    "_abs_pack_lc": ("lossless.cu", "src/repro/kernels/lossless.py:110"),
+    "_rel_pack_lc": ("lossless.cu", "src/repro/kernels/lossless.py:128"),
+    "_lc_select": ("lossless.cu", "src/repro/kernels/lossless.py:100"),
+    "_lc_expand": ("lossless.cu", "src/repro/kernels/lossless.py:106"),
+}
+# Operations per element (per word for _lc_select and _lc_expand), counted
+# in csrc/: abs_quantize 2 mul, rint, sub, 2 conversions, 2 abs, 2
+# compares; rel_quantize the same plus log2approx (add, conversion) and
+# pow2approx (add, sub, 2 conversions) and the screen/tiny compares; the
+# ABS unpack a conversion and a mul; the REL unpack a conversion, a mul and
+# pow2approx.  The chunk select adds integer work the fused kernels hide
+# under their float32 count; alone it is a max, 3 compares and 4
+# shift/masks per word, the expand 4 shift/masks per word.  Integer
+# operations are counted against the float32 rate.  The bound is set by
+# bytes whenever these are far under the card's rate over its HBM rate.
 OPS_PER_ELEM = {"_abs_pack": 10, "_rel_pack": 16, "_abs_unpack": 2,
-                "_rel_unpack": 6}
+                "_rel_unpack": 6, "_abs_pack_lc": 10, "_rel_pack_lc": 16,
+                "_lc_select": 8, "_lc_expand": 4}
 
 
 class CheckFailed(RuntimeError):
@@ -95,22 +119,42 @@ def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+def with_specials(f):
+    spec = torch.from_numpy(np.tile(SPECIALS, 8).view(np.int32)).to(f.device)
+    m = min(f.numel(), spec.numel())
+    f.view(torch.int32)[:m] = spec[:m]
+    return f
+
+
 def make_fields(n: int, seed: int):
-    """(nyx, grad) float32 fields on the card, specials in the first 64."""
+    """{name: float32 field on the card}, specials in the first 64."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     nyx = torch.exp(torch.randn(n, generator=gen, device=DEV) * 1.4 + 8.0)
     grad = torch.randn(n, generator=gen, device=DEV) * 3e-3
-    spec = torch.from_numpy(np.tile(SPECIALS, 8).view(np.int32)).to(DEV)
-    m = min(n, spec.numel())
-    for f in (nyx, grad):
-        f.view(torch.int32)[:m] = spec[:m]
-    return nyx, grad
+    rows = 8192                     # benchmarks/datasets.py grad_sparse
+    touched = torch.randperm(rows, generator=gen, device=DEV)[:rows // 100]
+    emb = torch.zeros(rows, -(-n // rows), device=DEV)
+    emb[touched] = torch.randn(touched.numel(), emb.shape[1], generator=gen,
+                               device=DEV) * 3e-3
+    near_one = torch.exp(torch.randn(n, generator=gen, device=DEV) * 0.02)
+    return {k: with_specials(f.reshape(-1)[:n].contiguous())
+            for k, f in (("nyx", nyx), ("grad", grad), ("emb", emb),
+                         ("near_one", near_one))}
+
+
+def rms_eb(g):
+    """eb = 2**-5 * rms over the finite values, a 0-d tensor on the card."""
+    finite = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+    return 2.0 ** -5 * torch.sqrt(torch.mean(finite * finite))
 
 
 def planes_equal(a, b) -> bool:
     """Bit equality of two wire planes (None matches None)."""
     if a is None or b is None:
         return a is None and b is None
+    if isinstance(a, tuple):
+        return (isinstance(b, tuple) and len(a) == len(b)
+                and all(planes_equal(u, v) for u, v in zip(a, b)))
     if a.dtype.is_floating_point:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return a.shape == b.shape and bool(torch.equal(a, b))
@@ -126,19 +170,32 @@ def violations(x, y, eb64: float, rel: bool) -> int:
     return int((~(same | within)).sum())
 
 
-def kernel_bytes(name: str, n: int, bits: int) -> int:
-    """Least bytes: each input read once, each output written once."""
-    from repro_torch.core.codec import packed_word_count
-    words = 4 * packed_word_count(n, bits)
-    signs = 4 * packed_word_count(n, 1)
+def kernel_bytes(name: str, n: int, bits: int = 32, hist=None) -> int:
+    """Least bytes: each input read once, each output written once.  n is
+    the element count for the pack and unpack kernels and the word count
+    entering the stage for _lc_select and _lc_expand; `hist` (the chunk
+    code counts of this run) gives the rows _lc_expand must read."""
+    from repro_torch.core import codec as C
+    words = 4 * C.packed_word_count(n, bits)
+    signs = 4 * C.packed_word_count(n, 1)
+    chunks = C.lc_chunk_count(C.packed_word_count(n, bits))
+    image = 4 * chunks * C.LC_CHUNK + 4 * chunks      # sel + int32 codes
+    stage_chunks = C.lc_chunk_count(n)
+    if name == "_lc_select":
+        return 4 * n + 4 * stage_chunks * C.LC_CHUNK + 4 * stage_chunks
+    if name == "_lc_expand":
+        rows = hist[1] + 2 * hist[2] + 4 * hist[3]
+        return 4 * stage_chunks + 4 * C.PACK_LANES * rows + 4 * n
     return {"_abs_pack": 4 * n + 4 + words + n,
             "_rel_pack": 4 * n + words + n + signs,
             "_abs_unpack": words + 4 + 4 * n,
-            "_rel_unpack": words + signs + 4 * n}[name]
+            "_rel_unpack": words + signs + 4 * n,
+            "_abs_pack_lc": 4 * n + 4 + n + image,
+            "_rel_pack_lc": 4 * n + n + signs + image}[name]
 
 
-def bound_of(name: str, n: int, bits: int):
-    t_bytes = kernel_bytes(name, n, bits) / HBM_BYTES_PER_S * 1e3
+def bound_of(name: str, n: int, bits: int, hist=None):
+    t_bytes = kernel_bytes(name, n, bits, hist) / HBM_BYTES_PER_S * 1e3
     t_ops = OPS_PER_ELEM[name] * n / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -153,25 +210,93 @@ def max_abs_err(a, b) -> float:
         d = torch.where(both_nan, torch.zeros_like(a64), (a64 - b64).abs())
         d = torch.nan_to_num(d, nan=float("inf"))
     else:
-        d = ((a.to(torch.int64) & 0xFFFFFFFF) - (b.to(torch.int64) & 0xFFFFFFFF)).abs()
+        d = ((a.to(torch.int64) & 0xFFFFFFFF)
+             - (b.to(torch.int64) & 0xFFFFFFFF)).abs()
     return float(d.max()) if d.numel() else 0.0
 
 
-def kernel_calls(name: str, pipe, enc, x, eb_arr, n: int):
-    """(kernel call, plain call) on the main path's inputs of one kernel."""
+def launches():
+    from repro_torch.kernels import lossless as L
     from repro_torch.kernels import pack as K
-    cfg = pipe.qcfg()
-    return {
-        "_abs_pack": (lambda: K.abs_pack(x, eb_arr, cfg),
-                      lambda: K._abs_pack_plain(x, eb_arr, cfg)),
-        "_rel_pack": (lambda: K.rel_pack(x, cfg),
-                      lambda: K._rel_pack_plain(x, cfg)),
-        "_abs_unpack": (lambda: K.abs_unpack(enc.payload, eb_arr, n, cfg),
-                        lambda: K._abs_unpack_plain(enc.payload, eb_arr, n, cfg)),
-        "_rel_unpack": (lambda: K.rel_unpack(enc.payload, enc.sign_words, n, cfg),
-                        lambda: K._rel_unpack_plain(enc.payload, enc.sign_words,
-                                                    n, cfg)),
-    }[name]
+    return {**K.LAUNCHES, **L.LAUNCHES}
+
+
+def reset_launches():
+    from repro_torch.kernels import lossless as L
+    from repro_torch.kernels import pack as K
+    K.reset_launches()
+    L.reset_launches()
+
+
+def stage_codes(pipe, enc, n: int):
+    """The int32 chunk codes of each word stage, from the header planes."""
+    from repro_torch.core import codec as C
+    sizes = pipe.stage_sizes(n)
+    return [C.unpack_words(h, C.lc_chunk_count(sz), 2, signed=False)
+            for h, sz in zip(enc.headers, sizes)]
+
+
+def hist_of(codes):
+    return [int(v) for v in torch.bincount(codes.to(torch.int64),
+                                           minlength=4).cpu()]
+
+
+def path_calls(pipe, enc, x, eb_arr, n: int):
+    """[(kernel, label, n or words, hist, kernel call, plain call)] on the
+    main path's inputs of every kernel the chain's encode and decode
+    launch, in path order."""
+    from repro_torch.core import codec as C
+    from repro_torch.kernels import lossless as L
+    from repro_torch.kernels import pack as K
+    cfg, bits, rel = pipe.qcfg(), pipe.pack.bits, pipe.quant.mode == "rel"
+    calls = []
+    if len(pipe.stages) == 1:
+        stage = pipe.stages[0].mode
+        if rel:
+            calls.append(("_rel_pack_lc", stage, n, None,
+                          lambda: L.rel_pack_lc(x, cfg, stage),
+                          lambda: L._rel_pack_lc_plain(x, cfg, stage)))
+        else:
+            calls.append(("_abs_pack_lc", stage, n, None,
+                          lambda: L.abs_pack_lc(x, eb_arr, cfg, stage),
+                          lambda: L._abs_pack_lc_plain(x, eb_arr, cfg, stage)))
+    elif rel:
+        calls.append(("_rel_pack", "", n, None, lambda: K.rel_pack(x, cfg),
+                      lambda: K._rel_pack_plain(x, cfg)))
+    else:
+        calls.append(("_abs_pack", "", n, None,
+                      lambda: K.abs_pack(x, eb_arr, cfg),
+                      lambda: K._abs_pack_plain(x, eb_arr, cfg)))
+    sizes = pipe.stage_sizes(n)
+    codes = stage_codes(pipe, enc, n)
+    if len(pipe.stages) > 1:            # the select kernel, stage by stage
+        cur = (K.rel_pack(x, cfg) if rel else K.abs_pack(x, eb_arr, cfg))[0]
+        for i, st in enumerate(pipe.stages):
+            calls.append(("_lc_select", f"{i}:{st.mode}", sizes[i], None,
+                          lambda w=cur, s=st.mode: L.lc_select(w, s),
+                          lambda w=cur, s=st.mode: L._lc_select_plain(w, s)))
+            cur = L.encode_words_lc(cur, st.mode)[1]
+    cur = enc.payload                   # decode: the stages in reverse
+    for i in reversed(range(len(pipe.stages))):
+        padded = C.lc_gather_chunks(cur, codes[i]).reshape(-1)
+        m = sizes[i]
+        calls.append(("_lc_expand", f"{i}:{pipe.stages[i].mode}", m,
+                      hist_of(codes[i]),
+                      lambda p=padded, c=codes[i], m=m: L.lc_expand(p, c, m),
+                      lambda p=padded, c=codes[i], m=m:
+                      L._lc_expand_plain(p, c, m)))
+        cur = L.lc_expand(padded, codes[i], m)
+    words = cur
+    if rel:
+        calls.append(("_rel_unpack", "", n, None,
+                      lambda: K.rel_unpack(words, enc.sign_words, n, cfg),
+                      lambda: K._rel_unpack_plain(words, enc.sign_words, n,
+                                                  cfg)))
+    else:
+        calls.append(("_abs_unpack", "", n, None,
+                      lambda: K.abs_unpack(words, eb_arr, n, cfg),
+                      lambda: K._abs_unpack_plain(words, eb_arr, n, cfg)))
+    return calls
 
 
 def oracle_check(pipe, x, eb) -> None:
@@ -180,12 +305,15 @@ def oracle_check(pipe, x, eb) -> None:
     from repro_torch.core import oracle_np
     cfg = pipe.qcfg()
     xs = x[:4099].contiguous()
+    m = xs.numel()
     enc = pipe.encode(xs, eb, device=DEV)
-    bins = C.unpack_words(enc.payload.cpu(), xs.numel(), cfg.bin_bits).numpy()
+    words = pipe.decode_words(enc.headers, enc.payload, pipe.n_words(m),
+                              kernels=True)
+    bins = C.unpack_words(words.cpu(), m, cfg.bin_bits).numpy()
     xn = xs.cpu().numpy()
     if cfg.mode == "rel":
         ob, oo, _, osign = oracle_np.quantize_rel(xn, cfg)
-        sign = C.unpack_flags(enc.sign_words.cpu(), xs.numel()).numpy()
+        sign = C.unpack_flags(enc.sign_words.cpu(), m).numpy()
         check(np.array_equal(sign, osign), "oracle: REL sign plane")
     elif cfg.mode == "noa":
         ob, oo, _, oeb = oracle_np.quantize_noa(xn, cfg)
@@ -194,7 +322,7 @@ def oracle_check(pipe, x, eb) -> None:
     else:
         ob, oo, _ = oracle_np.quantize_abs(xn, cfg, eb=np.float32(eb.item()))
     check(np.array_equal(bins, ob), f"oracle: bins of {pipe.spec()}")
-    m, k = xs.numel(), cfg.outlier_cap(xs.numel())
+    k = cfg.outlier_cap(m)
     want = np.full(k, m, np.int32)
     first = np.nonzero(oo)[0][:k]
     want[:first.size] = first
@@ -202,31 +330,53 @@ def oracle_check(pipe, x, eb) -> None:
           f"oracle: outlier table of {pipe.spec()}")
 
 
-def run_chain(label: str, spec: str, x, eb, rel: bool, kernels: tuple):
+def as_tuple(v):
+    return v if isinstance(v, tuple) else (v,)
+
+
+def kernel_row(name, label, chain, bits, size, hist, kern, plain, count):
+    """Hold one kernel against its plain version and time both."""
+    outs_k, outs_p = as_tuple(kern()), as_tuple(plain())
+    match = len(outs_k) == len(outs_p) and all(
+        planes_equal(a, b) for a, b in zip(outs_k, outs_p))
+    err = max(max_abs_err(a, b) for a, b in zip(outs_k, outs_p))
+    check(match, f"{chain}: {name} ({label}) differs from its plain version")
+    bound_ms, bound_by = bound_of(name, size, bits, hist)
+    ms = time_ms(kern)
+    src, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": CSRC + src,
+            "replaces": replaces, "chain": chain, "stage": label,
+            "bits": bits, "launches": count, "max_abs_err": err,
+            "tolerance": 0.0, "match": match, "ms": ms,
+            "plain_ms": time_ms(plain, reps=10, warm=1),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share": bound_ms / ms, "library_ms": None,
+            "bytes": kernel_bytes(name, size, bits, hist)}
+
+
+def run_chain(label: str, spec: str, x, eb):
+    from repro_torch.core import codec as C
+    from repro_torch.core import quantizer as Q
     from repro_torch.core.pipeline import parse_pipeline
-    from repro_torch.kernels import pack as K
     pipe = parse_pipeline(spec)
-    n = x.numel()
+    cfg, n, rel = pipe.qcfg(), x.numel(), pipe.quant.mode == "rel"
     # warm-up (builds the library on first use), then the counted run
     pipe.decode(pipe.encode(x, eb, device=DEV), n=n, device=DEV)
     torch.cuda.synchronize()
-    K.reset_launches()
+    reset_launches()
     enc = pipe.encode(x, eb, device=DEV)
     y = pipe.decode(enc, n=n, device=DEV)
     torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
-    for name in kernels:
-        check(launches[name] > 0, f"{label}: {name} not launched on the main path")
+    counts = launches()
 
     ref = pipe.encode(x, eb, device=DEV, kernels=False)
     y_ref = pipe.decode(ref, n=n, device=DEV, kernels=False)
     for f in enc._fields:
-        if f != "headers":
-            check(planes_equal(getattr(enc, f), getattr(ref, f)),
-                  f"{label}: wire plane {f} differs from the plain reference")
+        check(planes_equal(getattr(enc, f), getattr(ref, f)),
+              f"{label}: wire plane {f} differs from the plain reference")
     check(planes_equal(y, y_ref), f"{label}: decoded floats differ")
+    del ref, y_ref
     check(not bool(enc.overflow), f"{label}: outlier table overflowed")
-    cfg = pipe.qcfg()
     eb_used = enc.eb if enc.eb is not None else torch.tensor(cfg.error_bound)
     eb64 = float(eb_used.float().item())
     bad = violations(x, y, eb64, rel)
@@ -234,56 +384,188 @@ def run_chain(label: str, spec: str, x, eb, rel: bool, kernels: tuple):
     oracle_check(pipe, x, eb)
 
     eb_arr = eb_used.to(device=DEV, dtype=torch.float32).reshape(1)
-    rows = []
-    for name in kernels:
-        kern, plain = kernel_calls(name, pipe, enc, x, eb_arr, n)
-        outs_k, outs_p = kern(), plain()
-        outs_k = outs_k if isinstance(outs_k, tuple) else (outs_k,)
-        outs_p = outs_p if isinstance(outs_p, tuple) else (outs_p,)
-        match = all(planes_equal(a, b) for a, b in zip(outs_k, outs_p))
-        err = max(max_abs_err(a, b) for a, b in zip(outs_k, outs_p))
-        check(match, f"{label}: {name} differs from its plain version")
-        bound_ms, bound_by = bound_of(name, n, cfg.bin_bits)
-        ms = time_ms(kern)
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "chain": label,
-            "bits": cfg.bin_bits, "launches": launches[name],
-            "max_abs_err": err, "tolerance": 0.0, "match": match,
-            "ms": ms, "plain_ms": time_ms(plain, reps=20),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_share": bound_ms / ms, "library_ms": None,
-            "bytes": kernel_bytes(name, n, cfg.bin_bits)})
+    calls = path_calls(pipe, enc, x, eb_arr, n)
+    for name in {c[0] for c in calls}:
+        check(counts[name] > 0,
+              f"{label}: {name} not launched on the main path")
+    rows = [kernel_row(name, lab, label, pipe.pack.bits, size, hist, kern,
+                       plain, counts[name])
+            for name, lab, size, hist, kern, plain in calls]
+    t = {}
+    for r in rows:
+        t[r["name"]] = t.get(r["name"], 0.0) + r["ms"]
 
     # where the end-to-end time goes: the kernels and the torch ops around
-    # them (NOA's range reduction, the outlier table, the decode scatter)
-    from repro_torch.core import codec as C
-    from repro_torch.core import quantizer as Q
-    outlier = K.abs_pack(x, eb_arr, cfg)[1] if not rel else K.rel_pack(x, cfg)[1]
+    # them (NOA's range, the outlier table, the chunk compaction and its
+    # gather, the decode scatter)
+    from repro_torch.kernels import lossless as L
+    from repro_torch.kernels import pack as K
+    if len(pipe.stages) == 1:
+        st = pipe.stages[0].mode
+        out = (L.rel_pack_lc(x, cfg, st) if rel
+               else L.abs_pack_lc(x, eb_arr, cfg, st))
+        outlier, sel, codes0 = out[0], out[-2], out[-1]
+        compact_in = [(sel.reshape(-1, C.LC_CHUNK), codes0)]
+    else:
+        outlier = (K.rel_pack(x, cfg) if rel else K.abs_pack(x, eb_arr, cfg))[1]
+        compact_in, cur = [], (K.rel_pack(x, cfg) if rel
+                               else K.abs_pack(x, eb_arr, cfg))[0]
+        for stg in pipe.stages:
+            sel, codes0 = L.lc_select(cur, stg.mode)
+            compact_in.append((sel.reshape(-1, C.LC_CHUNK), codes0))
+            cur = L.encode_words_lc(cur, stg.mode)[1]
+    codes = stage_codes(pipe, enc, n)
     buf = torch.empty(n + 1, device=DEV)
     parts = {
-        "encode_kernel": rows[0]["ms"],
+        "encode_kernel": t.get("_rel_pack_lc", t.get("_abs_pack_lc", 0.0))
+        + t.get("_rel_pack", 0.0) + t.get("_abs_pack", 0.0),
+        "select_kernel": t.get("_lc_select", 0.0),
         "value_range": (time_ms(lambda: Q.value_range_eb(x, cfg))
                         if cfg.mode == "noa" else 0.0),
         "outlier_table": time_ms(lambda: C.outlier_table(
             x, outlier, cfg.outlier_cap(n))),
-        "decode_kernel": rows[1]["ms"],
+        "compaction": sum(time_ms(lambda s=s, c=c: (
+            C.lc_compact_payload(s, c), C.pack_words(c, 2)))
+            for s, c in compact_in) if pipe.stages else 0.0,
+        "gather": sum(time_ms(lambda c=c: C.lc_gather_chunks(enc.payload, c))
+                      for c in codes),
+        "expand_kernel": t.get("_lc_expand", 0.0),
+        "decode_kernel": t.get("_rel_unpack", 0.0) + t.get("_abs_unpack", 0.0),
         "scatter": time_ms(lambda: C.scatter_outliers_(
             buf, n, enc.out_idx, enc.out_payload)),
     }
+    del compact_in, outlier, buf
     enc_ms = time_ms(lambda: pipe.encode(x, eb, device=DEV), reps=10, warm=2)
     dec_ms = time_ms(lambda: pipe.decode(enc, n=n, device=DEV), reps=10, warm=2)
+    wire_bits = pipe.wire_bits(enc, n)
+    wire_bits = float(wire_bits) if torch.is_tensor(wire_bits) else wire_bits
     print(json.dumps({
         "chain": label, "spec": pipe.spec(), "n": n,
-        "ratio": 32 * n / pipe.wire_bits(enc, n),
-        "wire_bytes": pipe.wire_bytes(enc, n),
+        "ratio": 32 * n / wire_bits, "wire_bits": wire_bits,
+        "wire_bytes": wire_bits / 8, "payload_len": int(enc.payload_len),
+        "capacity_words": enc.payload.numel(),
+        "codes_hist": [hist_of(c) for c in codes],
         "n_outliers": int(enc.n_outliers), "overflow": bool(enc.overflow),
         "eb": eb64, "violations": bad,
         "encode_ms": enc_ms, "decode_ms": dec_ms,
         "encode_GBps": 4 * n / enc_ms / 1e6, "decode_GBps": 4 * n / dec_ms / 1e6,
         "parts_ms": parts,
-        "launches": {k: launches[k] for k in kernels}}), flush=True)
+        "launches": {k: counts[k] for k in sorted({c[0] for c in calls})}}),
+        flush=True)
     return rows
+
+
+def sweep_field(n: int, bits: int, rel: bool, cfg, gen):
+    """Float32 values on the card whose packed words give chunk codes 0, 1,
+    2, 3 in turn, chunk by chunk (stage narrow): class 1 keeps every word
+    < 2^8, class 2 every word < 2^16, class 3 has words >= 2^16 or with
+    bit 31 set.  ABS values are bin*eb2, REL values
+    +-pow2approx(bin*log_step): both quantize back to the bin exactly."""
+    from repro_torch.core.bitops import pow2approx
+    vpw = 32 // bits
+    row = torch.arange(n, device=DEV) // 128
+    cls = (row // (4 * vpw)) % 4
+    field = row % vpw
+    big = 100_000 if rel else 1 << 23
+    # (lowest bin, highest bin, fields of the word that may be nonzero)
+    spans = {8: ((-100, 100, 1), (-100, 100, 2), (-100, 100, 4)),
+             16: ((0, 255, 1), (-30000, 30000, 1), (-30000, 30000, 2)),
+             32: ((0, 255, 1), (256, 65535, 1), (-big, big, 1))}[bits]
+    bins = torch.zeros(n, dtype=torch.int64, device=DEV)
+    for k, (lo, hi, nf) in enumerate(spans, start=1):
+        r = torch.randint(lo, hi + 1, (n,), generator=gen, device=DEV)
+        bins = torch.where((cls == k) & (field < nf), r, bins)
+    if rel:
+        _, log_step, _ = cfg.rel_constants()
+        mag = pow2approx((bins * float(log_step)).to(torch.float32))
+        neg = torch.randint(0, 2, (n,), generator=gen, device=DEV) == 1
+        x = torch.where(neg, -mag, mag)
+    else:
+        _, eb2, _ = cfg.abs_constants()
+        x = (bins * float(eb2)).to(torch.float32)
+    return with_specials(x.contiguous())
+
+
+def sweep_words(n_words: int, gen):
+    """A word plane whose chunks cycle through all-zero, bytes, shorts,
+    full words and bytes with one word that has bit 31 set."""
+    from repro_torch.core import codec as C
+    chunk = torch.arange(n_words, device=DEV) // C.LC_CHUNK
+    kind = chunk % 5
+    r = torch.randint(-2 ** 31, 2 ** 31, (n_words,), generator=gen,
+                      device=DEV, dtype=torch.int64)
+    w = torch.where(kind == 1, r & 0xFF,
+                    torch.where(kind == 2, r & 0xFFFF,
+                                torch.where(kind == 3, r,
+                                            torch.where(kind == 4, r & 0xFF,
+                                                        0))))
+    last = (torch.arange(n_words, device=DEV) % C.LC_CHUNK) == C.LC_CHUNK - 1
+    w = torch.where((kind == 4) & last, -16, w)
+    return w.to(torch.int32)
+
+
+def code_sweep(seed: int):
+    """The four chunk-coder kernels against their plain versions on the
+    code-sweep inputs, at pack 8/16/32, a ragged n and both stages."""
+    from repro_torch.core import codec as C
+    from repro_torch.core.config import QuantizerConfig
+    from repro_torch.kernels import lossless as L
+    from repro_torch.kernels import pack as K
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    eb_arr = torch.full((1,), 2.0 ** -7, device=DEV)
+    held, hists = 0, {}
+
+    def hold(name, what, kern_out, plain_out):
+        nonlocal held
+        ok = all(planes_equal(a, b) for a, b in zip(as_tuple(kern_out),
+                                                    as_tuple(plain_out)))
+        check(ok, f"code sweep: {name} ({what}) differs from its plain version")
+        held += 1
+
+    for bits in (8, 16, 32):
+        for mode in ("abs", "rel"):
+            cfg = QuantizerConfig(mode=mode, error_bound=2.0 ** -7
+                                  if mode == "abs" else 1e-3, bin_bits=bits)
+            x = sweep_field(N_SWEEP, bits, mode == "rel", cfg, gen)
+            n_words = C.packed_word_count(N_SWEEP, bits)
+            words = (K.rel_pack(x, cfg) if mode == "rel"
+                     else K.abs_pack(x, eb_arr, cfg))[0]
+            for stage in ("zero", "narrow"):
+                what = f"{mode} pack:{bits} {stage}"
+                if mode == "rel":
+                    out = L.rel_pack_lc(x, cfg, stage)
+                    hold("_rel_pack_lc", what, out,
+                         L._rel_pack_lc_plain(x, cfg, stage))
+                else:
+                    out = L.abs_pack_lc(x, eb_arr, cfg, stage)
+                    hold("_abs_pack_lc", what, out,
+                         L._abs_pack_lc_plain(x, eb_arr, cfg, stage))
+                sel, codes = out[-2], out[-1]
+                hist = hist_of(codes)
+                hists[what] = hist
+                want = (1, 2, 3) if stage == "narrow" else (3,)
+                check(all(hist[c] >= 0.1 * codes.numel() for c in (0, *want)),
+                      f"code sweep: {what} codes {hist} miss a code")
+                hold("_lc_select", what, L.lc_select(words, stage),
+                     L._lc_select_plain(words, stage))
+                back = L.lc_expand(sel, codes, n_words)
+                hold("_lc_expand", what, back,
+                     L._lc_expand_plain(sel, codes, n_words))
+                check(planes_equal(back, words),
+                      f"code sweep: {what} expand does not invert select")
+    n_words = 3 * 4096 * C.LC_CHUNK // 128 + 129       # ragged word plane
+    words = sweep_words(n_words, gen)
+    for stage in ("zero", "narrow"):
+        sel, codes = L.lc_select(words, stage)
+        hold("_lc_select", f"words {stage}", (sel, codes),
+             L._lc_select_plain(words, stage))
+        hists[f"words {stage}"] = hist_of(codes)
+        back = L.lc_expand(sel, codes, n_words)
+        hold("_lc_expand", f"words {stage}", back,
+             L._lc_expand_plain(sel, codes, n_words))
+        check(planes_equal(back, words), f"code sweep: words {stage} roundtrip")
+    print(json.dumps({"phase": "code-sweep", "n": N_SWEEP, "held": held,
+                      "codes_hist": hists}), flush=True)
 
 
 def main(argv=None) -> int:
@@ -313,16 +595,23 @@ def main(argv=None) -> int:
           file=sys.stderr)
     print(lib.with_suffix(".log").read_text(), file=sys.stderr)
 
-    nyx, grad = make_fields(args.n, args.seed)
-    finite = torch.where(torch.isfinite(grad), grad, torch.zeros_like(grad))
-    eb_grad = 2.0 ** -5 * torch.sqrt(torch.mean(finite * finite))   # 0-d, on card
+    f = make_fields(args.n, args.seed)
     rows = []
-    rows += run_chain("rel", "rel:0.001|pack:16", nyx, None, True,
-                      ("_rel_pack", "_rel_unpack"))
-    rows += run_chain("noa", "noa:0.001|pack:16", nyx, None, False,
-                      ("_abs_pack", "_abs_unpack"))
-    rows += run_chain("grad-wire-8", get_pipeline("grad-wire-8"), grad,
-                      eb_grad, False, ("_abs_pack", "_abs_unpack"))
+    rows += run_chain("rel", "rel:0.001|pack:16", f["nyx"], None)
+    rows += run_chain("noa", "noa:0.001|pack:16", f["nyx"], None)
+    rows += run_chain("grad-wire-8", get_pipeline("grad-wire-8"), f["grad"],
+                      rms_eb(f["grad"]))
+    rows += run_chain("sci-rel-narrow", get_pipeline("sci-rel-narrow"),
+                      f["nyx"], None)
+    rows += run_chain("grad-wire-16-narrow",
+                      get_pipeline("grad-wire-16-narrow"), f["emb"],
+                      rms_eb(f["emb"]))
+    rows += run_chain("smoke-chain", get_pipeline("smoke-chain"),
+                      f["near_one"], None)
+    del f
+    code_sweep(args.seed)
+    check(set(KERNELS) <= {r["name"] for r in rows},
+          "a kernel has no main-path row")
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"chip_smoke: {time.time() - t0:.1f} s", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels: `nvcc` into a shared library with
 a plain C interface, loaded with ctypes.
 
-The library is built at first use into `build/repro_torch/` at the root of
-the checkout (listed in `.gitignore`), named by a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one loads at once.
-The flags keep the paper's bit-exactness rules: `-fmad=false` (no
-multiply-add contraction) and no `--use_fast_math` (which would flush
-denormals, approximate divisions and may fold away `isfinite`).
+The sources (`csrc/pack.cu`, `csrc/lossless.cu`, both including
+`csrc/quantize.cuh`) are compiled in parallel, one `nvcc` each, and linked
+into one library at first use, in `build/repro_torch/` at the root of the
+checkout (listed in `.gitignore`).  The library is named by a hash of the
+sources, the header and the flags, so an edited source rebuilds and an
+unchanged one loads at once.  The flags keep the paper's bit-exactness
+rules: `-fmad=false` (no multiply-add contraction) and no
+`--use_fast_math` (which would flush denormals, approximate divisions and
+may fold away `isfinite`).
 """
 from __future__ import annotations
 
@@ -18,20 +21,29 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "pack.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "pack.cu", CSRC / "lossless.cu")
+HEADERS = (CSRC / "quantize.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-O3", "-fmad=false", "-std=c++17", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH, "-shared")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C signatures of csrc/pack.cu (every pointer and the stream as c_void_p)
+# C signatures of csrc/*.cu (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "repro_abs_pack": [_P, _LL, _P, _I, _I, _F, _F, _P, _LL, _P, _P],
     "repro_rel_pack": [_P, _LL, _I, _I, _F, _F, _F, _F, _F, _P, _LL, _P, _P,
                        _P],
     "repro_abs_unpack": [_P, _LL, _P, _I, _F, _P, _LL, _P],
     "repro_rel_unpack": [_P, _LL, _P, _I, _F, _P, _LL, _P],
+    "repro_abs_pack_lc": [_P, _LL, _P, _I, _I, _F, _F, _I, _LL, _P, _P, _P,
+                          _P],
+    "repro_rel_pack_lc": [_P, _LL, _I, _I, _F, _F, _F, _F, _F, _I, _LL, _P,
+                          _P, _P, _P, _P],
+    "repro_lc_select": [_P, _LL, _I, _LL, _P, _P, _P],
+    "repro_lc_expand": [_P, _P, _LL, _P, _LL, _P],
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -50,27 +62,36 @@ def nvcc_path() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/pack.cu (once per source and flag set); returns the
-    library's path.  The compiler's output, register counts included, is
-    kept beside it as <lib>.log."""
-    src = SOURCE
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"{src.stem}_{digest.hexdigest()[:16]}.so"
+    """Compile and link csrc/*.cu (once per source and flag set); returns
+    the library's path.  The compiler's output, register counts included,
+    is kept beside it as <lib>.log."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for f in SOURCES + HEADERS:
+        digest.update(f.name.encode() + f.read_bytes())
+    lib = BUILD_DIR / f"repro_torch_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                              capture_output=True, text=True)
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
-        os.replace(tmp, lib)          # atomic: concurrent builders agree
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        out = Path(tmp) / lib.name
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(out),
+                               *map(str, objs)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        log = "".join(f"== {src.name}\n{text}"
+                      for src, text in zip(SOURCES, logs))
+        lib.with_suffix(".log").write_text(f"{log}== link\n{link.stdout}")
+        failed = [src.name for src, p in zip(SOURCES, procs) if p.returncode]
+        if failed or link.returncode:
+            raise RuntimeError(f"nvcc failed on {failed or 'the link'}:\n"
+                               f"{log}{link.stdout}")
+        os.replace(out, lib)          # atomic: concurrent builders agree
     return lib
 
 

@@ -52,15 +52,15 @@ def _eb_operand(eb: torch.Tensor, device) -> torch.Tensor:
     return eb.reshape(1).contiguous()
 
 
-def _launch(name: str, fn: str, device, *args) -> None:
+def _launch(counts: dict, name: str, fn: str, device, *args) -> None:
     """Call C function `fn` of the kernel library on `device`'s current
-    stream; raise if the launch failed."""
+    stream; raise if the launch failed, else add one to counts[name]."""
     from . import _build
     lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         _build.check(lib, getattr(lib, fn)(*args, stream), name)
-    LAUNCHES[name] += 1
+    counts[name] += 1
 
 
 # ------------------------------------------------------- plain versions --
@@ -101,8 +101,8 @@ def abs_pack(x: torch.Tensor, eb: torch.Tensor, cfg: QuantizerConfig):
     n_words = C.packed_word_count(n, cfg.bin_bits)
     words = torch.empty(n_words, dtype=torch.int32, device=x.device)
     outlier = torch.empty(n, dtype=torch.bool, device=x.device)
-    _launch("_abs_pack", "repro_abs_pack", x.device, x.data_ptr(), n,
-            eb.data_ptr(), cfg.bin_bits, cfg.maxbin,
+    _launch(LAUNCHES, "_abs_pack", "repro_abs_pack", x.device, x.data_ptr(),
+            n, eb.data_ptr(), cfg.bin_bits, cfg.maxbin,
             float(np.float32(cfg.tighten)), float(np.float32(cfg.eb_floor)),
             words.data_ptr(), n_words // LANES, outlier.data_ptr())
     return words, outlier
@@ -129,8 +129,8 @@ def rel_pack(x: torch.Tensor, cfg: QuantizerConfig):
     outlier = torch.empty(n, dtype=torch.bool, device=x.device)
     sign_words = torch.empty(C.packed_word_count(n, 1), dtype=torch.int32,
                              device=x.device)
-    _launch("_rel_pack", "repro_rel_pack", x.device, x.data_ptr(), n,
-            cfg.bin_bits, cfg.maxbin, *rel_constants_f32(cfg),
+    _launch(LAUNCHES, "_rel_pack", "repro_rel_pack", x.device, x.data_ptr(),
+            n, cfg.bin_bits, cfg.maxbin, *rel_constants_f32(cfg),
             words.data_ptr(), n_words // LANES, outlier.data_ptr(),
             sign_words.data_ptr())
     return words, outlier, sign_words
@@ -155,9 +155,9 @@ def abs_unpack(words: torch.Tensor, eb: torch.Tensor, n: int,
         y[:n] = _abs_unpack_plain(words, eb, n, cfg)
         return y[:n]
     eb = _eb_operand(eb, words.device)
-    _launch("_abs_unpack", "repro_abs_unpack", words.device, words.data_ptr(),
-            words.shape[0] // LANES, eb.data_ptr(), cfg.bin_bits,
-            float(np.float32(cfg.eb_floor)), y.data_ptr(), n)
+    _launch(LAUNCHES, "_abs_unpack", "repro_abs_unpack", words.device,
+            words.data_ptr(), words.shape[0] // LANES, eb.data_ptr(),
+            cfg.bin_bits, float(np.float32(cfg.eb_floor)), y.data_ptr(), n)
     return y[:n]
 
 
@@ -173,9 +173,9 @@ def rel_unpack(words: torch.Tensor, sign_words: torch.Tensor, n: int,
     if dev == "cpu":
         y[:n] = _rel_unpack_plain(words, sign_words, n, cfg)
         return y[:n]
-    _launch("_rel_unpack", "repro_rel_unpack", words.device, words.data_ptr(),
-            words.shape[0] // LANES, sign_words.data_ptr(), cfg.bin_bits,
-            rel_constants_f32(cfg)[1], y.data_ptr(), n)
+    _launch(LAUNCHES, "_rel_unpack", "repro_rel_unpack", words.device,
+            words.data_ptr(), words.shape[0] // LANES, sign_words.data_ptr(),
+            cfg.bin_bits, rel_constants_f32(cfg)[1], y.data_ptr(), n)
     return y[:n]
 
 

@@ -87,3 +87,129 @@ def test_pipeline_on_card_matches_cpu(spec):
     y = pipe.decode(on_card, n=x.size).cpu()
     assert torch.equal(y.view(torch.int32),
                        pipe.decode(on_cpu, n=x.size, device="cpu").view(torch.int32))
+
+
+# ----------------------------------------- the chunk coder (lossless.cu) --
+
+def _sweep_x(n, bits, mode, cfg):
+    """Values whose packed words give chunk codes 0, 1, 2, 3 in turn (stage
+    narrow): class 1 keeps words < 2^8, class 2 < 2^16, class 3 has words
+    >= 2^16 or with bit 31 set; ABS values bin*eb2, REL +-pow2approx."""
+    from repro_torch.core.bitops import pow2approx
+    vpw = 32 // bits
+    row = np.arange(n) // 128
+    cls, field = (row // (4 * vpw)) % 4, row % vpw
+    big = 100_000 if mode == "rel" else 1 << 23
+    spans = {8: ((-100, 100, 1), (-100, 100, 2), (-100, 100, 4)),
+             16: ((0, 255, 1), (-30000, 30000, 1), (-30000, 30000, 2)),
+             32: ((0, 255, 1), (256, 65535, 1), (-big, big, 1))}[bits]
+    bins = np.zeros(n, np.int64)
+    for k, (lo, hi, nf) in enumerate(spans, start=1):
+        m = (cls == k) & (field < nf)
+        bins[m] = RNG.integers(lo, hi + 1, m.sum())
+    if mode == "rel":
+        _, log_step, _ = cfg.rel_constants()
+        mag = pow2approx(torch.from_numpy(
+            (bins * float(log_step)).astype(np.float32))).numpy()
+        x = np.where(RNG.random(n) < 0.5, -mag, mag).astype(np.float32)
+    else:
+        x = (bins * float(cfg.abs_constants()[1])).astype(np.float32)
+    x[:8] = _mix(8)
+    return x
+
+
+def _equal(a, b):
+    a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple)
+                                                    else (b,))
+    assert len(a) == len(b)
+    for u, v in zip(a, b):
+        assert u.dtype == v.dtype and torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["zero", "narrow"])
+@pytest.mark.parametrize("n", [1, 4095, 4096 * 7 + 129])
+@pytest.mark.parametrize("bits", [8, 16, 32])
+@pytest.mark.parametrize("mode", ["abs", "rel"])
+def test_lc_kernels_match_plain_versions_on_card(mode, bits, n, stage):
+    """B5 (fused pack + select), B6 (select) and B7 (expand) against their
+    plain versions on the code sweep, with each launch counted."""
+    _need_card()
+    from repro_torch.kernels import lossless as TL
+    cfg = TCfg(mode=mode, error_bound=2.0 ** -7 if mode == "abs" else 1e-3,
+               bin_bits=bits)
+    x = torch.from_numpy(_sweep_x(max(n, 8), bits, mode, cfg)[:n]).cuda()
+    eb = torch.tensor([2.0 ** -7], device="cuda")
+    before = dict(TL.LAUNCHES)
+    if mode == "rel":
+        out = TL.rel_pack_lc(x, cfg, stage)
+        _equal(out, TL._rel_pack_lc_plain(x, cfg, stage))
+        words = TK.rel_pack(x, cfg)[0]
+    else:
+        out = TL.abs_pack_lc(x, eb, cfg, stage)
+        _equal(out, TL._abs_pack_lc_plain(x, eb, cfg, stage))
+        words = TK.abs_pack(x, eb, cfg)[0]
+    sel, codes = out[-2], out[-1]
+    _equal(TL.lc_select(words, stage), TL._lc_select_plain(words, stage))
+    back = TL.lc_expand(sel, codes, words.shape[0])
+    _equal(back, TL._lc_expand_plain(sel, codes, words.shape[0]))
+    _equal(back, words)
+    torch.cuda.synchronize()
+    if n > 4096 and stage == "narrow":
+        hist = torch.bincount(codes.long(), minlength=4)
+        assert (hist >= 0.1 * codes.numel()).all(), hist
+    name = "_rel_pack_lc" if mode == "rel" else "_abs_pack_lc"
+    assert TL.LAUNCHES[name] == before[name] + 1
+    assert TL.LAUNCHES["_lc_select"] == before["_lc_select"] + 1
+    assert TL.LAUNCHES["_lc_expand"] == before["_lc_expand"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["zero", "narrow"])
+@pytest.mark.parametrize("n_words", [1, 511, 512, 513, 3 * 4096 + 129])
+def test_lc_select_expand_on_card_with_bit31_words(n_words, stage):
+    """Words with bit 31 set are negative as int32; the select must rank
+    them as the largest, in the kernel and in its plain version."""
+    _need_card()
+    from repro_torch.kernels import lossless as TL
+    w = RNG.integers(0, 1 << 8, n_words).astype(np.uint32)
+    w[::97] |= np.uint32(1 << 31)
+    w[1024:2048] = RNG.integers(0, 1 << 16, len(w[1024:2048]))
+    words = torch.from_numpy(w.view(np.int32)).cuda()
+    sel, codes = TL.lc_select(words, stage)
+    _equal((sel, codes), TL._lc_select_plain(words, stage))
+    assert int(codes[0]) == 3
+    _equal(TL.lc_expand(sel, codes, n_words), words)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["grad-wire-8-narrow", "grad-wire-16-zero",
+                                  "grad-wire-16-narrow", "sci-abs-narrow",
+                                  "sci-rel-narrow", "smoke-chain",
+                                  "noa:0.001|pack:16|zero"])
+def test_lc_pipeline_on_card_matches_cpu(name):
+    """The chunk-stage chains on the card (B5 or the pack kernel and B6,
+    then B7) against the CPU reference, plane by plane."""
+    _need_card()
+    from repro_torch.configs.registry import PIPELINES
+    from repro_torch.core.pipeline import parse_pipeline
+    pipe = parse_pipeline(PIPELINES.get(name, name))
+    x = _mix(20000)
+    x[RNG.random(x.size) < 0.5] = 0.0            # zero chunks and narrow ones
+    if name == "smoke-chain":
+        x = np.exp(RNG.standard_normal(20000) * 0.02).astype(np.float32)
+    eb = torch.tensor(1e-2) if name.startswith("grad") else None
+    on_card = pipe.encode(x, None if eb is None else eb.cuda())
+    on_cpu = pipe.encode(x, eb, device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        if isinstance(a, tuple):
+            for u, v in zip(a, b):
+                assert torch.equal(u.cpu(), v)
+        elif torch.is_tensor(a):
+            assert torch.equal(a.cpu(), b)
+    assert torch.equal(pipe.wire_bits(on_card, x.size).cpu(),
+                       pipe.wire_bits(on_cpu, x.size))
+    y = pipe.decode(on_card, n=x.size).cpu()
+    assert torch.equal(y.view(torch.int32),
+                       pipe.decode(on_cpu, n=x.size, device="cpu")
+                       .view(torch.int32))

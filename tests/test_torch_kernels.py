@@ -23,7 +23,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import pack as TK
 
 RNG = np.random.default_rng(1105)
-SOURCE = Path(TK.__file__).resolve().parent / "csrc" / "pack.cu"
+CSRC = Path(TK.__file__).resolve().parent / "csrc"
 
 
 def _mix(n):
@@ -91,21 +91,31 @@ def test_wrappers_validate_operands():
 
 
 def test_build_keeps_the_bit_exactness_rules():
-    """The flags and source keep the paper's rules: no contraction, no
-    fast-math, round half to even, truncating casts, masked eb2."""
-    flags = " ".join(_build.NVCC_FLAGS)
+    """The flags and sources keep the paper's rules: no contraction, no
+    fast-math, round half to even, truncating casts, masked eb2.  The
+    sources are csrc/pack.cu and csrc/lossless.cu, which share the
+    quantizers through csrc/quantize.cuh."""
+    flags = " ".join(_build.NVCC_FLAGS + _build.LINK_FLAGS)
     assert "-fmad=false" in flags and "fast_math" not in flags
     assert "arch=compute_90a,code=sm_90a" in flags
-    src = SOURCE.read_text()
+    assert {f.name for f in _build.SOURCES + _build.HEADERS} == {
+        "pack.cu", "lossless.cu", "quantize.cuh"}
+    assert sorted(CSRC.iterdir()) == sorted(_build.SOURCES + _build.HEADERS)
+    src = "".join(f.read_text() for f in _build.SOURCES + _build.HEADERS)
     code = re.sub(r"//.*", "", src)
     assert "roundf" not in code and "__fmaf" not in code and "fmaf(" not in code
     assert "rintf" in code and "__float2int_rz" in code
     assert "0xFF800000u" in code
     for c_name in ("repro_abs_pack", "repro_rel_pack", "repro_abs_unpack",
-                   "repro_rel_unpack"):
+                   "repro_rel_unpack", "repro_abs_pack_lc",
+                   "repro_rel_pack_lc", "repro_lc_select", "repro_lc_expand"):
         assert f'extern "C" int {c_name}(' in src
         assert c_name in _build._SIGNATURES
     for kernel in ("_abs_pack_kernel", "_rel_pack_kernel",
-                   "_abs_unpack_kernel", "_rel_unpack_kernel"):
+                   "_abs_unpack_kernel", "_rel_unpack_kernel",
+                   "_abs_pack_lc_kernel", "_rel_pack_lc_kernel",
+                   "_lc_select_kernel", "_lc_expand_kernel"):
         assert f"replaces {kernel}" in src
+    for f in _build.SOURCES:
+        assert '#include "quantize.cuh"' in f.read_text()
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")

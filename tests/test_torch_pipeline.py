@@ -158,8 +158,8 @@ def test_registry_mirror_and_grammar():
 
 @pytest.mark.parametrize("spec,exc,item", [
     ("delta|abs:1e-3|pack:8", NotImplementedError, "A8"),
-    ("abs:1e-3|pack:8|zero", NotImplementedError, "B5"),
-    ("rel:1e-3|pack:32|narrow", NotImplementedError, "B5"),
+    ("abs:1e-3|pack:8|zero|ent", NotImplementedError, "A7"),
+    ("rel:1e-3|pack:32|narrow|shuffle", NotImplementedError, "A7"),
     ("rel:1e-3|pack:32|shuffle|narrow", NotImplementedError, "A7"),
     ("abs:1e-3|pack:16|ent", NotImplementedError, "A7"),
     ("abs:1e-3:dtype=float64|pack:16", NotImplementedError, "C-port-2"),
