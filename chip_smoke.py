@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py [--n N] [--seed S]
 
-Builds the eight CUDA kernels of `src/repro_torch/kernels/csrc/` (pack.cu
-and lossless.cu, one nvcc each, in parallel) from source, then runs six
-chains through `repro_torch.core.pipeline` (`Pipeline.encode` -> `Encoded`
--> `Pipeline.decode`) at n = 512**3 float32 values (the size of one
-SDRBench NYX field), with data made on the card from `--seed`:
+Builds the CUDA kernels of `src/repro_torch/kernels/csrc/` (pack.cu,
+lossless.cu, dense.cu and kv_attention.cu, one nvcc each, in parallel) from
+source, then runs six chains through `repro_torch.core.pipeline`
+(`Pipeline.encode` -> `Encoded` -> `Pipeline.decode`) at n = 512**3
+float32 values (the size of one SDRBench NYX field), with data made on the
+card from `--seed`:
 
   * `rel:0.001|pack:16` on a NYX-like lognormal field, exp(1.4*N(0,1) + 8);
   * `noa:0.001|pack:16` on the same field;
@@ -21,6 +22,19 @@ SDRBench NYX field), with data made on the card from `--seed`:
   * `smoke-chain` (`rel:0.001|pack:8|zero|narrow`) on exp(0.02*N(0,1)), a
     field within a few % of 1 whose REL bins fit 8 bits.
 
+A `dense` phase drives the dense-layout entry points
+(`kernels.ops.quantize_abs`, `quantize_rel`, `dequantize_abs` and
+`kernels.dense.dequantize_rel`) at the same n: ABS on the gradient field
+with the traced bound rms_eb(g), REL on the NYX-like field at 1e-3, each
+decoded with the outliers' exact bits as payload.  A `kv` phase quantizes
+a KV cache (`compression.kv.quantize_kv`) and runs the flash-decode
+attention (`kernels.kv_attention.kv_decode_attention`) at internlm2-20b's
+attention widths (8 KV heads, 6 query heads each, head dim 128) over a
+decode_32k history (S = 32,768, page 128, cap 8), batch 32 (decode_32k's
+128 cut so that K and V in float32, 4.3 GB each, fit one card beside the
+check's copies); K and V are N(0,1)*0.7 with attention sinks, lengths are
+drawn in [1, S] with one equal to S and one not a multiple of the page.
+
 The first 64 values of each field are the paper's eight special values
 (+inf, -inf, NaN, the NaN payload 0x7FC00123, +-1e-42, +-0.0), repeated.
 
@@ -31,15 +45,23 @@ float is bit-equal to the plain torch reference run on the card, that
 each kernel is bit-equal to its plain version on the main path's inputs,
 that a small ragged input agrees with the numpy oracle, and that every
 decoded value is within eb of its original or bit-identical to it
-(checked in float64).  A code-sweep phase then holds the four chunk-coder
-kernels bit for bit against their plain versions on inputs where each
-chunk code covers at least 10 % of the chunks, at pack 8, 16 and 32, a
-ragged n and both stages.  Each kernel is timed with CUDA events (median
-of 25 after warm-up) beside its bound and its plain version (which
-repeats the kernel's arithmetic and is no yardstick of speed).
+(checked in float64).  The dense phase holds the same: launches, every
+plane bit-equal, 0 violations.  The kv phase checks that no page
+overflows its outlier table, that every page meets its bound, that the
+attention kernel is within rtol = atol = 2e-5 of its plain version (the
+reference's own tolerance), and prints both outputs' errors against a
+float64 attention over the same dequantized cache.  A code-sweep phase
+holds the four chunk-coder kernels bit for bit against their plain
+versions on inputs where each chunk code covers at least 10 % of the
+chunks, at pack 8, 16 and 32, a ragged n and both stages.  Each kernel is
+timed with CUDA events (median of 25 after warm-up) beside its bound and
+its plain version (which repeats the kernel's arithmetic and is no
+yardstick of speed); the attention also beside one
+`scaled_dot_product_attention` call over the dequantized float32 cache.
 
 Output: the card's name and power limit, one JSON line per chain, one
-JSON line for the code sweep, one JSON line {"kernels": [...]}, and last
+JSON line per phase (dense, code sweep, kv), one JSON line
+{"kernels": [...]}, and last
 {"ok": true, "device": {...}}.  Any failed check exits non-zero; with no
 CUDA device, or outside a checkout, it exits non-zero before printing any
 result.
@@ -77,6 +99,12 @@ KERNELS = {
     "_rel_pack_lc": ("lossless.cu", "src/repro/kernels/lossless.py:128"),
     "_lc_select": ("lossless.cu", "src/repro/kernels/lossless.py:100"),
     "_lc_expand": ("lossless.cu", "src/repro/kernels/lossless.py:106"),
+    "_quantize_abs": ("dense.cu", "src/repro/kernels/quantize_abs.py:32"),
+    "_quantize_rel": ("dense.cu", "src/repro/kernels/quantize_rel.py:41"),
+    "_dequantize_abs": ("dense.cu", "src/repro/kernels/dequantize.py:21"),
+    "_dequantize_rel": ("dense.cu", "src/repro/kernels/dequantize.py:35"),
+    "_kv_decode_attention": ("kv_attention.cu",
+                             "src/repro/kernels/kv_attention.py:39"),
 }
 # Operations per element (per word for _lc_select and _lc_expand), counted
 # in csrc/: abs_quantize 2 mul, rint, sub, 2 conversions, 2 abs, 2
@@ -85,12 +113,22 @@ KERNELS = {
 # ABS unpack a conversion and a mul; the REL unpack a conversion, a mul and
 # pow2approx.  The chunk select adds integer work the fused kernels hide
 # under their float32 count; alone it is a max, 3 compares and 4
-# shift/masks per word, the expand 4 shift/masks per word.  Integer
-# operations are counted against the float32 rate.  The bound is set by
-# bytes whenever these are far under the card's rate over its HBM rate.
+# shift/masks per word, the expand 4 shift/masks per word.  The dense
+# kernels count as the pack ones, plus the recon (a conversion and a mul,
+# REL also pow2approx) and the payload select.  Integer operations are
+# counted against the float32 rate.  The bound is set by bytes whenever
+# these are far under the card's rate over its HBM rate.
 OPS_PER_ELEM = {"_abs_pack": 10, "_rel_pack": 16, "_abs_unpack": 2,
                 "_rel_unpack": 6, "_abs_pack_lc": 10, "_rel_pack_lc": 16,
-                "_lc_select": 8, "_lc_expand": 4}
+                "_lc_select": 8, "_lc_expand": 4, "_quantize_abs": 12,
+                "_quantize_rel": 22, "_dequantize_abs": 3,
+                "_dequantize_rel": 7}
+# the kv phase: internlm2-20b's attention (src/repro/configs/registry.py:22,
+# 48 query heads over 8 KV heads of 128) over the decode_32k history
+# (src/repro/configs/base.py:159) at page 128, cap 8 (models/serve.py)
+KV_G, KV_HG, KV_D, KV_S, KV_PAGE, KV_CAP = 8, 6, 128, 32_768, 128, 8
+KV_BATCH = 32                  # decode_32k's 128 cut to fit one card
+KV_TOL = 2e-5                  # rtol = atol: the reference's own tolerance
 
 
 class CheckFailed(RuntimeError):
@@ -191,23 +229,48 @@ def kernel_bytes(name: str, n: int, bits: int = 32, hist=None) -> int:
             "_abs_unpack": words + 4 + 4 * n,
             "_rel_unpack": words + signs + 4 * n,
             "_abs_pack_lc": 4 * n + 4 + n + image,
-            "_rel_pack_lc": 4 * n + n + signs + image}[name]
+            "_rel_pack_lc": 4 * n + n + signs + image,
+            "_quantize_abs": 4 * n + 4 + 4 * n + n + 4 * n,
+            "_quantize_rel": 4 * n + 4 * n + n + 4 * n + n,
+            "_dequantize_abs": 4 * n + 4 * n + n + 4 + 4 * n,
+            "_dequantize_rel": 4 * n + 4 * n + n + n + 4 * n}[name]
+
+
+def bound_from(n_bytes: float, ops: float):
+    """(least ms, what sets it): bytes over the HBM rate or operations over
+    the float32 rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def bound_of(name: str, n: int, bits: int, hist=None):
-    t_bytes = kernel_bytes(name, n, bits, hist) / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_ELEM[name] * n / F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return bound_from(kernel_bytes(name, n, bits, hist),
+                      OPS_PER_ELEM[name] * n)
+
+
+def kv_work(lengths, b: int, hg: int, s: int = KV_S):
+    """(bytes, operations) of B12 on this run's lengths: the pages it reads
+    (those holding a token < lengths[b]) with their int8 K and V tiles, eb2
+    and cap (idx, val) slots, q and the output once, the lengths; per token
+    read, 4*Hg*D for the scores and p v, 2*D dequantize muls, Hg exps."""
+    pages = int((torch.div(lengths.long().clamp(min=0) + KV_PAGE - 1,
+                           KV_PAGE, rounding_mode="floor")
+                 .clamp(max=s // KV_PAGE)).sum()) * KV_G
+    per_page = 2 * (KV_PAGE * KV_D + 4 + KV_CAP * 8)
+    n_bytes = pages * per_page + 2 * 4 * b * KV_G * hg * KV_D + 4 * b
+    tokens = pages * KV_PAGE
+    return n_bytes, tokens * (4 * hg * KV_D + 2 * KV_D + hg)
 
 
 def max_abs_err(a, b) -> float:
     """Largest difference between a kernel's output and its plain
-    version's: float planes as values (NaN matching NaN), int planes as
-    uint32, bool planes as 0/1."""
+    version's: float planes as values (NaN matching NaN, an infinity
+    itself), int planes as uint32, bool planes as 0/1."""
     if a.dtype.is_floating_point:
         a64, b64 = a.double(), b.double()
-        both_nan = torch.isnan(a64) & torch.isnan(b64)
-        d = torch.where(both_nan, torch.zeros_like(a64), (a64 - b64).abs())
+        same = (a64 == b64) | (torch.isnan(a64) & torch.isnan(b64))
+        d = torch.where(same, torch.zeros_like(a64), (a64 - b64).abs())
         d = torch.nan_to_num(d, nan=float("inf"))
     else:
         d = ((a.to(torch.int64) & 0xFFFFFFFF)
@@ -215,17 +278,18 @@ def max_abs_err(a, b) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
+def _kernel_modules():
+    from repro_torch.kernels import dense, kv_attention, lossless, pack
+    return pack, lossless, dense, kv_attention
+
+
 def launches():
-    from repro_torch.kernels import lossless as L
-    from repro_torch.kernels import pack as K
-    return {**K.LAUNCHES, **L.LAUNCHES}
+    return {k: v for m in _kernel_modules() for k, v in m.LAUNCHES.items()}
 
 
 def reset_launches():
-    from repro_torch.kernels import lossless as L
-    from repro_torch.kernels import pack as K
-    K.reset_launches()
-    L.reset_launches()
+    for m in _kernel_modules():
+        m.reset_launches()
 
 
 def stage_codes(pipe, enc, n: int):
@@ -567,6 +631,197 @@ def code_sweep(seed: int):
     print(json.dumps({"phase": "code-sweep", "n": N_SWEEP, "held": held,
                       "codes_hist": hists}), flush=True)
 
+def dense_phase(f) -> list:
+    """B8-B11 on their main path, the dense entry points
+    (`kernels.ops.quantize_abs/quantize_rel/dequantize_abs` and
+    `kernels.dense.dequantize_rel`) at n = 512**3: ABS on the gradient
+    field with the traced bound rms_eb(g) as a 0-d CUDA tensor, REL on the
+    NYX-like field at 1e-3, each decoded with x's bits as the outlier
+    payload.  Every plane bit-equal to the plain version on the card, and
+    0 bound violations in float64."""
+    from repro_torch.core.bitops import float_to_bits
+    from repro_torch.core.config import QuantizerConfig
+    from repro_torch.kernels import dense as D
+    from repro_torch.kernels import ops
+    xa, xr = f["grad"], f["nyx"]
+    n = xa.numel()
+    eb = rms_eb(xa)
+    eb_arr = eb.reshape(1)
+    acfg = QuantizerConfig(mode="abs", error_bound=1e-3, bin_bits=16)
+    rcfg = QuantizerConfig(mode="rel", error_bound=1e-3, bin_bits=16)
+    zero = torch.zeros((), dtype=torch.int32, device=DEV)
+    torch.cuda.synchronize()
+    reset_launches()
+    qa = ops.quantize_abs(xa, acfg, eb=eb)
+    qr = ops.quantize_rel(xr, rcfg)
+    pa = torch.where(qa.outlier, float_to_bits(xa), zero)
+    pr = torch.where(qr.outlier, float_to_bits(xr), zero)
+    ya = ops.dequantize_abs(qa.bins, pa, qa.outlier, acfg, eb=eb)
+    yr = D.dequantize_rel(qr.bins, pr, qr.outlier, qr.sign, rcfg)
+    torch.cuda.synchronize()
+    counts = launches()
+
+    eb64 = float(eb.item())
+    bad_a = violations(xa, ya, eb64, False)
+    bad_r = violations(xr, yr, rcfg.error_bound, True)
+    check(bad_a == 0 and bad_r == 0,
+          f"dense: {bad_a} ABS and {bad_r} REL values violate the bound")
+    for qt, y, what in ((qa, ya, "ABS"), (qr, yr, "REL")):
+        check(planes_equal(torch.where(qt.outlier, qt.recon, y), qt.recon),
+              f"dense: {what} decode differs from the encoder's recon")
+    calls = [
+        ("_quantize_abs", lambda: tuple(ops.quantize_abs(xa, acfg, eb=eb)[:3]),
+         lambda: tuple(D._quantize_abs_plain(xa, eb_arr, acfg)[:3])),
+        ("_quantize_rel", lambda: tuple(ops.quantize_rel(xr, rcfg)),
+         lambda: tuple(D._quantize_rel_plain(xr, rcfg))),
+        ("_dequantize_abs",
+         lambda: ops.dequantize_abs(qa.bins, pa, qa.outlier, acfg, eb=eb),
+         lambda: D._dequantize_abs_plain(qa.bins, pa, qa.outlier, eb_arr,
+                                         acfg)),
+        ("_dequantize_rel",
+         lambda: D.dequantize_rel(qr.bins, pr, qr.outlier, qr.sign, rcfg),
+         lambda: D._dequantize_rel_plain(qr.bins, pr, qr.outlier, qr.sign,
+                                         rcfg)),
+    ]
+    for name, _, _ in calls:
+        check(counts[name] > 0, f"dense: {name} not launched on the main path")
+    rows = [kernel_row(name, "abs" if "abs" in name else "rel", "dense", 16,
+                       n, None, kern, plain, counts[name])
+            for name, kern, plain in calls]
+    print(json.dumps({
+        "phase": "dense", "n": n, "eb_abs": eb64, "eb_rel": rcfg.error_bound,
+        "n_outliers_abs": int(qa.outlier.sum()),
+        "n_outliers_rel": int(qr.outlier.sum()),
+        "violations": bad_a + bad_r,
+        "launches": {name: counts[name] for name, _, _ in calls}}),
+        flush=True)
+    return rows
+
+
+def kv_rows(qkv, i: int):
+    """Batch row i of a QuantizedKV, keeping the batch axis."""
+    return type(qkv)(*(t[i:i + 1] for t in qkv))
+
+
+def kv_phase(seed: int, batch: int = KV_BATCH, s: int = KV_S) -> list:
+    """B12 on its main path: `compression.kv.quantize_kv` of K and V, then
+    `kernels.kv_attention.kv_decode_attention`, at internlm2-20b's
+    attention widths over a decode_32k history."""
+    import torch.nn.functional as F
+    from repro_torch.compression import kv as KV
+    from repro_torch.kernels import kv_attention as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 2)
+    shape = (batch, KV_G, s, KV_D)
+    k = torch.randn(shape, generator=gen, device=DEV) * 0.7
+    v = torch.randn(shape, generator=gen, device=DEV) * 0.7
+    k[:, :, 0, :KV_D // 4] *= 80.0         # attention sinks, as in
+    v[:, :, 0, :KV_D // 4] *= 80.0         # tests/test_kernel_attention.py
+    q = torch.randn((batch, KV_G, KV_HG, KV_D), generator=gen, device=DEV)
+    lengths = torch.randint(1, s + 1, (batch,), generator=gen, device=DEV,
+                            dtype=torch.int32)
+    lengths[0] = s
+    lengths[1] = s // 2 + 57               # not a multiple of the page
+    cfg = KV.kv_quantizer_config()
+
+    def quantize(x):
+        # one batch row at a time: pages are independent, so this is the
+        # result of one call, with 1/batch of its temporaries
+        parts = [KV.quantize_kv(x[i:i + 1], cfg, page=KV_PAGE, cap=KV_CAP)
+                 for i in range(x.shape[0])]
+        return KV.QuantizedKV(*(torch.cat(p) for p in zip(*parts)))
+
+    def attend():
+        return A.kv_decode_attention(q, kq, vq, lengths, page=KV_PAGE,
+                                     cap=KV_CAP)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    kq, vq = quantize(k), quantize(v)
+    out = attend()
+    torch.cuda.synchronize()
+    counts = launches()
+    name = "_kv_decode_attention"
+    check(counts[name] > 0, f"kv: {name} not launched on the main path")
+    overflow = int(kq.overflow.sum() + vq.overflow.sum())
+    check(overflow == 0, f"kv: {overflow} pages overflow their outlier table")
+    holds = all(bool(KV.kv_error_bound_holds(x[i:i + 1], kv_rows(qkv, i), cfg))
+                for x, qkv in ((k, kq), (v, vq)) for i in range(batch))
+    check(holds, "kv: a page misses its bound")
+    quantize_ms = time_ms(lambda: quantize(k), reps=3, warm=1)
+    del k, v
+
+    def plain():
+        return A._kv_decode_attention_plain(q, kq, vq, lengths, page=KV_PAGE)
+
+    want = plain()
+    close = bool(torch.allclose(out, want, rtol=KV_TOL, atol=KV_TOL))
+    err = max_abs_err(out, want)
+    check(close, f"kv: {name} differs from its plain version by {err}")
+
+    def attention64(i):
+        kd = KV.dequantize_kv(kv_rows(kq, i), page=KV_PAGE).double()
+        vd = KV.dequantize_kv(kv_rows(vq, i), page=KV_PAGE).double()
+        sc = torch.einsum("bghd,bgsd->bghs", q[i:i + 1].double(), kd)
+        sc = sc / KV_D ** 0.5
+        mask = torch.arange(s, device=DEV) < lengths[i]
+        sc = sc.masked_fill(~mask, float("-inf"))
+        return torch.einsum("bghs,bgsd->bghd", torch.softmax(sc, -1), vd)
+
+    ref64 = torch.cat([attention64(i) for i in range(batch)])
+    kd, vd = (KV.dequantize_kv(t, page=KV_PAGE) for t in (kq, vq))
+    mask = (torch.arange(s, device=DEV)[None, :] < lengths[:, None].long())
+    mask = mask[:, None, None, :]
+
+    def library():
+        # Hg query heads of one KV head as Hg query rows against it: the
+        # same function as enable_gqa=True, without expanding K and V
+        return F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask)
+
+    lib_out = library()
+    errs64 = {w: max_abs_err(t.double(), ref64)
+              for w, t in (("kernel", out), ("plain", want),
+                           ("library", lib_out))}
+    n_bytes, ops = kv_work(lengths, batch, KV_HG, s)
+    bound_ms, bound_by = bound_from(n_bytes, ops)
+    terms_ms = {"bytes": bound_from(n_bytes, 0)[0], "operations":
+                bound_from(0, ops)[0]}
+    ms = time_ms(attend)
+    lib_ms = time_ms(library)
+    del kd, vd, lib_out
+    plain_ms = time_ms(plain, reps=5, warm=1)
+    n_pages = int(torch.div(lengths.long() + KV_PAGE - 1, KV_PAGE,
+                            rounding_mode="floor").sum())
+    print(json.dumps({
+        "phase": "kv", "batch": batch, "kv_heads": KV_G, "q_per_kv": KV_HG,
+        "head_dim": KV_D, "seq": s, "page": KV_PAGE, "cap": KV_CAP,
+        "lengths_min": int(lengths.min()), "lengths_max": int(lengths.max()),
+        "pages_read_per_head": n_pages,
+        "outliers": int((kq.out_idx >= 0).sum() + (vq.out_idx >= 0).sum()),
+        "overflow_pages": overflow, "bound_holds": holds,
+        "allow_tf32": [torch.backends.cuda.matmul.allow_tf32,
+                       torch.backends.cudnn.allow_tf32],
+        "max_abs_err_vs_float64": errs64,
+        "max_abs_err_kernel_vs_plain": err, "tolerance": KV_TOL,
+        "quantize_kv_ms": quantize_ms, "attention_ms": ms,
+        "library_ms": lib_ms, "plain_ms": plain_ms,
+        "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": {name: counts[name]}}), flush=True)
+    return [{"name": name, "route": "cuda", "source": CSRC + KERNELS[name][0],
+             "replaces": KERNELS[name][1], "chain": "kv",
+             "stage": f"B={batch} G={KV_G} Hg={KV_HG} D={KV_D} S={s}",
+             "bits": 8, "launches": counts[name], "max_abs_err": err,
+             "tolerance": KV_TOL, "match": close, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "bound_terms_ms": terms_ms,
+             "share": bound_ms / ms, "library_ms": lib_ms,
+             "library": "scaled_dot_product_attention over the dequantized "
+                        "float32 cache (reads 4x the cache bytes; "
+                        "dequantization not included)",
+             "bytes": n_bytes, "operations": ops}]
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -608,8 +863,10 @@ def main(argv=None) -> int:
                       rms_eb(f["emb"]))
     rows += run_chain("smoke-chain", get_pipeline("smoke-chain"),
                       f["near_one"], None)
+    rows += dense_phase(f)
     del f
     code_sweep(args.seed)
+    rows += kv_phase(args.seed)
     check(set(KERNELS) <= {r["name"] for r in rows},
           "a kernel has no main-path row")
     print(json.dumps({"kernels": rows}), flush=True)

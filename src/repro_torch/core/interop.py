@@ -1,17 +1,19 @@
-"""Carry a wire across the two packages.
+"""Carry a wire, or a quantized KV cache, across the two packages.
 
-The system has no weights: its state is the wire.  A reference `Encoded`
-(any object with its fields, as numpy or JAX arrays) converts to the
-port's `Encoded` on a device, and back to numpy planes with the
-reference's dtypes, so a wire encoded by either package decodes in the
+The system has no weights: its state is the wire and the cache.  A
+reference `Encoded` (any object with its fields, as numpy or JAX arrays)
+converts to the port's `Encoded` on a device, and back to numpy planes with
+the reference's dtypes, so a wire encoded by either package decodes in the
 other.  Word planes travel as uint32 in numpy and as int32 tensors (the
-same bits) in the port.
+same bits) in the port.  A `QuantizedKV` crosses the same way, so that a
+cache quantized by either package feeds both attentions.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..compression.kv import QuantizedKV
 from .pipeline import Encoded, resolve_device
 
 # fields that hold uint32 bit planes on the reference side
@@ -60,3 +62,17 @@ def encoded_to_numpy(enc: Encoded) -> Encoded:
         else:
             fields[name] = _to_numpy(v, name in _U32_FIELDS)
     return Encoded(**fields)
+
+
+def quantized_kv_from_numpy(qkv, device="cuda") -> QuantizedKV:
+    """Reference QuantizedKV (numpy or JAX planes) -> the port's on
+    `device`; the planes keep their dtypes (int8, float32, int32, bool)."""
+    dev = resolve_device(device)
+    return QuantizedKV(*(_to_tensor(getattr(qkv, f), dev)
+                         for f in QuantizedKV._fields))
+
+
+def quantized_kv_to_numpy(qkv: QuantizedKV) -> QuantizedKV:
+    """The port's QuantizedKV -> a QuantizedKV of numpy planes, ready for
+    `repro.compression.kv.QuantizedKV(*map(jnp.asarray, ...))`."""
+    return QuantizedKV(*(_to_numpy(t, False) for t in qkv))

@@ -46,10 +46,16 @@ def full_scalar(v, dt, device) -> torch.Tensor:
 
 def _traced_abs_step(eb, cfg: QuantizerConfig, dt, device):
     """The traced-eb transform shared by encode and decode: eb floored
-    (NaN propagates, like jnp.maximum), eb2 = pow2_floor(2 * eb)."""
+    (NaN propagates, like jnp.maximum), eb2 = pow2_floor(2 * eb).  A
+    tensor eb of several elements broadcasts against the data (the KV
+    cache's per-page bounds); one element acts as a scalar."""
     floor = full_scalar(cfg.eb_floor, dt, device)
-    eb_in = full_scalar(eb, dt, device) if not torch.is_tensor(eb) else (
-        eb.to(device=device, dtype=dt).reshape(()))
+    if not torch.is_tensor(eb):
+        eb_in = full_scalar(eb, dt, device)
+    else:
+        eb_in = eb.to(device=device, dtype=dt)
+        if eb_in.numel() == 1:
+            eb_in = eb_in.reshape(())
     degenerate = ~(eb_in >= floor)               # True also for NaN eb
     eb_ = torch.maximum(eb_in, floor)
     eb2 = pow2_floor(full_scalar(2.0, dt, device) * eb_)

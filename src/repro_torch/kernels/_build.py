@@ -1,10 +1,10 @@
 """Build and load the port's CUDA kernels: `nvcc` into a shared library with
 a plain C interface, loaded with ctypes.
 
-The sources (`csrc/pack.cu`, `csrc/lossless.cu`, both including
-`csrc/quantize.cuh`) are compiled in parallel, one `nvcc` each, and linked
-into one library at first use, in `build/repro_torch/` at the root of the
-checkout (listed in `.gitignore`).  The library is named by a hash of the
+The sources (`csrc/pack.cu`, `csrc/lossless.cu` and `csrc/dense.cu`, which
+include `csrc/quantize.cuh`, and `csrc/kv_attention.cu`) are compiled in
+parallel, one `nvcc` each, and linked into one library at first use, in
+`build/repro_torch/` at the root of the checkout (listed in `.gitignore`).  The library is named by a hash of the
 sources, the header and the flags, so an edited source rebuilds and an
 unchanged one loads at once.  The flags keep the paper's bit-exactness
 rules: `-fmad=false` (no multiply-add contraction) and no
@@ -22,7 +22,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "pack.cu", CSRC / "lossless.cu")
+SOURCES = (CSRC / "pack.cu", CSRC / "lossless.cu", CSRC / "dense.cu",
+           CSRC / "kv_attention.cu")
 HEADERS = (CSRC / "quantize.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -44,6 +45,12 @@ _SIGNATURES = {
                           _P, _P, _P, _P],
     "repro_lc_select": [_P, _LL, _I, _LL, _P, _P, _P],
     "repro_lc_expand": [_P, _P, _LL, _P, _LL, _P],
+    "repro_dense_quantize_abs": [_P, _LL, _P, _I, _F, _F, _P, _P, _P, _P],
+    "repro_dense_quantize_rel": [_P, _LL, _I, _F, _F, _F, _F, _F, _P, _P,
+                                 _P, _P, _P],
+    "repro_dense_dequantize_abs": [_P, _P, _P, _P, _F, _P, _LL, _P],
+    "repro_dense_dequantize_rel": [_P, _P, _P, _P, _F, _P, _LL, _P],
+    "repro_kv_decode_attention": [_P] * 11 + [_I] * 7 + [_F, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -213,3 +213,121 @@ def test_lc_pipeline_on_card_matches_cpu(name):
     assert torch.equal(y.view(torch.int32),
                        pipe.decode(on_cpu, n=x.size, device="cpu")
                        .view(torch.int32))
+
+
+# ------------------- the dense quantize/dequantize kernels (dense.cu) --
+
+def _shifted(t, offset):
+    """A copy of t that starts `offset` elements into its storage."""
+    return torch.cat([t[:offset], t])[offset:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 4095, 4096 * 3 + 129])
+@pytest.mark.parametrize("eb", [1e-2, 1e-5])
+def test_dense_kernels_match_plain_versions_on_card(eb, n, offset):
+    """B8-B11 bit for bit against their plain versions, on the special
+    values and the ties; offset 1 gives unaligned views (the scalar
+    path)."""
+    _need_card()
+    from repro_torch.core.bitops import float_to_bits
+    from repro_torch.kernels import dense as TD
+    x = torch.from_numpy(_mix(max(n + offset, 8))[:n + offset]).cuda()[offset:]
+    acfg = TCfg(mode="abs", error_bound=eb)
+    rcfg = TCfg(mode="rel", error_bound=eb, bin_bits=32)
+    eb_t = torch.tensor(np.float32(eb * 0.75), device="cuda")
+    before = dict(TD.LAUNCHES)
+    qa = TD.quantize_abs(x, acfg, eb=eb_t)
+    _equal(tuple(qa[:3]), tuple(TD._quantize_abs_plain(x, eb_t.reshape(1),
+                                                       acfg)[:3]))
+    qr = TD.quantize_rel(x, rcfg)
+    _equal(tuple(qr), tuple(TD._quantize_rel_plain(x, rcfg)))
+    bits = float_to_bits(x)
+    pa = torch.where(qa.outlier, bits, torch.zeros_like(bits))
+    b, p, o = (_shifted(t, offset) for t in (qa.bins, pa, qa.outlier))
+    ya = TD.dequantize_abs(b, p, o, acfg, eb=eb_t)
+    _equal(ya.view(torch.int32), TD._dequantize_abs_plain(
+        b, p, o, eb_t.reshape(1), acfg).view(torch.int32))
+    pr = torch.where(qr.outlier, bits, torch.zeros_like(bits))
+    yr = TD.dequantize_rel(qr.bins, pr, qr.outlier, qr.sign, rcfg)
+    _equal(yr.view(torch.int32), TD._dequantize_rel_plain(
+        qr.bins, pr, qr.outlier, qr.sign, rcfg).view(torch.int32))
+    torch.cuda.synchronize()
+    assert torch.equal(ya.view(torch.int32)[~qa.outlier],
+                       qa.recon.view(torch.int32)[~qa.outlier])
+    assert torch.equal(ya.view(torch.int32)[qa.outlier],
+                       bits[qa.outlier])
+    assert torch.equal(yr.view(torch.int32)[qr.outlier], bits[qr.outlier])
+    for k in TD.KERNELS:
+        assert TD.LAUNCHES[k] == before[k] + 1, k
+
+
+# ------------------------- the flash-decode attention (kv_attention.cu) --
+
+def _kv_case(b, g, s, hg):
+    from repro_torch.compression import kv as TKV
+    k = (RNG.standard_normal((b, g, s, 128)) * 0.7).astype(np.float32)
+    v = (RNG.standard_normal((b, g, s, 128)) * 0.7).astype(np.float32)
+    k[:, :, 0, :32] *= 80.0
+    v[:, :, 0, :32] *= 80.0
+    cfg = TKV.kv_quantizer_config()
+    kq = TKV.quantize_kv(torch.from_numpy(k).cuda(), cfg)
+    vq = TKV.quantize_kv(torch.from_numpy(v).cuda(), cfg)
+    q = torch.from_numpy(RNG.standard_normal((b, g, hg, 128))
+                         .astype(np.float32)).cuda()
+    return q, kq, vq
+
+
+def _fill_page_outliers(qkv, page=1):
+    """qkv with cap exact outlier values on page `page` of (0, 0): their
+    bins zeroed and the slots filled in ascending order, as the encoder
+    would leave them (the default bound makes no finite outliers)."""
+    cap = qkv.out_idx.shape[-1]
+    idx = np.sort(RNG.choice(128 * 128, cap, replace=False))
+    val = RNG.uniform(-300.0, 300.0, cap).astype(np.float32)
+    bins = qkv.bins.clone()
+    bins[0, 0, page * 128 + idx // 128, idx % 128] = 0
+    out_idx, out_val = qkv.out_idx.clone(), qkv.out_val.clone()
+    out_idx[0, 0, page] = torch.from_numpy(idx.astype(np.int32))
+    out_val[0, 0, page] = torch.from_numpy(val)
+    return qkv._replace(bins=bins, out_idx=out_idx, out_val=out_val)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hg", [1, 6, 16])
+def test_kv_attention_kernel_matches_plain_version_on_card(hg):
+    """B12 within rtol = atol = 2e-5 of its plain version (another order
+    of sums), at lengths 1, 127, 128 and S."""
+    _need_card()
+    from repro_torch.kernels import kv_attention as TA
+    s = 512
+    q, kq, vq = _kv_case(4, 2, s, hg)
+    assert not bool(kq.overflow.any() | vq.overflow.any())
+    lengths = torch.tensor([1, 127, 128, s], dtype=torch.int32, device="cuda")
+    before = TA.LAUNCHES["_kv_decode_attention"]
+    out = TA.kv_decode_attention(q, kq, vq, lengths)
+    want = TA._kv_decode_attention_plain(q, kq, vq, lengths)
+    torch.cuda.synchronize()
+    assert TA.LAUNCHES["_kv_decode_attention"] == before + 1
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_kv_attention_kernel_full_page_of_outliers_on_card():
+    """A page holding cap exact outlier values in K and in V: the kernel's
+    adds restore them as the plain version's scatter does."""
+    _need_card()
+    from repro_torch.compression import kv as TKV
+    from repro_torch.kernels import kv_attention as TA
+    q, kq, vq = _kv_case(2, 2, 384, 6)
+    kq, vq = _fill_page_outliers(kq), _fill_page_outliers(vq)
+    assert int((kq.out_idx[0, 0, 1] >= 0).sum()) == kq.out_idx.shape[-1]
+    deq = TKV.dequantize_kv(vq)[0, 0, 128:256].reshape(-1)
+    assert torch.equal(deq[vq.out_idx[0, 0, 1].long()], vq.out_val[0, 0, 1])
+    for lengths in ([100, 384], [200, 129], [384, 1]):
+        lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        out = TA.kv_decode_attention(q, kq, vq, lengths)
+        want = TA._kv_decode_attention_plain(q, kq, vq, lengths)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)

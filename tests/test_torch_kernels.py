@@ -93,13 +93,15 @@ def test_wrappers_validate_operands():
 def test_build_keeps_the_bit_exactness_rules():
     """The flags and sources keep the paper's rules: no contraction, no
     fast-math, round half to even, truncating casts, masked eb2.  The
-    sources are csrc/pack.cu and csrc/lossless.cu, which share the
-    quantizers through csrc/quantize.cuh."""
+    sources are csrc/pack.cu, csrc/lossless.cu and csrc/dense.cu, which
+    share the quantizers through csrc/quantize.cuh, and
+    csrc/kv_attention.cu."""
     flags = " ".join(_build.NVCC_FLAGS + _build.LINK_FLAGS)
     assert "-fmad=false" in flags and "fast_math" not in flags
     assert "arch=compute_90a,code=sm_90a" in flags
     assert {f.name for f in _build.SOURCES + _build.HEADERS} == {
-        "pack.cu", "lossless.cu", "quantize.cuh"}
+        "pack.cu", "lossless.cu", "dense.cu", "kv_attention.cu",
+        "quantize.cuh"}
     assert sorted(CSRC.iterdir()) == sorted(_build.SOURCES + _build.HEADERS)
     src = "".join(f.read_text() for f in _build.SOURCES + _build.HEADERS)
     code = re.sub(r"//.*", "", src)
@@ -108,14 +110,22 @@ def test_build_keeps_the_bit_exactness_rules():
     assert "0xFF800000u" in code
     for c_name in ("repro_abs_pack", "repro_rel_pack", "repro_abs_unpack",
                    "repro_rel_unpack", "repro_abs_pack_lc",
-                   "repro_rel_pack_lc", "repro_lc_select", "repro_lc_expand"):
+                   "repro_rel_pack_lc", "repro_lc_select", "repro_lc_expand",
+                   "repro_dense_quantize_abs", "repro_dense_quantize_rel",
+                   "repro_dense_dequantize_abs", "repro_dense_dequantize_rel",
+                   "repro_kv_decode_attention"):
         assert f'extern "C" int {c_name}(' in src
         assert c_name in _build._SIGNATURES
     for kernel in ("_abs_pack_kernel", "_rel_pack_kernel",
                    "_abs_unpack_kernel", "_rel_unpack_kernel",
                    "_abs_pack_lc_kernel", "_rel_pack_lc_kernel",
-                   "_lc_select_kernel", "_lc_expand_kernel"):
+                   "_lc_select_kernel", "_lc_expand_kernel",
+                   "quantize_abs.py:32 _kernel", "quantize_rel.py:41 _kernel",
+                   "dequantize.py:21 _abs_kernel",
+                   "dequantize.py:35 _rel_kernel",
+                   "kv_attention.py:39 _kernel"):
         assert f"replaces {kernel}" in src
     for f in _build.SOURCES:
-        assert '#include "quantize.cuh"' in f.read_text()
+        if f.name != "kv_attention.cu":        # no quantizer: held by tolerance
+            assert '#include "quantize.cuh"' in f.read_text()
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
