@@ -33,7 +33,9 @@ attention widths (8 KV heads, 6 query heads each, head dim 128) over a
 decode_32k history (S = 32,768, page 128, cap 8), batch 32 (decode_32k's
 128 cut so that K and V in float32, 4.3 GB each, fit one card beside the
 check's copies); K and V are N(0,1)*0.7 with attention sinks, lengths are
-drawn in [1, S] with one equal to S and one not a multiple of the page.
+drawn in [1, S] with one equal to S and one not a multiple of the page;
+then one user at the full history (B = 1, batch row 0 of the same cache,
+with one page of exact outlier values in K and V).
 
 The first 64 values of each field are the paper's eight special values
 (+inf, -inf, NaN, the NaN payload 0x7FC00123, +-1e-42, +-0.0), repeated.
@@ -49,8 +51,10 @@ decoded value is within eb of its original or bit-identical to it
 plane bit-equal, 0 violations.  The kv phase checks that no page
 overflows its outlier table, that every page meets its bound, that the
 attention kernel is within rtol = atol = 2e-5 of its plain version (the
-reference's own tolerance), and prints both outputs' errors against a
-float64 attention over the same dequantized cache.  A code-sweep phase
+reference's own tolerance) at B = 32 and at B = 1, both split the same
+way, and prints both outputs' errors against a float64 attention over the
+same dequantized cache, the split (pages per split block, blocks launched,
+blocks per SM) and the peak device memory.  A code-sweep phase
 holds the four chunk-coder kernels bit for bit against their plain
 versions on inputs where each chunk code covers at least 10 % of the
 chunks, at pack 8, 16 and 32, a ragged n and both stages.  Each kernel is
@@ -58,6 +62,10 @@ timed with CUDA events (median of 25 after warm-up) beside its bound and
 its plain version (which repeats the kernel's arithmetic and is no
 yardstick of speed); the attention also beside one
 `scaled_dot_product_attention` call over the dequantized float32 cache.
+The kv line adds, under names of their own, both timed over 10 calls in a
+row (a decode loop's view: the host's per-call time hides under the
+device's), and the attention kernels' device time and launches per call
+from a `torch.profiler` trace.
 
 Output: the card's name and power limit, one JSON line per chain, one
 JSON line per phase (dense, code sweep, kv), one JSON line
@@ -70,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -129,6 +138,7 @@ OPS_PER_ELEM = {"_abs_pack": 10, "_rel_pack": 16, "_abs_unpack": 2,
 KV_G, KV_HG, KV_D, KV_S, KV_PAGE, KV_CAP = 8, 6, 128, 32_768, 128, 8
 KV_BATCH = 32                  # decode_32k's 128 cut to fit one card
 KV_TOL = 2e-5                  # rtol = atol: the reference's own tolerance
+KV_BATCH_CALLS = 10            # attention calls in a row per timed sample
 
 
 class CheckFailed(RuntimeError):
@@ -140,8 +150,10 @@ def check(cond, what: str) -> None:
         raise CheckFailed(what)
 
 
-def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
-    """Median time of one call of fn on the card, by CUDA events."""
+def time_ms(fn, reps: int = 25, warm: int = 3, batch: int = 1) -> float:
+    """Median time of one call of fn on the card, by CUDA events around
+    `batch` calls in a row (with batch > 1 the host's time per call hides
+    under the device's, as in a loop of decode steps)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -150,10 +162,11 @@ def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
 
 
@@ -703,16 +716,9 @@ def kv_rows(qkv, i: int):
     return type(qkv)(*(t[i:i + 1] for t in qkv))
 
 
-def kv_phase(seed: int, batch: int = KV_BATCH, s: int = KV_S) -> list:
-    """B12 on its main path: `compression.kv.quantize_kv` of K and V, then
-    `kernels.kv_attention.kv_decode_attention`, at internlm2-20b's
-    attention widths over a decode_32k history."""
-    import torch.nn.functional as F
-    from repro_torch.compression import kv as KV
-    from repro_torch.kernels import kv_attention as A
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.reset_peak_memory_stats()
+def kv_inputs(seed: int, batch: int = KV_BATCH, s: int = KV_S):
+    """The kv phase's float32 K and V [B, G, S, D], q [B, G, Hg, D] and int32
+    lengths [B], made on the card from the seed."""
     gen = torch.Generator(device=DEV).manual_seed(seed + 2)
     shape = (batch, KV_G, s, KV_D)
     k = torch.randn(shape, generator=gen, device=DEV) * 0.7
@@ -724,14 +730,80 @@ def kv_phase(seed: int, batch: int = KV_BATCH, s: int = KV_S) -> list:
                             dtype=torch.int32)
     lengths[0] = s
     lengths[1] = s // 2 + 57               # not a multiple of the page
-    cfg = KV.kv_quantizer_config()
+    return k, v, q, lengths
 
-    def quantize(x):
-        # one batch row at a time: pages are independent, so this is the
-        # result of one call, with 1/batch of its temporaries
-        parts = [KV.quantize_kv(x[i:i + 1], cfg, page=KV_PAGE, cap=KV_CAP)
-                 for i in range(x.shape[0])]
-        return KV.QuantizedKV(*(torch.cat(p) for p in zip(*parts)))
+
+def kv_quantize(x):
+    """`compression.kv.quantize_kv` of x one batch row at a time: pages are
+    independent, so this is the result of one call, with 1/B of its
+    temporaries."""
+    from repro_torch.compression import kv as KV
+    cfg = KV.kv_quantizer_config()
+    parts = [KV.quantize_kv(x[i:i + 1], cfg, page=KV_PAGE, cap=KV_CAP)
+             for i in range(x.shape[0])]
+    return KV.QuantizedKV(*(torch.cat(p) for p in zip(*parts)))
+
+
+def with_page_outliers(qkv, page: int, seed: int):
+    """A copy of the one-row cache qkv with all `cap` slots of page `page`
+    of every KV head holding exact values 2-4 times past the int8 grid's
+    reach (127 eb2, either sign), laid out as the encoder lays out
+    outliers: their bins zeroed, the slots in ascending in-page order.  The
+    kv phase's bound leaves finite pages no outliers, so this is how the
+    main path's shapes reach the kernel's outlier corrections."""
+    gen = torch.Generator(device=DEV).manual_seed(seed + 3)
+    bins, idx = qkv.bins.clone(), qkv.out_idx.clone()
+    val = qkv.out_val.clone()
+    cap = idx.shape[-1]
+    for g in range(bins.shape[1]):
+        flat = torch.randperm(KV_PAGE * KV_D, generator=gen,
+                              device=DEV)[:cap].sort().values
+        mag = 2.0 + 2.0 * torch.rand(cap, generator=gen, device=DEV)
+        sign = torch.rand(cap, generator=gen, device=DEV) < 0.5
+        bins[0, g, page * KV_PAGE + flat // KV_D, flat % KV_D] = 0
+        idx[0, g, page] = flat.to(torch.int32)
+        val[0, g, page] = (torch.where(sign, -mag, mag) * 127.0
+                           * qkv.eb2[0, g, page])
+    return qkv._replace(bins=bins, out_idx=idx, out_val=val)
+
+
+def device_kernels(fn, reps: int = 20):
+    """(kernels launched per call, {kernel: device ms per call}) of fn, from
+    torch.profiler's trace of the card over `reps` calls after one warm-up
+    call; (None, {}) when the trace holds no kernel (no card, or no
+    device tracing)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    n, ms = 0, {}
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.name.startswith(("Memcpy", "Memset"))):
+            continue
+        short = re.search(r"(\w+)(<[^>]*>)?\(", e.name)
+        key = short.group(1) if short else e.name
+        n += 1
+        ms[key] = ms.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return (n / reps if n else None), ms
+
+
+def kv_phase(seed: int, batch: int = KV_BATCH, s: int = KV_S) -> list:
+    """B12 on its main path: `compression.kv.quantize_kv` of K and V, then
+    `kernels.kv_attention.kv_decode_attention`, at internlm2-20b's
+    attention widths over a decode_32k history."""
+    import torch.nn.functional as F
+    from repro_torch.compression import kv as KV
+    from repro_torch.kernels import kv_attention as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    k, v, q, lengths = kv_inputs(seed, batch, s)
+    cfg = KV.kv_quantizer_config()
 
     def attend():
         return A.kv_decode_attention(q, kq, vq, lengths, page=KV_PAGE,
@@ -739,7 +811,7 @@ def kv_phase(seed: int, batch: int = KV_BATCH, s: int = KV_S) -> list:
 
     torch.cuda.synchronize()
     reset_launches()
-    kq, vq = quantize(k), quantize(v)
+    kq, vq = kv_quantize(k), kv_quantize(v)
     out = attend()
     torch.cuda.synchronize()
     counts = launches()
@@ -750,7 +822,7 @@ def kv_phase(seed: int, batch: int = KV_BATCH, s: int = KV_S) -> list:
     holds = all(bool(KV.kv_error_bound_holds(x[i:i + 1], kv_rows(qkv, i), cfg))
                 for x, qkv in ((k, kq), (v, vq)) for i in range(batch))
     check(holds, "kv: a page misses its bound")
-    quantize_ms = time_ms(lambda: quantize(k), reps=3, warm=1)
+    quantize_ms = time_ms(lambda: kv_quantize(k), reps=3, warm=1)
     del k, v
 
     def plain():
@@ -788,39 +860,109 @@ def kv_phase(seed: int, batch: int = KV_BATCH, s: int = KV_S) -> list:
     bound_ms, bound_by = bound_from(n_bytes, ops)
     terms_ms = {"bytes": bound_from(n_bytes, 0)[0], "operations":
                 bound_from(0, ops)[0]}
+    # one call by CUDA events, as every kernel row is timed (the wrapper's
+    # host time included); beside it KV_BATCH_CALLS calls in a row (a
+    # decode loop, where the host's time hides under the card's) and the
+    # kernels' own device time from the profiler's trace
     ms = time_ms(attend)
     lib_ms = time_ms(library)
+    ms_batched = time_ms(attend, batch=KV_BATCH_CALLS)
+    lib_batched_ms = time_ms(library, batch=KV_BATCH_CALLS)
+    per_call, dev_ms = device_kernels(attend)
     del kd, vd, lib_out
     plain_ms = time_ms(plain, reps=5, warm=1)
-    n_pages = int(torch.div(lengths.long() + KV_PAGE - 1, KV_PAGE,
-                            rounding_mode="floor").sum())
+    n_used = torch.div(lengths.long() + KV_PAGE - 1, KV_PAGE,
+                       rounding_mode="floor")
+    n_pages = int(n_used.sum())
+
+    # one user at the full history: batch row 0 (length S) of the same
+    # cache, with a page of exact outliers in K and V (the last page of a
+    # split for every power-of-two split)
+    n_all = s // KV_PAGE
+    out_page = n_all // 2 - 1
+    q1, len1 = q[:1], lengths[:1]
+    k1 = with_page_outliers(kv_rows(kq, 0), out_page, seed)
+    v1 = with_page_outliers(kv_rows(vq, 0), out_page, seed + 1)
+
+    def attend_b1():
+        return A.kv_decode_attention(q1, k1, v1, len1, page=KV_PAGE,
+                                     cap=KV_CAP)
+
+    out1 = attend_b1()
+    want1 = A._kv_decode_attention_plain(q1, k1, v1, len1, page=KV_PAGE)
+    close1 = bool(torch.allclose(out1, want1, rtol=KV_TOL, atol=KV_TOL))
+    err1 = max_abs_err(out1, want1)
+    check(close1, f"kv: {name} at B=1 differs from its plain version by "
+                  f"{err1}")
+    ms1 = time_ms(attend_b1)
+    ms1_batched = time_ms(attend_b1, batch=KV_BATCH_CALLS)
+    per_call1, dev_ms1 = device_kernels(attend_b1)
+    bytes1, ops1 = kv_work(len1, 1, KV_HG, s)
+    bound1_ms, bound1_by = bound_from(bytes1, ops1)
+    device = sum(dev_ms.values()) or None
+    device1 = sum(dev_ms1.values()) or None
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pps = A.default_pages_per_split(batch, KV_G, n_all, sms)
+    pps1 = A.default_pages_per_split(1, KV_G, n_all, sms)
+    splits = -(-n_all // pps)
+    smem, per_sm = A.kv_occupancy(KV_HG, KV_CAP)
+    split = {"pages_per_split": pps, "splits_per_head": splits,
+             "blocks_launched": batch * KV_G * splits,
+             "blocks_with_pages": KV_G * int(
+                 torch.div(n_used + pps - 1, pps, rounding_mode="floor")
+                 .sum()),
+             "merge_blocks": batch * KV_G * KV_HG,
+             "b1_pages_per_split": pps1,
+             "b1_blocks_launched": KV_G * -(-n_all // pps1),
+             "smem_bytes_per_block": smem, "blocks_per_sm": per_sm,
+             "sms": sms}
     print(json.dumps({
         "phase": "kv", "batch": batch, "kv_heads": KV_G, "q_per_kv": KV_HG,
         "head_dim": KV_D, "seq": s, "page": KV_PAGE, "cap": KV_CAP,
         "lengths_min": int(lengths.min()), "lengths_max": int(lengths.max()),
         "pages_read_per_head": n_pages,
         "outliers": int((kq.out_idx >= 0).sum() + (vq.out_idx >= 0).sum()),
+        "outliers_b1": int((k1.out_idx >= 0).sum() + (v1.out_idx >= 0).sum()),
         "overflow_pages": overflow, "bound_holds": holds,
         "allow_tf32": [torch.backends.cuda.matmul.allow_tf32,
                        torch.backends.cudnn.allow_tf32],
         "max_abs_err_vs_float64": errs64,
         "max_abs_err_kernel_vs_plain": err, "tolerance": KV_TOL,
         "quantize_kv_ms": quantize_ms, "attention_ms": ms,
+        "bound_ms": bound_ms, "share": bound_ms / ms,
         "library_ms": lib_ms, "plain_ms": plain_ms,
+        "calls_in_a_row": KV_BATCH_CALLS,
+        "attention_batched_ms": ms_batched,
+        "library_batched_ms": lib_batched_ms,
+        "attention_device_ms": device, "device_ms_by_kernel": dev_ms,
+        "launches_per_call": per_call,
+        "attention_b1_ms": ms1, "bound_b1_ms": bound1_ms,
+        "bound_b1_by": bound1_by, "share_b1": bound1_ms / ms1,
+        "attention_b1_batched_ms": ms1_batched,
+        "attention_b1_device_ms": device1, "b1_device_ms_by_kernel": dev_ms1,
+        "b1_launches_per_call": per_call1,
+        "max_abs_err_b1_kernel_vs_plain": err1, **split,
         "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9,
         "launches": {name: counts[name]}}), flush=True)
     return [{"name": name, "route": "cuda", "source": CSRC + KERNELS[name][0],
              "replaces": KERNELS[name][1], "chain": "kv",
              "stage": f"B={batch} G={KV_G} Hg={KV_HG} D={KV_D} S={s}",
-             "bits": 8, "launches": counts[name], "max_abs_err": err,
-             "tolerance": KV_TOL, "match": close, "ms": ms,
+             "bits": 8, "launches": counts[name],
+             "launches_per_call": per_call,
+             "max_abs_err": max(err, err1),
+             "tolerance": KV_TOL, "match": close and close1, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "bound_terms_ms": terms_ms,
              "share": bound_ms / ms, "library_ms": lib_ms,
              "library": "scaled_dot_product_attention over the dequantized "
                         "float32 cache (reads 4x the cache bytes; "
                         "dequantization not included)",
-             "bytes": n_bytes, "operations": ops}]
+             "batched_ms": ms_batched, "library_batched_ms": lib_batched_ms,
+             "device_ms": device,
+             "bytes": n_bytes, "operations": ops, "b1_ms": ms1,
+             "b1_batched_ms": ms1_batched, "b1_device_ms": device1,
+             "b1_bound_ms": bound1_ms, "b1_share": bound1_ms / ms1}]
 
 
 def main(argv=None) -> int:

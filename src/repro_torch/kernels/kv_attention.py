@@ -5,9 +5,12 @@ Counterpart of `repro.kernels.kv_attention` (the Pallas kernel `_kernel`
 and its launcher `kv_decode_attention`).  For one query token per
 sequence, q [B, G, Hg, D] attends to tokens < lengths[b] of a cache whose
 K and V are `compression.kv.QuantizedKV` planes with bins [B, G, S, D].
-The kernel dequantizes each page in shared memory, adds the page's exact
-outlier values, and runs the online softmax in float32, page by page; it
-stops after the last page that holds a token < lengths[b].
+The kernel splits the pages of each (b, g) over blocks (flash-decoding):
+each block streams its run of int8 pages into shared memory, runs the
+online softmax in float32 page by page with the pages' exact outlier
+values as corrections, and writes a partial (m, l, acc); a merge kernel
+combines the partials.  Only pages that hold a token < lengths[b] are
+read.  The plain version splits and merges the same way.
 
 Semantics beside the reference's (ROADMAP C-port-3): pages wholly past the
 length are not read, so a non-finite V value there does not reach the
@@ -23,6 +26,8 @@ nothing falls back.  Each launch adds one to `LAUNCHES[name]`.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -33,7 +38,10 @@ KERNELS = ("_kv_decode_attention",)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 NEG_BIG = -1e30
 MAX_HG = 16          # query heads per KV head the kernel takes
+MAX_CAP = 64         # outlier slots per page the kernel takes
 HEAD_DIM = 128       # the kernel's D (and its page, PAGE)
+H100_SMS = 132       # the split's SM count where no card is asked
+MAX_PAGES_PER_SPLIT = 16
 
 
 def reset_launches() -> None:
@@ -75,63 +83,129 @@ def _check(q, kq: QuantizedKV, vq: QuantizedKV, lengths, page: int,
         raise ValueError(f"all operands on one cpu or cuda device, got {devs}")
 
 
+# ----------------------------------------------------------- the split --
+
+def default_pages_per_split(b: int, g: int, n_pages: int,
+                            sms: int = H100_SMS) -> int:
+    """Pages per split block, from the shapes and the SM count only (never
+    from the lengths, which stay on the card): the fewest pages that give
+    every SM its two blocks over all B G n_pages pages, at most
+    MAX_PAGES_PER_SPLIT (8 for one sequence at 32K, 16 at B = 32: the
+    fastest of 1-64 in `chip_kv_probe.py`'s sweeps on an H100)."""
+    want = -(-b * g * n_pages // (2 * sms))
+    return max(1, min(MAX_PAGES_PER_SPLIT, want, n_pages))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    if device.type != "cuda":
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _resolve_pages_per_split(q, n_pages: int, pages_per_split) -> int:
+    if pages_per_split is None:
+        return default_pages_per_split(q.shape[0], q.shape[1], n_pages,
+                                       _sm_count(q.device))
+    if int(pages_per_split) < 1:
+        raise ValueError(f"pages_per_split must be >= 1, got {pages_per_split}")
+    return int(pages_per_split)
+
+
+def kv_occupancy(hg: int, cap: int = CAP) -> tuple[int, int]:
+    """(dynamic shared memory bytes, blocks per SM) of the split kernel at
+    (hg, cap), as the CUDA runtime reports them on the current card."""
+    import ctypes
+    from . import _build
+    lib = _build.load()
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(lib, lib.repro_kv_decode_occupancy(
+        hg, cap, ctypes.addressof(smem), ctypes.addressof(blocks)),
+        "repro_kv_decode_occupancy")
+    return smem.value, blocks.value
+
+
 # --------------------------------------------------------- plain version --
 
 def _kv_decode_attention_plain(q, kq: QuantizedKV, vq: QuantizedKV, lengths,
-                               page: int = PAGE):
-    """The kernel's arithmetic in torch ops: page by page over the
-    dequantized cache, the online softmax in float32, pages past
-    ceil(lengths / page) skipped (their update is discarded)."""
+                               page: int = PAGE, pages_per_split=None):
+    """The kernel's arithmetic in torch ops over the dequantized cache.  The
+    pages of each (b, g) are cut into splits of `pages_per_split` (the
+    kernel's default when None); each split runs the online softmax in
+    float32 page by page from (m, l, acc) = (-1e30, 0, 0), pages past
+    ceil(lengths / page) skipped (their update is discarded); the splits
+    are merged as the kernel merges them: m = max m_i, w_i = exp(m_i - m),
+    out = sum w_i acc_i / sum w_i l_i."""
     b, g, hg, d = q.shape
-    s = kq.bins.shape[2]
-    k = dequantize_kv(kq, page=page)
-    v = dequantize_kv(vq, page=page)
-    scale = torch.full((), softmax_scale(d), device=q.device)
+    n_all = kq.bins.shape[2] // page
+    pps = _resolve_pages_per_split(q, n_all, pages_per_split)
+    nsplit = max(1, -(-n_all // pps))
+    dev = q.device
+    k = dequantize_kv(kq, page=page).reshape(b, g, n_all, page, d)
+    v = dequantize_kv(vq, page=page).reshape(b, g, n_all, page, d)
+    scale = torch.full((), softmax_scale(d), device=dev)
+    neg = torch.full((), NEG_BIG, device=dev)
     lengths = lengths.to(torch.int64)
-    n_pages = torch.div(lengths.clamp(min=0) + page - 1, page,
-                        rounding_mode="floor")
-    m = torch.full((b, g, hg, 1), NEG_BIG, device=q.device)
-    l_ = torch.zeros((b, g, hg, 1), device=q.device)
-    acc = torch.zeros((b, g, hg, d), device=q.device)
-    tok = torch.arange(page, device=q.device)
-    for p in range(s // page):
-        kp = k[:, :, p * page:(p + 1) * page]
-        vp = v[:, :, p * page:(p + 1) * page]
-        scores = torch.matmul(q, kp.transpose(-1, -2)) * scale   # [b,g,hg,P]
-        valid = (p * page + tok)[None, :] < lengths[:, None]      # [b, P]
-        scores = torch.where(valid[:, None, None, :], scores,
-                             torch.full((), NEG_BIG, device=q.device))
+    n_used = torch.div(lengths.clamp(min=0) + page - 1, page,
+                       rounding_mode="floor")
+    m = torch.full((b, g, nsplit, hg, 1), NEG_BIG, device=dev)
+    l_ = torch.zeros((b, g, nsplit, hg, 1), device=dev)
+    acc = torch.zeros((b, g, nsplit, hg, d), device=dev)
+    tok = torch.arange(page, device=dev)
+    qs = q[:, :, None]                                    # [b, g, 1, hg, d]
+    for j in range(pps if n_all else 0):
+        pidx = torch.arange(nsplit, device=dev) * pps + j       # [nsplit]
+        pc = pidx.clamp(max=n_all - 1)
+        kp, vp = k[:, :, pc], v[:, :, pc]             # [b, g, nsplit, P, d]
+        scores = torch.matmul(qs, kp.transpose(-1, -2)) * scale
+        valid = (pidx[:, None] * page + tok)[None] < lengths[:, None, None]
+        scores = torch.where(valid[:, None, :, None, :], scores, neg)
         m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         pexp = torch.exp(scores - m_new)
-        live = (p < n_pages)[:, None, None, None]
+        live = ((pidx[None] < n_all) & (pidx[None] < n_used[:, None]))
+        live = live[:, None, :, None, None]               # [b, 1, nsplit, 1, 1]
         l_ = torch.where(live, l_ * alpha + pexp.sum(-1, keepdim=True), l_)
         acc = torch.where(live, acc * alpha + torch.matmul(pexp, vp), acc)
         m = torch.where(live, m_new, m)
-    return acc / l_
+    w = torch.exp(m - m.amax(dim=2, keepdim=True))
+    return (acc * w).sum(2) / (l_ * w).sum(2)
 
 
 # --------------------------------------------------------------- wrapper --
 
 def kv_decode_attention(q: torch.Tensor, kq: QuantizedKV, vq: QuantizedKV,
                         lengths: torch.Tensor, *, page: int = PAGE,
-                        cap: int = CAP) -> torch.Tensor:
+                        cap: int = CAP,
+                        pages_per_split: int | None = None) -> torch.Tensor:
     """q: float32 [B, G, Hg, D]; kq, vq: QuantizedKV with bins [B, G, S, D];
     lengths: int32 [B].  Returns float32 [B, G, Hg, D].  The CUDA kernel
-    takes D = page = 128 and Hg <= 16, and raises otherwise."""
+    takes D = page = 128, Hg <= 16 and cap <= 64, and raises otherwise.
+    `pages_per_split` (default: `default_pages_per_split` of the shapes and
+    the SM count) sets the pages each split block takes; the result does
+    not depend on it beyond the order of the sums.  Makes no host sync."""
     _check(q, kq, vq, lengths, page, cap)
+    n_all = kq.bins.shape[2] // page
+    pps = _resolve_pages_per_split(q, n_all, pages_per_split)
     if q.device.type == "cpu":
-        return _kv_decode_attention_plain(q, kq, vq, lengths, page=page)
+        return _kv_decode_attention_plain(q, kq, vq, lengths, page=page,
+                                          pages_per_split=pps)
     b, g, hg, d = q.shape
-    if d != HEAD_DIM or page != HEAD_DIM or not 1 <= hg <= MAX_HG:
+    if (d != HEAD_DIM or page != HEAD_DIM or not 1 <= hg <= MAX_HG
+            or cap > MAX_CAP):
         raise NotImplementedError(
-            f"the CUDA kernel takes D = page = {HEAD_DIM} and 1 <= Hg <= "
-            f"{MAX_HG}, got D={d}, page={page}, Hg={hg}")
+            f"the CUDA kernel takes D = page = {HEAD_DIM}, 1 <= Hg <= "
+            f"{MAX_HG} and cap <= {MAX_CAP}, got D={d}, page={page}, "
+            f"Hg={hg}, cap={cap}")
     ops = [t.contiguous() for t in (q, lengths, *kq[:4], *vq[:4])]
     if any(t.data_ptr() % 16 for t in (ops[2], ops[6])):
         raise ValueError("the bins planes must be 16-byte aligned")
     out = torch.empty((b, g, hg, d), dtype=torch.float32, device=q.device)
+    nsplit = -(-n_all // pps)
+    parts = b * g * nsplit * hg
+    ws = torch.empty(parts * (2 + d), dtype=torch.float32, device=q.device)
     _launch(LAUNCHES, "_kv_decode_attention", "repro_kv_decode_attention",
-            q.device, *(t.data_ptr() for t in ops), out.data_ptr(), b, g, hg,
-            kq.bins.shape[2], d, page, cap, softmax_scale(d))
+            q.device, *(t.data_ptr() for t in ops), out.data_ptr(),
+            ws.data_ptr(), ws[parts:].data_ptr(), ws[2 * parts:].data_ptr(),
+            b, g, hg, kq.bins.shape[2], d, page, cap, pps, softmax_scale(d))
     return out

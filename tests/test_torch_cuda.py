@@ -331,3 +331,89 @@ def test_kv_attention_kernel_full_page_of_outliers_on_card():
         want = TA._kv_decode_attention_plain(q, kq, vq, lengths)
         torch.cuda.synchronize()
         torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pps", [4, 16])
+def test_kv_attention_split_matches_plain_version_on_card(pps):
+    """The split over pages at S = 8192 (64 pages): lengths one before, on
+    and one after a split boundary, 1 and S, against the plain version
+    split the same way."""
+    _need_card()
+    from repro_torch.kernels import kv_attention as TA
+    s, edge = 8192, pps * 128
+    q, kq, vq = _kv_case(2, 2, s, 6)
+    for pair in ([edge - 1, edge], [edge + 1, 1], [s, 2 * edge + 1],
+                 [2 * edge, s - 1]):
+        lengths = torch.tensor(pair, dtype=torch.int32, device="cuda")
+        out = TA.kv_decode_attention(q, kq, vq, lengths, pages_per_split=pps)
+        want = TA._kv_decode_attention_plain(q, kq, vq, lengths,
+                                             pages_per_split=pps)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_kv_attention_masked_inf_in_last_page_on_card():
+    """An inf in V at a masked token inside the last page read: p = 0
+    there, so 0 * inf puts NaN in that channel of every head, in the
+    kernel as in the plain version; a length 0 row is all NaN."""
+    _need_card()
+    from repro_torch.compression import kv as TKV
+    from repro_torch.kernels import kv_attention as TA
+    b, g, s = 2, 2, 1024
+    v = (RNG.standard_normal((b, g, s, 128)) * 0.7).astype(np.float32)
+    v[0, 1, 300, 5] = np.inf
+    vq = TKV.quantize_kv(torch.from_numpy(v).cuda(),
+                         TKV.kv_quantizer_config())
+    q, kq, _ = _kv_case(b, g, s, 6)
+    lengths = torch.tensor([290, 0], dtype=torch.int32, device="cuda")
+    for pps in (1, 2, 8):
+        out = TA.kv_decode_attention(q, kq, vq, lengths, pages_per_split=pps)
+        want = TA._kv_decode_attention_plain(q, kq, vq, lengths,
+                                             pages_per_split=pps)
+        torch.cuda.synchronize()
+        nan = torch.isnan(out)
+        assert torch.equal(nan, torch.isnan(want))
+        assert bool(nan[1].all())
+        assert nan[0].nonzero().tolist() == [[1, h, 5] for h in range(6)]
+        torch.testing.assert_close(out[~nan], want[~nan], rtol=2e-5,
+                                   atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pps", [2, 3])
+def test_kv_attention_outliers_in_last_page_of_a_split_on_card(pps):
+    """A page holding cap exact outlier values in K and in V, the last page
+    of the first split: its corrections reach that split's partials."""
+    _need_card()
+    from repro_torch.kernels import kv_attention as TA
+    q, kq, vq = _kv_case(2, 2, 1024, 6)
+    kq = _fill_page_outliers(kq, page=pps - 1)
+    vq = _fill_page_outliers(vq, page=pps - 1)
+    for pair in ([pps * 128, 1024], [pps * 128 - 5, pps * 128 + 1]):
+        lengths = torch.tensor(pair, dtype=torch.int32, device="cuda")
+        out = TA.kv_decode_attention(q, kq, vq, lengths, pages_per_split=pps)
+        want = TA._kv_decode_attention_plain(q, kq, vq, lengths,
+                                             pages_per_split=pps)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_kv_attention_makes_no_host_sync_on_card():
+    """The wrapper launches with lengths on the card and no host sync."""
+    _need_card()
+    from repro_torch.kernels import kv_attention as TA
+    q, kq, vq = _kv_case(2, 2, 1024, 6)
+    lengths = torch.tensor([700, 1024], dtype=torch.int32, device="cuda")
+    TA.kv_decode_attention(q, kq, vq, lengths)     # build and load first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = TA.kv_decode_attention(q, kq, vq, lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = TA._kv_decode_attention_plain(q, kq, vq, lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)

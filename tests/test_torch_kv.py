@@ -223,6 +223,107 @@ def test_kv_attention_skips_pages_past_the_length():
         q, tk, tv, torch.tensor([0], dtype=torch.int32))).all())
 
 
+# ----------------------------------- the split over pages (flash-decoding) --
+
+SPLIT_S = 768                       # 6 pages
+
+
+@pytest.fixture(scope="module")
+def split_case():
+    """One cache (B = 2, G = 1, Hg = 4, 6 pages), its q, and the JAX
+    kernel's (interpret mode) and oracle's outputs by lengths, made once."""
+    k, v = make_cache(2, 1, SPLIT_S, 128)
+    jk, tk = _both(k)
+    jv, tv = _both(v)
+    q = RNG.standard_normal((2, 1, 4, 128)).astype(np.float32)
+    refs = {}
+
+    def ref(lengths):
+        key = tuple(lengths)
+        if key not in refs:
+            lens = jnp.asarray(np.array(lengths, np.int32))
+            refs[key] = (
+                np.asarray(j_attention(jnp.asarray(q), jk, jv, lens,
+                                       interpret=True)),
+                np.asarray(j_oracle(jnp.asarray(q), jk, jv, lens)))
+        return refs[key]
+
+    return dict(q=q, jk=jk, jv=jv, tk=tk, tv=tv, ref=ref)
+
+
+def _split_lengths():
+    """(pages_per_split, lengths): one before, on and one after a split
+    boundary (pps * 128 tokens); "all" is one split of every page."""
+    cases = []
+    for pps in (1, 2, 3, "all"):
+        edge = SPLIT_S if pps == "all" else pps * 128
+        after = [1, SPLIT_S] if pps == "all" else [edge + 1, 1]
+        cases += [(pps, [edge - 1, edge]), (pps, after)]
+    return cases
+
+
+@pytest.mark.parametrize("pps,lengths", _split_lengths())
+def test_kv_attention_split_matches_reference(split_case, pps, lengths):
+    """The plain version split into runs of pps pages and merged, as the
+    kernel is, against the JAX kernel and oracle."""
+    c = split_case
+    n = SPLIT_S // 128 if pps == "all" else pps
+    t = TA.kv_decode_attention(torch.from_numpy(c["q"]), c["tk"], c["tv"],
+                               torch.tensor(lengths, dtype=torch.int32),
+                               pages_per_split=n).numpy()
+    j_k, j_o = c["ref"](lengths)
+    np.testing.assert_allclose(t, j_k, **TOL)
+    np.testing.assert_allclose(t, j_o, **TOL)
+
+
+@pytest.mark.parametrize("pps", [1, 2, 3, 6])
+def test_kv_attention_split_length_zero_is_nan(split_case, pps):
+    """Length 0 reads no page and no split: NaN, as the oracle gives; the
+    other row is untouched by it."""
+    c = split_case
+    lengths = torch.tensor([0, 300], dtype=torch.int32)
+    t = TA.kv_decode_attention(torch.from_numpy(c["q"]), c["tk"], c["tv"],
+                               lengths, pages_per_split=pps).numpy()
+    assert np.isnan(t[0]).all() and not np.isnan(t[1]).any()
+    _, j_o = c["ref"](lengths.tolist())
+    assert np.isnan(j_o[0]).all()
+    np.testing.assert_allclose(t[1], j_o[1], **TOL)
+
+
+@pytest.mark.parametrize("pps", [1, 2, 3])
+def test_kv_attention_split_keeps_the_unsplit_nans(pps):
+    """An inf in V at a masked token of the last page read (token 300,
+    length 290) gives NaN in its channel of every head, split or not."""
+    k, v = make_cache(1, 2, SPLIT_S, 128, sinks=False)
+    v[0, 1, 300, 5] = np.inf
+    _, tk = _both(k)
+    _, tv = _both(v)
+    q = torch.from_numpy(RNG.standard_normal((1, 2, 3, 128))
+                         .astype(np.float32))
+    lengths = torch.tensor([290], dtype=torch.int32)
+    whole = TA.kv_decode_attention(q, tk, tv, lengths,
+                                   pages_per_split=SPLIT_S // 128).numpy()
+    t = TA.kv_decode_attention(q, tk, tv, lengths,
+                               pages_per_split=pps).numpy()
+    nan = np.isnan(t)
+    assert np.argwhere(nan).tolist() == [[0, 1, h, 5] for h in range(3)]
+    np.testing.assert_array_equal(nan, np.isnan(whole))
+    np.testing.assert_allclose(t[~nan], whole[~nan], **TOL)
+
+
+def test_kv_attention_default_split_uses_shapes_only(split_case):
+    """The default pages per split comes from B, G, the page count and the
+    SM count: 16 at decode_32k's B = 32 on 132 SMs, fewer for one user."""
+    assert TA.default_pages_per_split(32, 8, 256) == 16
+    assert TA.default_pages_per_split(1, 8, 256) == 8
+    assert TA.default_pages_per_split(1, 1, 1) == 1
+    with pytest.raises(ValueError, match="pages_per_split"):
+        c = split_case
+        TA.kv_decode_attention(torch.from_numpy(c["q"]), c["tk"], c["tv"],
+                               torch.tensor([1, 1], dtype=torch.int32),
+                               pages_per_split=0)
+
+
 def test_kv_attention_refuses_bad_operands():
     k, v = make_cache(1, 1, 128, 128)
     tk, tv = (TKV.quantize_kv(torch.from_numpy(x), TKV.kv_quantizer_config())
