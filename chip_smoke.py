@@ -58,21 +58,27 @@ blocks per SM) and the peak device memory.  A code-sweep phase
 holds the four chunk-coder kernels bit for bit against their plain
 versions on inputs where each chunk code covers at least 10 % of the
 chunks, at pack 8, 16 and 32, a ragged n and both stages.  Each kernel is
-timed with CUDA events (median of 25 after warm-up) beside its bound and
-its plain version (which repeats the kernel's arithmetic and is no
-yardstick of speed); the attention also beside one
-`scaled_dot_product_attention` call over the dequantized float32 cache.
-The kv line adds, under names of their own, both timed over 10 calls in a
-row (a decode loop's view: the host's per-call time hides under the
-device's), and the attention kernels' device time and launches per call
-from a `torch.profiler` trace.
+timed as one call by CUDA events (median of 25 after warm-up, the
+wrapper's host time included) beside its device time from a
+`torch.profiler` trace (`device_ms`; their difference is the host's
+share), its bound and its plain version (which repeats the kernel's
+arithmetic and is no yardstick of speed); B1 and B3 also on a copy of x
+one float past a 16-byte boundary (`offset1_ms`, `offset1_device_ms`,
+the kernel's path for unaligned views, held against the plain version
+too); the attention also beside one
+`scaled_dot_product_attention` call over the dequantized float32 cache,
+at B = 32 and at B = 1.  The kv line adds, under names of their own, both
+timed over 10 calls in a row (a decode loop's view: the host's per-call
+time hides under the device's), and the attention kernels' launches per
+call from the trace.
 
 Output: the card's name and power limit, one JSON line per chain, one
 JSON line per phase (dense, code sweep, kv), one JSON line
 {"kernels": [...]}, and last
-{"ok": true, "device": {...}}.  Any failed check exits non-zero; with no
-CUDA device, or outside a checkout, it exits non-zero before printing any
-result.
+{"ok": true, "device": {...}}.  On stderr: the build log and a summary of
+its `-Xptxas -v` lines for the pack kernel (registers, stack, spills of
+each instance).  Any failed check exits non-zero; with no CUDA device, or
+outside a checkout, it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
@@ -291,6 +297,31 @@ def max_abs_err(a, b) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
+def ptxas_summary(log: str) -> dict:
+    """{"<bits>,<rel>": {registers, stack, spill_stores, spill_loads}} of
+    every instance of pack_kernel in the build log's `-Xptxas -v` lines."""
+    entry = re.compile(r"Compiling entry function "
+                       r"'\w*?11pack_kernelILi(\d+)ELb([01])E")
+    out, key = {}, None
+    for line in log.splitlines():
+        m = entry.search(line)
+        if m:
+            key = f"{m.group(1)},{'rel' if m.group(2) == '1' else 'abs'}"
+            continue
+        if key is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if frame:
+            out[key] = dict(zip(("stack", "spill_stores", "spill_loads"),
+                                map(int, frame.groups())))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[key]["registers"] = int(regs.group(1))
+            key = None
+    return out
+
+
 def _kernel_modules():
     from repro_torch.kernels import dense, kv_attention, lossless, pack
     return pack, lossless, dense, kv_attention
@@ -420,15 +451,40 @@ def kernel_row(name, label, chain, bits, size, hist, kern, plain, count):
     check(match, f"{chain}: {name} ({label}) differs from its plain version")
     bound_ms, bound_by = bound_of(name, size, bits, hist)
     ms = time_ms(kern)
+    _, dev_ms = device_kernels(kern, reps=10)
     src, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": CSRC + src,
             "replaces": replaces, "chain": chain, "stage": label,
             "bits": bits, "launches": count, "max_abs_err": err,
             "tolerance": 0.0, "match": match, "ms": ms,
+            "device_ms": sum(dev_ms.values()) or None,
+            "device_ms_by_kernel": dev_ms,
             "plain_ms": time_ms(plain, reps=10, warm=1),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "share": bound_ms / ms, "library_ms": None,
             "bytes": kernel_bytes(name, size, bits, hist)}
+
+
+def offset1_row(pipe, x, eb_arr, label: str) -> dict:
+    """B1 or B3 on the chain's x copied to a view one float past a 16-byte
+    boundary (the pack kernel's strided path), held against its plain
+    version and timed as the aligned row is."""
+    from repro_torch.kernels import pack as K
+    cfg = pipe.qcfg()
+    xo = torch.empty(x.numel() + 1, device=DEV)[1:]
+    xo.copy_(x)
+    if pipe.quant.mode == "rel":
+        kern, plain = (lambda: K.rel_pack(xo, cfg),
+                       lambda: K._rel_pack_plain(xo, cfg))
+    else:
+        kern, plain = (lambda: K.abs_pack(xo, eb_arr, cfg),
+                       lambda: K._abs_pack_plain(xo, eb_arr, cfg))
+    check(all(planes_equal(a, b) for a, b in zip(kern(), plain())),
+          f"{label}: the pack kernel on an unaligned view differs from its "
+          "plain version")
+    _, dev_ms = device_kernels(kern, reps=10)
+    return {"offset1_ms": time_ms(kern),
+            "offset1_device_ms": sum(dev_ms.values()) or None}
 
 
 def run_chain(label: str, spec: str, x, eb):
@@ -468,6 +524,9 @@ def run_chain(label: str, spec: str, x, eb):
     rows = [kernel_row(name, lab, label, pipe.pack.bits, size, hist, kern,
                        plain, counts[name])
             for name, lab, size, hist, kern, plain in calls]
+    for r in rows:
+        if r["name"] in ("_abs_pack", "_rel_pack"):
+            r.update(offset1_row(pipe, x, eb_arr, label))
     t = {}
     for r in rows:
         t[r["name"]] = t.get(r["name"], 0.0) + r["ms"]
@@ -897,6 +956,16 @@ def kv_phase(seed: int, batch: int = KV_BATCH, s: int = KV_S) -> list:
     ms1 = time_ms(attend_b1)
     ms1_batched = time_ms(attend_b1, batch=KV_BATCH_CALLS)
     per_call1, dev_ms1 = device_kernels(attend_b1)
+    kd1, vd1 = (KV.dequantize_kv(t, page=KV_PAGE) for t in (k1, v1))
+
+    def library_b1():
+        return F.scaled_dot_product_attention(q1, kd1, vd1,
+                                              attn_mask=mask[:1])
+
+    lib1_ms = time_ms(library_b1)
+    plain1_ms = time_ms(lambda: A._kv_decode_attention_plain(
+        q1, k1, v1, len1, page=KV_PAGE), reps=5, warm=1)
+    del kd1, vd1
     bytes1, ops1 = kv_work(len1, 1, KV_HG, s)
     bound1_ms, bound1_by = bound_from(bytes1, ops1)
     device = sum(dev_ms.values()) or None
@@ -937,7 +1006,8 @@ def kv_phase(seed: int, batch: int = KV_BATCH, s: int = KV_S) -> list:
         "library_batched_ms": lib_batched_ms,
         "attention_device_ms": device, "device_ms_by_kernel": dev_ms,
         "launches_per_call": per_call,
-        "attention_b1_ms": ms1, "bound_b1_ms": bound1_ms,
+        "attention_b1_ms": ms1, "library_b1_ms": lib1_ms,
+        "plain_b1_ms": plain1_ms, "bound_b1_ms": bound1_ms,
         "bound_b1_by": bound1_by, "share_b1": bound1_ms / ms1,
         "attention_b1_batched_ms": ms1_batched,
         "attention_b1_device_ms": device1, "b1_device_ms_by_kernel": dev_ms1,
@@ -962,7 +1032,8 @@ def kv_phase(seed: int, batch: int = KV_BATCH, s: int = KV_S) -> list:
              "device_ms": device,
              "bytes": n_bytes, "operations": ops, "b1_ms": ms1,
              "b1_batched_ms": ms1_batched, "b1_device_ms": device1,
-             "b1_bound_ms": bound1_ms, "b1_share": bound1_ms / ms1}]
+             "b1_bound_ms": bound1_ms, "b1_share": bound1_ms / ms1,
+             "b1_library_ms": lib1_ms, "b1_plain_ms": plain1_ms}]
 
 
 def main(argv=None) -> int:
@@ -990,7 +1061,10 @@ def main(argv=None) -> int:
     lib = _build.build()
     print(f"chip_smoke: built {lib.name} in {time.time() - t0:.1f} s",
           file=sys.stderr)
-    print(lib.with_suffix(".log").read_text(), file=sys.stderr)
+    log = lib.with_suffix(".log").read_text()
+    print(log, file=sys.stderr)
+    print("chip_smoke: ptxas pack_kernel "
+          + json.dumps(ptxas_summary(log)), file=sys.stderr)
 
     f = make_fields(args.n, args.seed)
     rows = []

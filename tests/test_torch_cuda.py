@@ -39,14 +39,24 @@ def _need_card():
         pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
 
 
+def _shifted(t, offset):
+    """A copy of t that starts `offset` elements into its storage."""
+    return torch.cat([t[:offset], t])[offset:]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 4095, 4096 * 3 + 129])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 4095, 4096 * 3 + 129, 4096 * 8])
 @pytest.mark.parametrize("bits", [8, 16, 32])
 @pytest.mark.parametrize("mode", ["abs", "rel", "noa"])
-def test_kernels_match_plain_versions_on_card(mode, bits, n):
+def test_kernels_match_plain_versions_on_card(mode, bits, n, offset):
+    """B1-B4 bit for bit against their plain versions: n = 4096 * 8 is
+    whole groups of 32 rows (the pack kernel's vector path), 4095 and
+    4096 * 3 + 129 end inside a row (the last group takes the guarded
+    path), and offset 1 gives an unaligned view (every group guarded)."""
     _need_card()
     cfg = TCfg(mode=mode, error_bound=1e-2, bin_bits=bits)
-    x = torch.from_numpy(_mix(max(n, 8))[:n]).cuda()
+    x = _shifted(torch.from_numpy(_mix(max(n, 8))[:n]).cuda(), offset)
     before = dict(TK.LAUNCHES)
     if mode == "rel":
         k_out = TK.rel_pack(x, cfg)
@@ -215,11 +225,92 @@ def test_lc_pipeline_on_card_matches_cpu(name):
                        .view(torch.int32))
 
 
-# ------------------- the dense quantize/dequantize kernels (dense.cu) --
+def _up(v):
+    return np.nextafter(np.float32(v), np.float32(np.inf))
 
-def _shifted(t, offset):
-    """A copy of t that starts `offset` elements into its storage."""
-    return torch.cat([t[:offset], t])[offset:]
+
+def _down(v):
+    return np.nextafter(np.float32(v), np.float32(-np.inf))
+
+
+def _pack_edges(cfg, eb):
+    """The quantizers' edges: values whose bins are +-(maxbin - 1) and
+    +-maxbin and the ties and floats beside them (ABS: (bin + d) * eb2; REL:
+    +-pow2approx(bin * log_step)), the REL FTZ screen and float32's tiny
+    with their neighbours, denormals, +-0.0, +-inf and NaN payloads."""
+    from repro_torch.core.bitops import pow2approx
+    f32 = np.float32
+    mb = cfg.maxbin
+    bins = np.array([mb - 1, mb, 1 - mb, -mb, mb // 2, 0], np.int64)
+    vals = [np.inf, -np.inf, np.nan,
+            *np.array([0x7FC00123, 0x7F800001, 0xFFC00001, 0x00000001,
+                       0x007FFFFF, 0x80000001, 0x807FFFFF, 0x00000000,
+                       0x80000000], np.uint32).view(np.float32)]
+    tiny = np.finfo(f32).tiny
+    edges = [tiny, -tiny]
+    if cfg.mode == "rel":
+        _, log_step, _ = cfg.rel_constants()
+        mag = pow2approx(torch.from_numpy((bins * float(log_step))
+                                          .astype(np.float32))).numpy()
+        edges += [*mag, *-mag, cfg.rel_screen_threshold(),
+                  -cfg.rel_screen_threshold()]
+    else:
+        eb2 = float(cfg.abs_constants(eb)[1])
+        edges += [f32((b + d) * eb2) for b in bins for d in (-0.5, 0.0, 0.5)]
+    for e in edges:
+        vals += [f32(e), _up(e), _down(e)]
+    return np.array(vals, np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 16, 32])
+@pytest.mark.parametrize("mode", ["abs", "rel", "noa"])
+def test_pack_kernels_hold_the_quantizer_edges_on_card(mode, bits):
+    """B1 and B3 bit for bit against their plain versions on the
+    quantizers' edges (`_pack_edges`), placed in a whole group (the vector
+    path) and in the ragged last group (the guarded path).  The bounds put
+    the bins +-(maxbin - 1) and +-maxbin inside float32's range (REL) and
+    inside the field's value range (NOA) where the width allows (REL
+    pack:32 bins stop near 2^17 at 1e-3)."""
+    _need_card()
+    from repro_torch.core import quantizer as TQ
+    eb = {"abs": {8: 1e-2, 16: 1e-2, 32: 1e-2},
+          "noa": {8: 1e-3, 16: 3e-6, 32: 1e-10},
+          "rel": {8: 1.5, 16: 4e-3, 32: 1e-3}}[mode][bits]
+    cfg = TCfg(mode=mode, error_bound=eb, bin_bits=bits)
+    x = torch.from_numpy(_mix(4096 * 2 + 300))
+    x[90:92] = torch.tensor([-1.1e6, 1.1e6])   # the value range's ends
+    eb_t = (TQ.value_range_eb(x, cfg) if mode == "noa"
+            else torch.tensor(np.float32(7.5e-3))).reshape(1)
+    edges = torch.from_numpy(_pack_edges(cfg, eb_t.item()))
+    x[100:100 + edges.numel()] = edges
+    x[-edges.numel():] = edges
+    x, eb_t = x.cuda(), eb_t.cuda()
+    if mode == "rel":
+        _equal(TK.rel_pack(x, cfg), TK._rel_pack_plain(x, cfg))
+    else:
+        if mode == "noa":           # the edges stay inside the value range
+            assert torch.equal(TQ.value_range_eb(x, cfg).reshape(1), eb_t)
+        _equal(TK.abs_pack(x, eb_t, cfg), TK._abs_pack_plain(x, eb_t, cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eb", [float("nan"), 0.0, 2.0 ** -121, -1.0,
+                                float("inf"), 3e38])
+@pytest.mark.parametrize("bits", [8, 16, 32])
+def test_abs_pack_degenerate_and_huge_bounds_on_card(bits, eb):
+    """B1 with a traced eb that is NaN, zero, below the floor or negative
+    (degenerate: every value an outlier) or whose step overflows, bit for
+    bit against its plain version, on whole groups and a ragged one."""
+    _need_card()
+    cfg = TCfg(mode="abs", error_bound=1e-2, bin_bits=bits)
+    eb_t = torch.tensor([eb], dtype=torch.float32, device="cuda")
+    for n in (4096 * 2, 4096 * 2 + 300):
+        x = torch.from_numpy(_mix(n)).cuda()
+        _equal(TK.abs_pack(x, eb_t, cfg), TK._abs_pack_plain(x, eb_t, cfg))
+
+
+# ------------------- the dense quantize/dequantize kernels (dense.cu) --
 
 
 @pytest.mark.cuda

@@ -242,3 +242,75 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def _chip_script(name):
+    sys.path.insert(0, str(REPO))
+    try:
+        return __import__(name)
+    finally:
+        sys.path.remove(str(REPO))
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__0_7_pack_cu_0d13unpack_kernelILi8ELb1EEEvPKjxS2_PKfffPfxx' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__0_7_pack_cu_0d13unpack_kernelILi8ELb1EEEvPKjxS2_PKfffPfxx
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 26 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__0_7_pack_cu_0d11pack_kernelILi32ELb0EEEvPKfxxS2_ffNS_9RelParamsEiPjxPhS4_b' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__0_7_pack_cu_0d11pack_kernelILi32ELb0EEEvPKfxxS2_ffNS_9RelParamsEiPjxPhS4_b
+    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 48 registers, used 0 barriers, 16 bytes cumulative stack size
+"""
+
+
+def test_chip_smoke_reads_ptxas_lines_of_pack_kernel():
+    """Only pack_kernel's instances, not unpack_kernel's."""
+    cs = _chip_script("chip_smoke")
+    assert cs.ptxas_summary(PTXAS_LOG) == {"32,abs": {
+        "stack": 16, "spill_stores": 12, "spill_loads": 8, "registers": 48}}
+
+
+SASS = """\
+\t\tFunction : _ZN39_GLOBAL__N__0_7_pack_cu_0d11pack_kernelILi8ELb1EEEvPKfxx
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x000 */
+        /*0010*/               @P0 EXIT ;                         /* 0x000 */
+        /*0020*/              @!P1 BRA 0x90 ;                     /* 0x000 */
+        /*0030*/                   LDG.E.128.CONSTANT R8, desc[UR6][R28.64] ;
+        /*0040*/                   F2I.TRUNC.NTZ R23, R13 ;
+        /*0050*/                   FADD R13, R13, 127 ;
+        /*0060*/                   LOP3.LUT R32, R32, 0xff, RZ, 0xc0, !PT ;
+        /*0070*/                   STG.E.128 desc[UR6][R30.64+0x200], R24 ;
+        /*0080*/                   EXIT ;
+        /*0090*/                   LDG.E.CONSTANT R3, desc[UR4][R14.64] ;
+        /*00a0*/                   I2FP.F32.S32 R34, R31 ;
+        /*00b0*/                   STG.E.U8 desc[UR6][R6.64], R31 ;
+        /*00c0*/                   EXIT ;
+        /*00d0*/                   BRA 0xd0;
+        /*00e0*/                   NOP;
+\t\tFunction : _ZN39_GLOBAL__N__0_7_pack_cu_0d13unpack_kernelILi8ELb1EEEvPKj
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_chip_sass_counts_the_vector_path_by_class():
+    """chip_sass.py counts, in a kernel with 16-byte accesses, the block
+    that holds them through the EXIT that ends it, by class."""
+    sass = _chip_script("chip_sass")
+    fns = sass.functions(SASS)
+    assert len(fns) == 2
+    body = next(b for f, b in fns.items() if "11pack_kernel" in f)
+    path, region = sass.counted_path(body)
+    assert region == "vector"
+    assert [i[2] for i in path] == ["LDG", "F2I", "FADD", "LOP3", "STG",
+                                    "EXIT"]
+    counts = sass.classify(path)
+    assert {k: counts[k] for k in ("total", "loads", "conversions",
+                                   "float32", "integer", "stores",
+                                   "other")} == {
+        "total": 6, "loads": 1, "conversions": 1, "float32": 1,
+        "integer": 1, "stores": 1, "other": 1}
+    whole, region = sass.counted_path(body[9:])       # the scalar path
+    assert region == "whole"
+    assert sass.classify(whole)["total"] == 5           # the NOP is left out
