@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels of `src/repro_torch/kernels/csrc/` (pack.cu,
 lossless.cu, dense.cu and kv_attention.cu, one nvcc each, in parallel) from
-source, then runs six chains through `repro_torch.core.pipeline`
+source, then runs twelve chains through `repro_torch.core.pipeline`
 (`Pipeline.encode` -> `Encoded` -> `Pipeline.decode`) at n = 512**3
 float32 values (the size of one SDRBench NYX field), with data made on the
 card from `--seed`:
@@ -20,7 +20,32 @@ card from `--seed`:
     embedding-table gradient, 8192 rows of n/8192 values, 1 % of the rows
     touched with N(0,1)*3e-3 and the rest exactly zero, eb = 2**-5 * rms;
   * `smoke-chain` (`rel:0.001|pack:8|zero|narrow`) on exp(0.02*N(0,1)), a
-    field within a few % of 1 whose REL bins fit 8 bits.
+    field within a few % of 1 whose REL bins fit 8 bits;
+  * `grad-wire-16-ent` and `grad-wire-pred` (`delta|...|pack:16|narrow|ent`)
+    on the embedding gradient with eb = 2**-5 * rms;
+  * `sci-rel-shuffle`, `sci-rel-ent` and `sci-lorenzo-ent` on the NYX-like
+    field with pred_shape (512, 512, 512);
+  * after the kv phase, `kv-delta` (`kvdelta|abs:1.0|pack:8|zero|narrow`)
+    on batch row 0 of its K (one user's cache at 32K, 8 x 32768 x 128) as
+    pages of 128 tokens, pred_shape (2048, 128, 128), eb = 2**-5 * rms(K).
+
+The pred chains quantize with B8/B9 and decode with B10/B11; `shuffle`,
+`ent`, the predictors and the checksum are torch ops, timed in each
+line's `parts_ms`.  Every counted run also counts the calls, with a CUDA
+tensor, of the plain quantizers and packed codec (`plain_calls`, 0).
+
+An `audit` phase runs `encode(verify=True, integrity=True)` and
+`decode(verify=True)` at full width on `rel:0.001|pack:16`, `grad-wire-8`,
+`sci-rel-narrow`, `sci-lorenzo-ent` and `lorenzo|rel:0.001|pack:32|narrow`
+(the one chain that takes B11 through the pipeline), holds the wire, the
+checksum, the `Quantized` planes and the report against the plain path on
+the card and requires `report.ok()`, and times verify=/integrity=, the
+checksum and the audit reduction beside the plain encode and decode (the
+dense kernels of these paths, B8/B9 and on pred decodes B10/B11, join the
+kernel rows with their launches); then
+`runtime.guard.detection_matrix` over all 13 presets at n = 2**20 (every
+fault class detected, `nan_input` from the report of a NaN-corrupted
+encode, the clean wire passing).
 
 A `dense` phase drives the dense-layout entry points
 (`kernels.ops.quantize_abs`, `quantize_rel`, `dequantize_abs` and
@@ -73,7 +98,7 @@ time hides under the device's), and the attention kernels' launches per
 call from the trace.
 
 Output: the card's name and power limit, one JSON line per chain, one
-JSON line per phase (dense, code sweep, kv), one JSON line
+JSON line per phase (dense, audit, code sweep, kv), one JSON line
 {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.  On stderr: the build log and a summary of
 its `-Xptxas -v` lines for the pack kernel (registers, stack, spills of
@@ -83,6 +108,7 @@ outside a checkout, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import statistics
@@ -337,28 +363,75 @@ def reset_launches():
 
 
 def stage_codes(pipe, enc, n: int):
-    """The int32 chunk codes of each word stage, from the header planes."""
+    """Per word stage, from its header plane: the int32 chunk codes of a
+    zero/narrow stage, the chunk modes of an ent stage, None for shuffle."""
     from repro_torch.core import codec as C
-    sizes = pipe.stage_sizes(n)
-    return [C.unpack_words(h, C.lc_chunk_count(sz), 2, signed=False)
-            for h, sz in zip(enc.headers, sizes)]
+    from repro_torch.core.pipeline import ChunkStage, EntStage
+    out = []
+    for st, h, sz in zip(pipe.stages, enc.headers, pipe.stage_sizes(n)):
+        nc = C.lc_chunk_count(sz)
+        if isinstance(st, ChunkStage):
+            out.append(C.unpack_words(h, nc, 2, signed=False))
+        elif isinstance(st, EntStage):
+            lo = C.packed_word_count(C.ENT_SYMS, 4)
+            out.append(C.unpack_words(h[lo:lo + C.packed_word_count(nc, 2)],
+                                      nc, 2, signed=False))
+        else:
+            out.append(None)
+    return out
 
 
 def hist_of(codes):
+    if codes is None:
+        return None
     return [int(v) for v in torch.bincount(codes.to(torch.int64),
                                            minlength=4).cpu()]
 
 
-def path_calls(pipe, enc, x, eb_arr, n: int):
+def fused_lc(pipe) -> bool:
+    return pipe.kernel_dispatch().endswith("encode_packed_lc")
+
+
+def first_words(pipe, x, eb, eb_arr, shape):
+    """The word plane entering the chain's first word stage, made on the
+    kernel path (B8/B9 and the pred transform for a pred chain, else B1 or
+    B3), and the outlier plane."""
+    from repro_torch.kernels import dense as D
+    from repro_torch.kernels import pack as K
+    cfg, n = pipe.qcfg(), x.numel()
+    if pipe.pred:
+        ep, qt = D.encode_packed(x, cfg, eb, bin_transform=pipe._bin_transform(
+            shape, n))
+        return ep.words, qt.outlier
+    if pipe.quant.mode == "rel":
+        words, outlier, _ = K.rel_pack(x, cfg)
+    else:
+        words, outlier = K.abs_pack(x, eb_arr, cfg)
+    return words, outlier
+
+
+def path_calls(pipe, enc, x, eb, eb_arr, n: int, shape):
     """[(kernel, label, n or words, hist, kernel call, plain call)] on the
     main path's inputs of every kernel the chain's encode and decode
     launch, in path order."""
     from repro_torch.core import codec as C
+    from repro_torch.core.pipeline import ChunkStage
+    from repro_torch.kernels import dense as D
     from repro_torch.kernels import lossless as L
     from repro_torch.kernels import pack as K
     cfg, bits, rel = pipe.qcfg(), pipe.pack.bits, pipe.quant.mode == "rel"
     calls = []
-    if len(pipe.stages) == 1:
+    if pipe.pred:                       # B8/B9, the dense quantizers
+        if rel:
+            calls.append(("_quantize_rel", "", n, None,
+                          lambda: tuple(D.quantize_rel(x, cfg)),
+                          lambda: tuple(D._quantize_rel_plain(x, cfg))))
+        else:
+            calls.append(("_quantize_abs", "", n, None,
+                          lambda: tuple(D.quantize_abs(x, cfg, eb=eb_arr)[:3]),
+                          lambda: tuple(D._quantize_abs_plain(x, eb_arr,
+                                                              cfg)[:3])))
+    elif fused_lc(pipe):
         stage = pipe.stages[0].mode
         if rel:
             calls.append(("_rel_pack_lc", stage, n, None,
@@ -377,25 +450,44 @@ def path_calls(pipe, enc, x, eb_arr, n: int):
                       lambda: K._abs_pack_plain(x, eb_arr, cfg)))
     sizes = pipe.stage_sizes(n)
     codes = stage_codes(pipe, enc, n)
-    if len(pipe.stages) > 1:            # the select kernel, stage by stage
-        cur = (K.rel_pack(x, cfg) if rel else K.abs_pack(x, eb_arr, cfg))[0]
+    if not fused_lc(pipe):              # the select kernel per chunk stage
+        cur = first_words(pipe, x, eb, eb_arr, shape)[0]
         for i, st in enumerate(pipe.stages):
-            calls.append(("_lc_select", f"{i}:{st.mode}", sizes[i], None,
-                          lambda w=cur, s=st.mode: L.lc_select(w, s),
-                          lambda w=cur, s=st.mode: L._lc_select_plain(w, s)))
-            cur = L.encode_words_lc(cur, st.mode)[1]
+            if isinstance(st, ChunkStage):
+                calls.append(("_lc_select", f"{i}:{st.mode}", sizes[i], None,
+                              lambda w=cur, s=st.mode: L.lc_select(w, s),
+                              lambda w=cur, s=st.mode:
+                              L._lc_select_plain(w, s)))
+            cur = st.encode_words(cur, sizes[i], kernels=True)[1]
     cur = enc.payload                   # decode: the stages in reverse
     for i in reversed(range(len(pipe.stages))):
-        padded = C.lc_gather_chunks(cur, codes[i]).reshape(-1)
-        m = sizes[i]
-        calls.append(("_lc_expand", f"{i}:{pipe.stages[i].mode}", m,
-                      hist_of(codes[i]),
-                      lambda p=padded, c=codes[i], m=m: L.lc_expand(p, c, m),
-                      lambda p=padded, c=codes[i], m=m:
-                      L._lc_expand_plain(p, c, m)))
-        cur = L.lc_expand(padded, codes[i], m)
+        st, m = pipe.stages[i], sizes[i]
+        if isinstance(st, ChunkStage):
+            padded = C.lc_gather_chunks(cur, codes[i]).reshape(-1)
+            calls.append(("_lc_expand", f"{i}:{st.mode}", m, hist_of(codes[i]),
+                          lambda p=padded, c=codes[i], m=m: L.lc_expand(p, c, m),
+                          lambda p=padded, c=codes[i], m=m:
+                          L._lc_expand_plain(p, c, m)))
+        cur = st.decode_words(enc.headers[i], cur, m, kernels=True)
     words = cur
-    if rel:
+    if pipe.pred:                       # B10/B11 on the dense planes
+        bins = pipe._bin_untransform(shape, n)(C.unpack_words(words, n, bits))
+        outlier, payload = C.outlier_planes(n, enc.out_idx, enc.out_payload)
+        if rel:
+            sign = C.unpack_flags(enc.sign_words, n)
+            calls.append(("_dequantize_rel", "", n, None,
+                          lambda: D.dequantize_rel(bins, payload, outlier,
+                                                   sign, cfg),
+                          lambda: D._dequantize_rel_plain(bins, payload,
+                                                          outlier, sign, cfg)))
+        else:
+            calls.append(("_dequantize_abs", "", n, None,
+                          lambda: D.dequantize_abs(bins, payload, outlier,
+                                                   cfg, eb=eb_arr),
+                          lambda: D._dequantize_abs_plain(bins, payload,
+                                                          outlier, eb_arr,
+                                                          cfg)))
+    elif rel:
         calls.append(("_rel_unpack", "", n, None,
                       lambda: K.rel_unpack(words, enc.sign_words, n, cfg),
                       lambda: K._rel_unpack_plain(words, enc.sign_words, n,
@@ -408,16 +500,19 @@ def path_calls(pipe, enc, x, eb_arr, n: int):
 
 
 def oracle_check(pipe, x, eb) -> None:
-    """A small ragged slice through the kernels against the numpy oracle."""
+    """A small ragged slice through the kernels against the numpy oracle
+    (a pred chain's codes inverted first, with the slice's flat shape)."""
     from repro_torch.core import codec as C
     from repro_torch.core import oracle_np
+    from repro_torch.core import predict as P
     cfg = pipe.qcfg()
     xs = x[:4099].contiguous()
     m = xs.numel()
-    enc = pipe.encode(xs, eb, device=DEV)
+    enc = pipe.encode(xs, eb, device=DEV, pred_shape=(m,))
     words = pipe.decode_words(enc.headers, enc.payload, pipe.n_words(m),
                               kernels=True)
-    bins = C.unpack_words(words.cpu(), m, cfg.bin_bits).numpy()
+    bins = C.unpack_words(words.cpu(), m, cfg.bin_bits)
+    bins = P.decode_pred_stages(pipe.pred, bins, (m,), cfg.bin_bits).numpy()
     xn = xs.cpu().numpy()
     if cfg.mode == "rel":
         ob, oo, _, osign = oracle_np.quantize_rel(xn, cfg)
@@ -428,7 +523,8 @@ def oracle_check(pipe, x, eb) -> None:
         check(np.float32(oeb).view(np.uint32)
               == enc.eb.cpu().numpy().view(np.uint32), "oracle: NOA eb")
     else:
-        ob, oo, _ = oracle_np.quantize_abs(xn, cfg, eb=np.float32(eb.item()))
+        eb_o = None if eb is None else np.float32(eb.item())
+        ob, oo, _ = oracle_np.quantize_abs(xn, cfg, eb=eb_o)
     check(np.array_equal(bins, ob), f"oracle: bins of {pipe.spec()}")
     k = cfg.outlier_cap(m)
     want = np.full(k, m, np.int32)
@@ -436,6 +532,35 @@ def oracle_check(pipe, x, eb) -> None:
     want[:first.size] = first
     check(np.array_equal(enc.out_idx.cpu().numpy(), want),
           f"oracle: outlier table of {pipe.spec()}")
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls, with a CUDA tensor, of the plain quantizers and the
+    plain packed codec while the block runs (the card's paths take none)."""
+    from repro_torch.core import codec as C
+    from repro_torch.core import quantizer as Q
+    count = {"calls": 0}
+    saved = []
+    for mod, name in ((Q, "quantize_abs"), (Q, "quantize_rel"),
+                      (Q, "quantize_noa"), (Q, "dequantize_abs"),
+                      (Q, "dequantize_rel"), (C, "encode_packed"),
+                      (C, "decode_packed"), (C, "encode_words_lc"),
+                      (C, "decode_words_lc")):
+        fn = getattr(mod, name)
+
+        def counted(*args, _fn=fn, **kw):
+            if any(torch.is_tensor(a) and a.is_cuda for a in args):
+                count["calls"] += 1
+            return _fn(*args, **kw)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, counted)
+    try:
+        yield count
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def as_tuple(v):
@@ -487,106 +612,187 @@ def offset1_row(pipe, x, eb_arr, label: str) -> dict:
             "offset1_device_ms": sum(dev_ms.values()) or None}
 
 
-def run_chain(label: str, spec: str, x, eb):
+def chain_parts(pipe, enc, x, eb, eb_arr, shape, t: dict) -> dict:
+    """Where the end-to-end time goes: the kernels (t: kernel -> one-call
+    ms) and the torch ops around them, each timed as one call on the
+    chain's own planes: NOA's range, the outlier table, the pred transform
+    and the pack of a pred chain, each word stage (the chunk compaction,
+    shuffle, ent encode; on decode the gather, unshuffle, ent decode), and
+    the decode's unpack, pred inverse and outlier planes or scatter."""
     from repro_torch.core import codec as C
+    from repro_torch.core import predict as P
     from repro_torch.core import quantizer as Q
+    from repro_torch.core.pipeline import ChunkStage, EntStage, ShuffleStage
+    from repro_torch.kernels import dense as D
+    from repro_torch.kernels import lossless as L
+    cfg, n, bits = pipe.qcfg(), x.numel(), pipe.pack.bits
+    rel = pipe.quant.mode == "rel"
+    sizes, codes = pipe.stage_sizes(n), stage_codes(pipe, enc, n)
+    parts = {k: 0.0 for k in (
+        "encode_kernel", "value_range", "outlier_table", "select_kernel",
+        "compaction", "gather", "expand_kernel", "decode_kernel", "scatter")}
+
+    def add(key, ms):
+        parts[key] = parts.get(key, 0.0) + ms
+
+    add("encode_kernel", sum(t.get(k, 0.0) for k in (
+        "_abs_pack", "_rel_pack", "_abs_pack_lc", "_rel_pack_lc",
+        "_quantize_abs", "_quantize_rel")))
+    add("select_kernel", t.get("_lc_select", 0.0))
+    add("expand_kernel", t.get("_lc_expand", 0.0))
+    add("decode_kernel", sum(t.get(k, 0.0) for k in (
+        "_abs_unpack", "_rel_unpack", "_dequantize_abs", "_dequantize_rel")))
+    if cfg.mode == "noa":
+        add("value_range", time_ms(lambda: Q.value_range_eb(x, cfg)))
+    if fused_lc(pipe):
+        st = pipe.stages[0].mode
+        out = (L.rel_pack_lc(x, cfg, st) if rel
+               else L.abs_pack_lc(x, eb_arr, cfg, st))
+        outlier, sel, codes0 = out[0], out[-2], out[-1]
+        add("compaction", time_ms(lambda: (
+            C.lc_compact_payload(sel.reshape(-1, C.LC_CHUNK), codes0),
+            C.pack_words(codes0, 2))))
+        del out, sel, codes0
+    else:
+        cur, outlier = first_words(pipe, x, eb, eb_arr, shape)
+        for i, st in enumerate(pipe.stages):
+            if isinstance(st, ChunkStage):
+                sel, codes0 = L.lc_select(cur, st.mode)
+                add("compaction", time_ms(lambda s=sel, c=codes0: (
+                    C.lc_compact_payload(s.reshape(-1, C.LC_CHUNK), c),
+                    C.pack_words(c, 2))))
+                del sel, codes0
+            elif isinstance(st, ShuffleStage):
+                add("shuffle", time_ms(lambda w=cur, s=st:
+                                       C.shuffle_words(w, s.width)))
+            elif isinstance(st, EntStage):
+                add("ent_encode", time_ms(lambda w=cur: C.encode_words_ent(w),
+                                          reps=5, warm=1))
+            cur = st.encode_words(cur, sizes[i], kernels=True)[1]
+        del cur
+    add("outlier_table", time_ms(lambda: C.outlier_table(
+        x, outlier, cfg.outlier_cap(n))))
+    del outlier
+    if pipe.pred:
+        qt = (D.quantize_rel(x, cfg) if rel
+              else D.quantize_abs(x, cfg, eb=eb_arr))
+        transform = pipe._bin_transform(shape, n)
+        add("pred_encode", time_ms(lambda: transform(qt.bins), reps=10))
+        pred_bins = transform(qt.bins)
+        add("pack_words", time_ms(lambda: (
+            C.pack_words(pred_bins, bits),
+            None if qt.sign is None else C.pack_flags(qt.sign)), reps=10))
+        del qt, pred_bins
+    cur = enc.payload
+    for i in reversed(range(len(pipe.stages))):
+        st, m, hdr = pipe.stages[i], sizes[i], enc.headers[i]
+        if isinstance(st, ChunkStage):
+            add("gather", time_ms(lambda p=cur, c=codes[i]:
+                                  C.lc_gather_chunks(p, c)))
+        elif isinstance(st, ShuffleStage):
+            add("unshuffle", time_ms(lambda p=cur, s=st, m=m:
+                                     C.unshuffle_words(p, m, s.width)))
+        elif isinstance(st, EntStage):
+            add("ent_decode", time_ms(lambda p=cur, h=hdr, m=m:
+                                      C.decode_words_ent(h, p, m),
+                                      reps=5, warm=1))
+        cur = st.decode_words(hdr, cur, m, kernels=True)
+    if pipe.pred:
+        add("unpack_words", time_ms(lambda: C.unpack_words(cur, n, bits)))
+        codes_plane = C.unpack_words(cur, n, bits)
+        untransform = pipe._bin_untransform(shape, n)
+        add("pred_decode", time_ms(lambda: untransform(codes_plane), reps=10))
+        add("outlier_planes", time_ms(lambda: C.outlier_planes(
+            n, enc.out_idx, enc.out_payload)))
+        del codes_plane
+    else:
+        buf = torch.empty(n + 1, device=DEV)
+        add("scatter", time_ms(lambda: C.scatter_outliers_(
+            buf, n, enc.out_idx, enc.out_payload)))
+        del buf
+    return parts
+
+
+def run_chain(label: str, spec: str, x, eb, shape=None):
+    """One chain through `Pipeline.encode`/`decode` on the card (pred_shape
+    `shape`), held against the plain path on the card, the numpy oracle
+    and the bound; prints its line and returns its kernel rows."""
     from repro_torch.core.pipeline import parse_pipeline
     pipe = parse_pipeline(spec)
     cfg, n, rel = pipe.qcfg(), x.numel(), pipe.quant.mode == "rel"
+    torch.cuda.reset_peak_memory_stats()
     # warm-up (builds the library on first use), then the counted run
-    pipe.decode(pipe.encode(x, eb, device=DEV), n=n, device=DEV)
+    pipe.decode(pipe.encode(x, eb, device=DEV, pred_shape=shape), n=n,
+                device=DEV, pred_shape=shape)
     torch.cuda.synchronize()
     reset_launches()
-    enc = pipe.encode(x, eb, device=DEV)
-    y = pipe.decode(enc, n=n, device=DEV)
-    torch.cuda.synchronize()
+    with plain_calls() as plain:
+        enc = pipe.encode(x, eb, device=DEV, pred_shape=shape)
+        y = pipe.decode(enc, n=n, device=DEV, pred_shape=shape)
+        torch.cuda.synchronize()
     counts = launches()
+    check(plain["calls"] == 0,
+          f"{label}: the card's path called a plain quantizer or codec")
 
-    ref = pipe.encode(x, eb, device=DEV, kernels=False)
-    y_ref = pipe.decode(ref, n=n, device=DEV, kernels=False)
+    ref = pipe.encode(x, eb, device=DEV, kernels=False, pred_shape=shape)
+    y_ref = pipe.decode(ref, n=n, device=DEV, kernels=False, pred_shape=shape)
     for f in enc._fields:
         check(planes_equal(getattr(enc, f), getattr(ref, f)),
               f"{label}: wire plane {f} differs from the plain reference")
     check(planes_equal(y, y_ref), f"{label}: decoded floats differ")
+    wire_bits = pipe.wire_bits(enc, n)
+    ref_bits = pipe.wire_bits(ref, n)
+    wire_bits = float(wire_bits) if torch.is_tensor(wire_bits) else wire_bits
+    ref_bits = float(ref_bits) if torch.is_tensor(ref_bits) else ref_bits
+    check(wire_bits == ref_bits, f"{label}: wire_bits differ")
     del ref, y_ref
     check(not bool(enc.overflow), f"{label}: outlier table overflowed")
     eb_used = enc.eb if enc.eb is not None else torch.tensor(cfg.error_bound)
     eb64 = float(eb_used.float().item())
     bad = violations(x, y, eb64, rel)
     check(bad == 0, f"{label}: {bad} values violate the bound")
+    del y
     oracle_check(pipe, x, eb)
 
     eb_arr = eb_used.to(device=DEV, dtype=torch.float32).reshape(1)
-    calls = path_calls(pipe, enc, x, eb_arr, n)
+    calls = path_calls(pipe, enc, x, eb, eb_arr, n, shape)
     for name in {c[0] for c in calls}:
         check(counts[name] > 0,
               f"{label}: {name} not launched on the main path")
     rows = [kernel_row(name, lab, label, pipe.pack.bits, size, hist, kern,
                        plain, counts[name])
             for name, lab, size, hist, kern, plain in calls]
+    del calls
     for r in rows:
         if r["name"] in ("_abs_pack", "_rel_pack"):
             r.update(offset1_row(pipe, x, eb_arr, label))
     t = {}
     for r in rows:
         t[r["name"]] = t.get(r["name"], 0.0) + r["ms"]
-
-    # where the end-to-end time goes: the kernels and the torch ops around
-    # them (NOA's range, the outlier table, the chunk compaction and its
-    # gather, the decode scatter)
-    from repro_torch.kernels import lossless as L
-    from repro_torch.kernels import pack as K
-    if len(pipe.stages) == 1:
-        st = pipe.stages[0].mode
-        out = (L.rel_pack_lc(x, cfg, st) if rel
-               else L.abs_pack_lc(x, eb_arr, cfg, st))
-        outlier, sel, codes0 = out[0], out[-2], out[-1]
-        compact_in = [(sel.reshape(-1, C.LC_CHUNK), codes0)]
-    else:
-        outlier = (K.rel_pack(x, cfg) if rel else K.abs_pack(x, eb_arr, cfg))[1]
-        compact_in, cur = [], (K.rel_pack(x, cfg) if rel
-                               else K.abs_pack(x, eb_arr, cfg))[0]
-        for stg in pipe.stages:
-            sel, codes0 = L.lc_select(cur, stg.mode)
-            compact_in.append((sel.reshape(-1, C.LC_CHUNK), codes0))
-            cur = L.encode_words_lc(cur, stg.mode)[1]
+    parts = chain_parts(pipe, enc, x, eb, eb_arr, shape, t)
+    heavy = any(s.spec() == "ent" for s in pipe.stages)
+    reps = 5 if heavy else 10
+    enc_ms = time_ms(lambda: pipe.encode(x, eb, device=DEV, pred_shape=shape),
+                     reps=reps, warm=1)
+    dec_ms = time_ms(lambda: pipe.decode(enc, n=n, device=DEV,
+                                         pred_shape=shape), reps=reps, warm=1)
     codes = stage_codes(pipe, enc, n)
-    buf = torch.empty(n + 1, device=DEV)
-    parts = {
-        "encode_kernel": t.get("_rel_pack_lc", t.get("_abs_pack_lc", 0.0))
-        + t.get("_rel_pack", 0.0) + t.get("_abs_pack", 0.0),
-        "select_kernel": t.get("_lc_select", 0.0),
-        "value_range": (time_ms(lambda: Q.value_range_eb(x, cfg))
-                        if cfg.mode == "noa" else 0.0),
-        "outlier_table": time_ms(lambda: C.outlier_table(
-            x, outlier, cfg.outlier_cap(n))),
-        "compaction": sum(time_ms(lambda s=s, c=c: (
-            C.lc_compact_payload(s, c), C.pack_words(c, 2)))
-            for s, c in compact_in) if pipe.stages else 0.0,
-        "gather": sum(time_ms(lambda c=c: C.lc_gather_chunks(enc.payload, c))
-                      for c in codes),
-        "expand_kernel": t.get("_lc_expand", 0.0),
-        "decode_kernel": t.get("_rel_unpack", 0.0) + t.get("_abs_unpack", 0.0),
-        "scatter": time_ms(lambda: C.scatter_outliers_(
-            buf, n, enc.out_idx, enc.out_payload)),
-    }
-    del compact_in, outlier, buf
-    enc_ms = time_ms(lambda: pipe.encode(x, eb, device=DEV), reps=10, warm=2)
-    dec_ms = time_ms(lambda: pipe.decode(enc, n=n, device=DEV), reps=10, warm=2)
-    wire_bits = pipe.wire_bits(enc, n)
-    wire_bits = float(wire_bits) if torch.is_tensor(wire_bits) else wire_bits
     print(json.dumps({
         "chain": label, "spec": pipe.spec(), "n": n,
+        "pred_shape": None if shape is None else list(shape),
         "ratio": 32 * n / wire_bits, "wire_bits": wire_bits,
         "wire_bytes": wire_bits / 8, "payload_len": int(enc.payload_len),
         "capacity_words": enc.payload.numel(),
         "codes_hist": [hist_of(c) for c in codes],
+        "codes_of": [s.spec() for s in pipe.stages],
         "n_outliers": int(enc.n_outliers), "overflow": bool(enc.overflow),
         "eb": eb64, "violations": bad,
         "encode_ms": enc_ms, "decode_ms": dec_ms,
         "encode_GBps": 4 * n / enc_ms / 1e6, "decode_GBps": 4 * n / dec_ms / 1e6,
         "parts_ms": parts,
-        "launches": {k: counts[k] for k in sorted({c[0] for c in calls})}}),
+        "plain_calls": plain["calls"],
+        "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": {k: counts[k] for k in sorted({r["name"] for r in rows})}}),
         flush=True)
     return rows
 
@@ -770,6 +976,163 @@ def dense_phase(f) -> list:
     return rows
 
 
+AUDIT_N = 2 ** 20               # values per preset in the detection matrix
+
+
+def cube(n: int) -> tuple:
+    """pred_shape of a field of n values: a cube where n is one (512**3, a
+    NYX field), else the flat stream."""
+    c = round(n ** (1 / 3))
+    return (c, c, c) if c ** 3 == n else (n,)
+
+
+def _report_equal(a, b) -> bool:
+    return all(planes_equal(u, v) for u, v in zip(a, b))
+
+
+def audit_chain(label: str, spec: str, x, eb, shape):
+    """encode(verify=True, integrity=True) and decode(verify=True) of one
+    chain at full width, held against the plain path on the card: every
+    plane, the checksum, the report field for field, report.ok(); then
+    verify=True, integrity=True, the checksum and the audit reduction
+    timed beside the plain encode and decode of the same chain.  Returns
+    (the chain's entry of the audit line, the kernel rows of its dense
+    kernels: B8/B9 on the verify path, B10/B11 on a pred chain's
+    decode)."""
+    from repro_torch.core import audit as A
+    from repro_torch.core.pipeline import parse_pipeline
+    from repro_torch.kernels import dense as D
+    pipe = parse_pipeline(spec)
+    n, kw = x.numel(), {"device": DEV, "pred_shape": shape}
+    pipe.encode(x, eb, verify=True, integrity=True, **kw)        # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    with plain_calls() as plain:
+        enc, qt, rep = pipe.encode(x, eb, verify=True, integrity=True,
+                                   return_quantized=True, **kw)
+        y = pipe.decode(enc, n=n, verify=True, **kw)
+        torch.cuda.synchronize()
+    counts = launches()
+    check(plain["calls"] == 0,
+          f"audit {label}: the card's path called a plain quantizer")
+    quant = "_quantize_rel" if pipe.quant.mode == "rel" else "_quantize_abs"
+    check(counts[quant] > 0, f"audit {label}: {quant} not launched")
+    ref, ref_qt, ref_rep = pipe.encode(x, eb, verify=True, integrity=True,
+                                       return_quantized=True, kernels=False,
+                                       **kw)
+    for f in enc._fields:
+        check(planes_equal(getattr(enc, f), getattr(ref, f)),
+              f"audit {label}: wire plane {f} differs from the plain path")
+    check(_report_equal(qt, ref_qt), f"audit {label}: Quantized differs")
+    check(_report_equal(rep, ref_rep), f"audit {label}: report differs")
+    check(bool(rep.ok()), f"audit {label}: report not ok")
+    y_ref = pipe.decode(ref, n=n, verify=True, kernels=False, **kw)
+    check(planes_equal(y, y_ref), f"audit {label}: decoded floats differ")
+    del ref, ref_qt, y_ref, y
+    eb_a = enc.eb if enc.eb is not None else eb
+    cfg, n_bits = pipe.qcfg(), pipe.pack.bits
+    eb_arr = (eb_a if eb_a is not None else torch.tensor(cfg.error_bound)
+              ).to(device=DEV, dtype=torch.float32).reshape(1)
+    if pipe.quant.mode == "rel":
+        calls = [(quant, "verify", n, None,
+                  lambda: tuple(D.quantize_rel(x, cfg)),
+                  lambda: tuple(D._quantize_rel_plain(x, cfg)))]
+    else:
+        calls = [(quant, "verify", n, None,
+                  lambda: tuple(D.quantize_abs(x, cfg, eb=eb_arr)[:3]),
+                  lambda: tuple(D._quantize_abs_plain(x, eb_arr, cfg)[:3]))]
+    if pipe.pred:
+        calls += [c for c in path_calls(pipe, enc, x, eb, eb_arr, n, shape)
+                  if c[0].startswith("_dequantize")]
+    for name, *_ in calls:
+        check(counts[name] > 0, f"audit {label}: {name} not launched")
+    rows = [kernel_row(name, lab, f"audit {label}", n_bits, size, hist, kern,
+                       plain, counts[name])
+            for name, lab, size, hist, kern, plain in calls]
+    del calls
+    out = {
+        "chain": label, "spec": pipe.spec(), "n": n,
+        "report": {f: (float(v) if v.dtype.is_floating_point else int(v))
+                   for f, v in zip(rep._fields, rep)},
+        "ok": bool(rep.ok()),
+        "checksum": int(enc.checksum) & 0xFFFFFFFF,
+        "plain_calls": plain["calls"],
+        "launches": {k: v for k, v in counts.items() if v},
+        "encode_ms": time_ms(lambda: pipe.encode(x, eb, **kw), reps=5,
+                             warm=1),
+        "encode_verify_integrity_ms": time_ms(lambda: pipe.encode(
+            x, eb, verify=True, integrity=True, **kw), reps=5, warm=1),
+        "encode_integrity_ms": time_ms(lambda: pipe.encode(
+            x, eb, integrity=True, **kw), reps=5, warm=1),
+        "checksum_ms": time_ms(lambda: A.wire_checksum(enc), reps=10),
+        "audit_report_ms": time_ms(lambda: A.audit_report(
+            x, qt, pipe.qcfg(), eb=eb_a, overflow=enc.overflow,
+            n_outliers=enc.n_outliers), reps=10),
+        "decode_ms": time_ms(lambda: pipe.decode(enc, n=n, **kw), reps=5,
+                             warm=1),
+        "decode_verify_ms": time_ms(lambda: pipe.decode(
+            enc, n=n, verify=True, **kw), reps=5, warm=1),
+    }
+    return out, rows
+
+
+def audit_phase(f) -> list:
+    """The audit plane on the card: five chains at full width
+    (`audit_chain`), then `runtime.guard.detection_matrix` on all 13
+    presets at n = AUDIT_N: every applicable fault class detected, the
+    `nan_input` row judged from the report of a NaN-corrupted encode, and
+    the clean wire passing its checksum (no false positive)."""
+    from repro_torch.configs.registry import PIPELINES, get_pipeline
+    from repro_torch.core import audit as A
+    from repro_torch.core.pipeline import parse_pipeline
+    from repro_torch.runtime import guard as G
+    nyx, grad = f["nyx"], f["grad"]
+    results = [
+        audit_chain("rel", "rel:0.001|pack:16", nyx, None, None),
+        audit_chain("grad-wire-8", get_pipeline("grad-wire-8"), grad,
+                    rms_eb(grad), None),
+        audit_chain("sci-rel-narrow", get_pipeline("sci-rel-narrow"), nyx,
+                    None, None),
+        audit_chain("sci-lorenzo-ent", get_pipeline("sci-lorenzo-ent"), nyx,
+                    None, cube(nyx.numel())),
+        # no preset puts a predictor before REL: this chain takes B9 and
+        # B11 (the REL dequantize) through the pipeline
+        audit_chain("lorenzo-rel", "lorenzo|rel:0.001|pack:32|narrow", nyx,
+                    None, cube(nyx.numel())),
+    ]
+    chains = [c for c, _ in results]
+    rows = [r for _, rs in results for r in rs]
+    m = min(AUDIT_N, nyx.numel())
+    detection, clean = {}, {}
+    for name in sorted(PIPELINES):
+        pipe = parse_pipeline(get_pipeline(name))
+        grad_wire = pipe.quant.eb == 1.0
+        # each preset's field of the chain lines (the iid gradient for the
+        # grad wires: a prefix of the embedding gradient is mostly zero)
+        field = ("grad" if grad_wire else
+                 "near_one" if name == "smoke-chain" else "nyx")
+        x = f[field][:m].contiguous()
+        eb = rms_eb(x) if grad_wire else None
+        shape = None
+        if pipe.pred and pipe.pred[0].spec() == "lorenzo":
+            shape = (m // 1024, 1024) if m % 1024 == 0 else (m,)
+        elif pipe.pred and pipe.pred[0].spec() == "kvdelta":
+            shape = (m // (128 * 128), 128, 128) if m % 2 ** 14 == 0 else (m,)
+        enc = pipe.encode(x, eb, device=DEV, integrity=True, pred_shape=shape)
+        clean[name] = bool(A.verify_wire(enc))
+        bad_x = G.FaultPlan(name, "nan_input").corrupt_input(x)
+        _, nan_rep = pipe.encode(bad_x, eb, device=DEV, verify=True,
+                                 pred_shape=shape)
+        detection[name] = G.detection_matrix(enc, suite=name, report=nan_rep)
+        check(clean[name], f"audit: clean {name} wire fails its checksum")
+        check(len(detection[name]) == 4 and all(detection[name].values()),
+              f"audit: {name} misses a fault class: {detection[name]}")
+    print(json.dumps({"phase": "audit", "chains": chains, "detection_n": m,
+                      "detection": detection, "clean_wire_passes": clean,
+                      "presets": len(detection)}), flush=True)
+    return rows
+
+
 def kv_rows(qkv, i: int):
     """Batch row i of a QuantizedKV, keeping the batch axis."""
     return type(qkv)(*(t[i:i + 1] for t in qkv))
@@ -851,10 +1214,11 @@ def device_kernels(fn, reps: int = 20):
     return (n / reps if n else None), ms
 
 
-def kv_phase(seed: int, batch: int = KV_BATCH, s: int = KV_S) -> list:
+def kv_phase(seed: int, batch: int = KV_BATCH, s: int = KV_S):
     """B12 on its main path: `compression.kv.quantize_kv` of K and V, then
     `kernels.kv_attention.kv_decode_attention`, at internlm2-20b's
-    attention widths over a decode_32k history."""
+    attention widths over a decode_32k history.  Returns the kernel rows
+    and batch row 0 of K, float32 [G, S, D]."""
     import torch.nn.functional as F
     from repro_torch.compression import kv as KV
     from repro_torch.kernels import kv_attention as A
@@ -882,6 +1246,7 @@ def kv_phase(seed: int, batch: int = KV_BATCH, s: int = KV_S) -> list:
                 for x, qkv in ((k, kq), (v, vq)) for i in range(batch))
     check(holds, "kv: a page misses its bound")
     quantize_ms = time_ms(lambda: kv_quantize(k), reps=3, warm=1)
+    k_row0 = k[0].clone()              # one user's cache: the kv-delta chain
     del k, v
 
     def plain():
@@ -1033,7 +1398,7 @@ def kv_phase(seed: int, batch: int = KV_BATCH, s: int = KV_S) -> list:
              "bytes": n_bytes, "operations": ops, "b1_ms": ms1,
              "b1_batched_ms": ms1_batched, "b1_device_ms": device1,
              "b1_bound_ms": bound1_ms, "b1_share": bound1_ms / ms1,
-             "b1_library_ms": lib1_ms, "b1_plain_ms": plain1_ms}]
+             "b1_library_ms": lib1_ms, "b1_plain_ms": plain1_ms}], k_row0
 
 
 def main(argv=None) -> int:
@@ -1067,6 +1432,7 @@ def main(argv=None) -> int:
           + json.dumps(ptxas_summary(log)), file=sys.stderr)
 
     f = make_fields(args.n, args.seed)
+    nyx_shape = cube(args.n)
     rows = []
     rows += run_chain("rel", "rel:0.001|pack:16", f["nyx"], None)
     rows += run_chain("noa", "noa:0.001|pack:16", f["nyx"], None)
@@ -1079,10 +1445,23 @@ def main(argv=None) -> int:
                       rms_eb(f["emb"]))
     rows += run_chain("smoke-chain", get_pipeline("smoke-chain"),
                       f["near_one"], None)
+    for name in ("grad-wire-16-ent", "grad-wire-pred"):
+        rows += run_chain(name, get_pipeline(name), f["emb"], rms_eb(f["emb"]))
+    for name in ("sci-rel-shuffle", "sci-rel-ent", "sci-lorenzo-ent"):
+        rows += run_chain(name, get_pipeline(name), f["nyx"], None,
+                          shape=nyx_shape)
     rows += dense_phase(f)
+    rows += audit_phase(f)
     del f
     code_sweep(args.seed)
-    rows += kv_phase(args.seed)
+    kv_rows_, k_row0 = kv_phase(args.seed)
+    rows += kv_rows_
+    # one user's K at 32K as pages of 128 tokens: (G S / 128, 128, D)
+    g, s, d = k_row0.shape
+    rows += run_chain("kv-delta", get_pipeline("kv-delta"),
+                      k_row0.reshape(-1), rms_eb(k_row0),
+                      shape=(g * s // KV_PAGE, KV_PAGE, d))
+    del k_row0
     check(set(KERNELS) <= {r["name"] for r in rows},
           "a kernel has no main-path row")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -2,9 +2,8 @@
 `repro.configs.registry.PIPELINES` (a test pins the two equal).
 
 The gradient-wire presets use eb=1 as a placeholder: the caller passes the
-per-tensor bound (eb_rel * rms(g)) at encode time.  Presets whose chains
-hold stages not yet ported parse to a NotImplementedError naming the
-ROADMAP item that ports them.
+per-tensor bound (eb_rel * rms(g)) at encode time.  Every preset parses
+and runs in the port.
 """
 from __future__ import annotations
 

@@ -141,10 +141,14 @@ def eb_plane(eb, flat: torch.Tensor):
     return q.full_scalar(eb, flat.dtype, flat.device)
 
 
-def encode_packed(x: torch.Tensor, cfg: QuantizerConfig,
-                  eb=None) -> EncodedPacked:
+def encode_packed(x: torch.Tensor, cfg: QuantizerConfig, eb=None, *,
+                  return_quantized: bool = False, bin_transform=None):
     """Quantize + bit-pack with plain torch ops (the reference path; the
-    fused kernels in `repro_torch.kernels.pack` are its bit-exact twin)."""
+    fused kernels in `repro_torch.kernels.pack` are its bit-exact twin).
+    With return_quantized, also returns the local `Quantized` (its bins
+    untransformed).  `bin_transform` (the predictor hook, `core.predict`)
+    is an exact int32 bijection applied to the bin plane just before
+    packing; `decode_packed`'s `bin_untransform` inverts it."""
     flat = x.reshape(-1)
     check_f32(flat)
     k = cfg.outlier_cap(flat.shape[0])
@@ -154,7 +158,16 @@ def encode_packed(x: torch.Tensor, cfg: QuantizerConfig,
         qt = q.quantize_rel(flat, cfg)
     else:
         qt, eb = q.quantize_noa(flat, cfg)
-    words = pack_words(qt.bins, cfg.bin_bits)
+    enc = pack_quantized(flat, qt, cfg, eb, k, bin_transform)
+    return (enc, qt) if return_quantized else enc
+
+
+def pack_quantized(flat: torch.Tensor, qt, cfg: QuantizerConfig, eb, k: int,
+                   bin_transform=None) -> EncodedPacked:
+    """The packed wire of quantized planes: the outlier table, the
+    (transformed) bins packed at cfg.bin_bits, the sign plane at 1 bit."""
+    bins = qt.bins if bin_transform is None else bin_transform(qt.bins)
+    words = pack_words(bins, cfg.bin_bits)
     sign_words = None if qt.sign is None else pack_flags(qt.sign)
     return EncodedPacked(words, *outlier_table(flat, qt.outlier, k),
                          sign_words, eb_plane(eb, flat))
@@ -176,15 +189,19 @@ def scatter_outliers_(buf: torch.Tensor, n: int, out_idx: torch.Tensor,
 
 
 def decode_packed(enc: EncodedPacked, cfg: QuantizerConfig, n: int | None = None,
-                  shape=None, dtype=None) -> torch.Tensor:
+                  shape=None, dtype=None, bin_untransform=None) -> torch.Tensor:
     """Unpack + dequantize + exact outlier restore.  `n` (or `shape`) gives
-    the true element count; the packed stream carries pad words."""
+    the true element count; the packed stream carries pad words.
+    `bin_untransform` inverts the encode-side `bin_transform` on the
+    unpacked plane before dequantizing."""
     if n is None:
         if shape is None:
             raise ValueError("decode_packed needs n or shape")
         n = int(np.prod(shape))
     dt = dtype or getattr(torch, cfg.dtype)
     bins = unpack_words(enc.words, n, cfg.bin_bits)
+    if bin_untransform is not None:
+        bins = bin_untransform(bins)
     if cfg.mode == "rel":
         sign = unpack_flags(enc.sign_words, n)
         recon = q.dequantize_rel(bins, sign, cfg, dtype=dt)
@@ -194,6 +211,22 @@ def decode_packed(enc: EncodedPacked, cfg: QuantizerConfig, n: int | None = None
     buf[:n] = recon
     recon = scatter_outliers_(buf, n, enc.out_idx, enc.out_payload)
     return recon.reshape(shape) if shape is not None else recon
+
+
+def outlier_planes(n: int, out_idx: torch.Tensor, out_payload: torch.Tensor):
+    """The outlier table as dense planes (outlier bool[n], payload int32[n]
+    IEEE bits, 0 elsewhere), for the dense dequantize kernels.  Slots are
+    resolved as `scatter_outliers_` resolves them: negatives wrap, those
+    outside [0, n) drop into one spare element."""
+    idx = out_idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    idx = torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
+    dev = out_idx.device
+    outlier = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    outlier[idx] = True
+    payload = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    payload.index_put_((idx,), out_payload.to(torch.int32))
+    return outlier[:n], payload[:n]
 
 
 # ---------------------------------------------------------------------------
@@ -422,3 +455,310 @@ def decode_lossless(lc: EncodedLC, n_words: int) -> EncodedPacked:
     words = decode_words_lc(lc.header_words, lc.payload, n_words)
     return EncodedPacked(words, lc.out_idx, lc.out_payload, lc.n_outliers,
                          lc.overflow, lc.sign_words, lc.eb)
+
+
+# ---------------------------------------------------------------------------
+# SHUFFLE: zigzag sign-fold + byte-plane shuffle (a lossless word stage)
+# ---------------------------------------------------------------------------
+#
+# Two's-complement small negatives set the high bits of every word they
+# touch, so the chunk codes never fire on mixed-sign bin streams.  The
+# stage zigzag-folds each `width`-bit lane, z = (v << 1) ^ (v >> width-1),
+# so small |v| of either sign has clear high bytes, then (width < 32)
+# transposes byte j of every lane into a contiguous plane, so the cleared
+# high bytes form whole all-zero chunks.  At width 32 a lane is a word and
+# only the fold applies.  The stream is padded to whole PACK_LANES tiles;
+# the work runs in int64 holding the uint32 lanes.
+
+
+def _width_mask(width: int) -> int:
+    return _U32 if width == 32 else (1 << width) - 1
+
+
+def _zigzag(lanes: torch.Tensor, width: int) -> torch.Tensor:
+    """int64 lanes holding width-bit two's complement -> zigzag codes
+    (int64 in [0, 2^width))."""
+    half = 1 << (width - 1)
+    v = ((lanes & _width_mask(width)) ^ half) - half      # sign-extend
+    z = (v << 1) ^ (v >> 63)
+    return z & _width_mask(width)
+
+
+def _unzigzag(z: torch.Tensor, width: int) -> torch.Tensor:
+    """Inverse of _zigzag on int64 codes in [0, 2^width)."""
+    v = (z >> 1) ^ -(z & 1)
+    return v & _width_mask(width)
+
+
+def shuffle_word_count(n_words: int) -> int:
+    """Words `shuffle_words` emits for an n_words stream (tile-padded)."""
+    return -(-n_words // PACK_LANES) * PACK_LANES
+
+
+def shuffle_words(words: torch.Tensor, width: int) -> torch.Tensor:
+    """Fold + byte-plane-shuffle a packed word stream whose lanes are
+    `width`-bit values (width in {8, 16, 32}); unshuffle_words inverts
+    it."""
+    if width not in (8, 16, 32):
+        raise ValueError(f"shuffle width must be 8, 16 or 32, got {width}")
+    n_words = words.shape[0]
+    npad = shuffle_word_count(n_words)
+    w = torch.cat([words, words.new_zeros(npad - n_words)])
+    if width == 32:
+        return to_i32(_zigzag(w.to(torch.int64), 32))
+    lanes = unpack_words(w, npad * 32 // width, width, signed=False)
+    z = _zigzag(lanes.to(torch.int64), width)
+    planes = [(z >> (8 * j)) & 0xFF for j in range(width // 8)]
+    return pack_words(torch.cat(planes), 8)
+
+
+def unshuffle_words(shuffled: torch.Tensor, n_words: int,
+                    width: int) -> torch.Tensor:
+    """Exact inverse of shuffle_words; n_words is the pre-shuffle count."""
+    npad = shuffle_word_count(n_words)
+    if width == 32:
+        z = shuffled[:npad].to(torch.int64) & _U32
+        return to_i32(_unzigzag(z, 32))[:n_words]
+    n_lanes = npad * 32 // width
+    stream = unpack_words(shuffled, 4 * npad, 8, signed=False)
+    planes = stream.to(torch.int64).reshape(width // 8, n_lanes)
+    z = planes[0]
+    for j in range(1, width // 8):
+        z = z | (planes[j] << (8 * j))
+    return pack_words(_unzigzag(z, width), width)[:n_words]
+
+
+# ---------------------------------------------------------------------------
+# ENT: static canonical entropy coder over surviving chunk payloads
+# ---------------------------------------------------------------------------
+#
+# The input word stream is chunked as for the zero/narrow coder (LC_CHUNK
+# words).  Each chunk gets a 2-bit mode: 0 all words zero (dropped), 1
+# entropy-coded (its 2048 bytes, little-endian within each word, as a
+# variable-length bitstream padded to whole words, with its bit length in
+# the header), 2 verbatim (the coded stream would exceed 512 words).  One
+# canonical prefix code serves every chunk, built from the byte histogram
+# of the surviving chunks: Shannon lengths ceil(-log2 p) read off the
+# float32 exponent bits, clipped to ENT_MAX_LEN, then a Kraft-budget sweep
+# in descending frequency.  Only the 256 4-bit lengths travel; the codes
+# and the 2^ENT_MAX_LEN-entry decode table rebuild from them.  Codes
+# deposit first bit at the lowest bit (LSB-first within words), so encode
+# is a cumsum and a disjoint-bit scatter-add, and decode reads a window of
+# ENT_MAX_LEN bits per symbol, chunk by chunk in parallel.  The sorts are
+# stable (`jnp.argsort` is); both scans stay on the device.
+
+ENT_MAX_LEN = 12               # max code length; decode LUT = 2^12 entries
+ENT_SYMS = 256                 # byte alphabet
+_ENT_CHUNK_SYMS = 4 * LC_CHUNK            # 2048 coded bytes per chunk
+_ENT_CHUNK_CAP_BITS = 32 * LC_CHUNK       # verbatim-escape threshold
+_ENT_BUF_WORDS = _ENT_CHUNK_SYMS * ENT_MAX_LEN // 32   # worst-case coded
+
+def _ent_rev(device) -> torch.Tensor:
+    """The bit reversal of every ENT_MAX_LEN-bit value (the canonical code
+    is MSB-first, the stream LSB-first), built on `device` with device ops
+    (no host copy)."""
+    a = torch.arange(1 << ENT_MAX_LEN, dtype=torch.int32, device=device)
+    rev = torch.zeros_like(a)
+    for j in range(ENT_MAX_LEN):
+        rev = (rev << 1) | ((a >> j) & 1)
+    return rev
+
+
+def ent_header_words(n_words: int) -> int:
+    """Words of the stored `ent` header plane: the 4-bit codebook lengths,
+    the 2-bit chunk modes and the 16-bit chunk bit lengths, each
+    tile-padded."""
+    nc = lc_chunk_count(n_words)
+    return (packed_word_count(ENT_SYMS, 4) + packed_word_count(nc, 2)
+            + packed_word_count(nc, 16))
+
+
+def ent_header_content_words(n_chunks: int) -> int:
+    """Words of real header content (what a transport moves): 32 words of
+    codebook lengths + 2 bits/chunk of modes + 16 bits/chunk of bit
+    lengths."""
+    return (ENT_SYMS * 4 // 32 + lc_header_content_words(n_chunks)
+            + -(-n_chunks // 2))
+
+
+def _floor_log2_f32(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2 x) for positive normal float32: the unbiased exponent,
+    integer work only."""
+    return ((float_to_bits(x) >> 23) & 0xFF) - 127
+
+
+def ent_code_lengths(hist: torch.Tensor) -> torch.Tensor:
+    """Length-limited code lengths (1..ENT_MAX_LEN), int32[256], from a
+    256-bin symbol histogram (int32[256]): the Shannon ideal clipped, then
+    a budget scan in descending frequency (stable order) that keeps the
+    Kraft sum <= 1.  The 256 steps run on the histogram's device."""
+    lmax, dev = ENT_MAX_LEN, hist.device
+    hist = hist.to(torch.int32)
+    total = torch.clamp(hist.sum(dtype=torch.int32), min=1).to(torch.float32)
+    p = torch.clamp(hist.to(torch.float32) / total, min=2.0 ** -126)
+    ideal = torch.where(hist > 0, -_floor_log2_f32(p), lmax)
+    ideal = torch.clamp(ideal, 1, lmax).to(torch.int32)
+    order = torch.argsort(-hist, stable=True)
+    want = ideal[order]
+    budget = torch.full((), 1 << lmax, dtype=torch.int32, device=dev)
+    lens_sorted = torch.empty(ENT_SYMS, dtype=torch.int32, device=dev)
+    for k in range(ENT_SYMS):
+        rem = ENT_SYMS - 1 - k
+        lmin = lmax - _floor_log2_f32((budget - rem).to(torch.float32))
+        ln = torch.clamp(torch.maximum(want[k], lmin), 1, lmax)
+        lens_sorted[k] = ln
+        budget = budget - (1 << (lmax - ln))
+    out = torch.zeros(ENT_SYMS, dtype=torch.int32, device=dev)
+    return out.scatter(0, order, lens_sorted)
+
+
+def _ent_canonical(lens: torch.Tensor):
+    """Canonical code assignment from lengths: symbols sorted by (length,
+    symbol) take consecutive codes within their length class.  Returns
+    (order = symbols in canonical order, their lengths, their codes
+    MSB-first), each [256]."""
+    lmax, dev = ENT_MAX_LEN, lens.device
+    # a wire carries 4-bit lengths: valid ones are 1..ENT_MAX_LEN, and a
+    # corrupt one must not index past the tables (on the card that is a
+    # device-side assert); the clamp changes no valid codebook
+    lens = lens.to(torch.int32).clamp(1, lmax)
+    count = torch.zeros(lmax + 1, dtype=torch.int32, device=dev)
+    count.scatter_add_(0, lens.to(torch.int64), torch.ones_like(lens))
+    # first[ln] = (first[ln-1] + count[ln-1]) << 1 = sum_k<ln count[k] 2^(ln-k)
+    ln = torch.arange(lmax + 1, device=dev)
+    sh = ln[:, None] - ln[None, :]
+    weight = torch.where(sh > 0, torch.ones_like(sh) << sh.clamp(min=0), 0)
+    first = (weight * count[None, :]).sum(1).to(torch.int32)
+    order = torch.argsort(lens, stable=True)
+    sl = lens[order]
+    rank = (torch.arange(ENT_SYMS, dtype=torch.int32, device=dev)
+            - torch.searchsorted(sl, sl, right=False).to(torch.int32))
+    return order, sl, first[sl.to(torch.int64)] + rank
+
+
+def ent_encode_table(lens: torch.Tensor):
+    """(length, LSB-first deposit value) per symbol, int32[256] each: the
+    canonical code bit-reversed within its length."""
+    order, sl, codes = _ent_canonical(lens)
+    rev_t = _ent_rev(lens.device)
+    rev = rev_t[codes.clamp(0, (1 << ENT_MAX_LEN) - 1).to(torch.int64)] \
+        >> (ENT_MAX_LEN - sl)
+    zeros = torch.zeros(ENT_SYMS, dtype=torch.int32, device=lens.device)
+    return zeros.scatter(0, order, sl), zeros.scatter(0, order, rev)
+
+
+def ent_decode_lut(lens: torch.Tensor):
+    """(symbol, length) decode tables, int32[2^ENT_MAX_LEN] each, indexed by
+    the next ENT_MAX_LEN stream bits (LSB-first window)."""
+    order, sl, codes = _ent_canonical(lens)
+    starts = (codes << (ENT_MAX_LEN - sl)).contiguous()   # increasing
+    win = _ent_rev(lens.device)
+    j = (torch.searchsorted(starts, win, right=True) - 1).clamp(0, ENT_SYMS - 1)
+    return order[j].to(torch.int32), sl[j]
+
+
+def _ent_chunk_bytes(chunks: torch.Tensor) -> torch.Tensor:
+    """int32[nc, LC_CHUNK] words -> int32[nc, 4 * LC_CHUNK] byte symbols in
+    stream order (little-endian within each word)."""
+    b = torch.stack([(chunks >> (8 * j)) & 0xFF for j in range(4)], dim=-1)
+    return b.reshape(chunks.shape[0], _ENT_CHUNK_SYMS)
+
+
+def _ent_chunk_words(modes: torch.Tensor, bitlen: torch.Tensor):
+    """Payload words each chunk occupies, int32[nc], from its mode and bit
+    length."""
+    return torch.where(modes == 1, (bitlen + 31) >> 5,
+                       torch.where(modes == 2, LC_CHUNK, 0)).to(torch.int32)
+
+
+def encode_words_ent(words: torch.Tensor):
+    """Entropy-code a word plane (layout in the section note).  Returns
+    (header_words, payload, payload_len); decode_words_ent inverts it."""
+    chunks = lc_chunks(words)
+    nc, dev = chunks.shape[0], chunks.device
+    alive = (chunks != 0).any(dim=1)
+    byts = _ent_chunk_bytes(chunks)
+    # codebook from the byte histogram of the surviving chunks: one row of
+    # counts per chunk (spreads the scatter), then the live rows summed
+    counts = torch.zeros(nc, ENT_SYMS, dtype=torch.int32, device=dev)
+    counts.scatter_add_(1, byts.to(torch.int64), torch.ones_like(byts))
+    hist = (counts * alive[:, None]).sum(0, dtype=torch.int32)
+    del counts
+    lens = ent_code_lengths(hist)
+    sym_len, sym_code = ent_encode_table(lens)
+
+    # per-chunk bitstream: cumsum of the code lengths, each code's <= 2 word
+    # fragments deposited by scatter-add (the bits are disjoint, so add is
+    # or, and no int32 sum carries).  The planes are [nc, 2048]: each is
+    # freed when done, which keeps the peak of a 128M-word encode ~35 GB.
+    lns = sym_len[byts]
+    ends = torch.cumsum(lns, dim=1, dtype=torch.int32)
+    offs = ends - lns
+    bitlen = ends[:, -1].contiguous()
+    del lns, ends
+    code = sym_code[byts].to(torch.int64)
+    del byts
+    row = torch.arange(nc, device=dev)[:, None] * (_ENT_BUF_WORDS + 1)
+    w_idx = (row + (offs >> 5)).reshape(-1)
+    boff = (offs & 31).to(torch.int64)
+    del offs
+    lo = to_i32(code << boff).reshape(-1)
+    hi = to_i32(torch.where(boff > 0, code >> (32 - boff), 0)).reshape(-1)
+    del code, boff
+    buf = torch.zeros(nc * (_ENT_BUF_WORDS + 1), dtype=torch.int32, device=dev)
+    buf.index_add_(0, w_idx, lo)
+    buf.index_add_(0, w_idx + 1, hi)
+    del w_idx, lo, hi
+    coded = buf.reshape(nc, _ENT_BUF_WORDS + 1)[:, :LC_CHUNK]
+    modes = torch.where(~alive, 0, torch.where(
+        bitlen <= _ENT_CHUNK_CAP_BITS, 1, 2)).to(torch.int32)
+    lens_words = _ent_chunk_words(modes, bitlen)
+    m = modes[:, None]
+    sel = torch.where(m == 1, coded, torch.where(m == 2, chunks, 0))
+    del buf, coded
+    payload, plen = compact_chunks(sel, lens_words)
+    header = torch.cat([pack_words(lens, 4), pack_words(modes, 2),
+                        pack_words(torch.where(modes == 1, bitlen, 0), 16)])
+    return header, payload, plen
+
+
+def decode_words_ent(header_words: torch.Tensor, payload: torch.Tensor,
+                     n_words: int) -> torch.Tensor:
+    """Exact inverse of encode_words_ent; n_words is the pre-coding word
+    count.  The decode is a scan of 2048 steps over all chunks at once,
+    on the payload's device."""
+    nc = lc_chunk_count(n_words)
+    dev = payload.device
+    hw_len = packed_word_count(ENT_SYMS, 4)
+    hw_mode = packed_word_count(nc, 2)
+    lens = unpack_words(header_words[:hw_len], ENT_SYMS, 4, signed=False)
+    modes = unpack_words(header_words[hw_len:hw_len + hw_mode], nc, 2,
+                         signed=False)
+    bitlen = unpack_words(header_words[hw_len + hw_mode:], nc, 16,
+                          signed=False)
+    padded = gather_chunks(payload, _ent_chunk_words(modes, bitlen))
+    lut_sym, lut_len = ent_decode_lut(lens)
+    lut = (lut_sym | (lut_len << 8)).to(torch.int64)
+    # word pairs: dbl[:, i] holds words i and i+1, so a window of the next
+    # ENT_MAX_LEN bits at any bit offset is one shift of one entry (the
+    # reference's 32-bit window read, whose low 12 bits are these)
+    w = padded.to(torch.int64) & _U32
+    w = torch.cat([w, w.new_zeros(nc, 2)], dim=1)
+    dbl = w[:, :-1] | (w[:, 1:] << 32)
+    del w
+    pos = torch.zeros(nc, 1, dtype=torch.int64, device=dev)
+    syms = torch.empty(_ENT_CHUNK_SYMS, nc, dtype=torch.uint8, device=dev)
+    for s in range(_ENT_CHUNK_SYMS):
+        win = dbl.gather(1, pos >> 5) >> (pos & 31)
+        e = lut[win & ((1 << ENT_MAX_LEN) - 1)]
+        syms[s] = (e & 0xFF).reshape(-1)
+        # clamped: mode-0/2 rows decode garbage that the mode mask
+        # discards, but their positions stay inside the row
+        pos = torch.clamp(pos + (e >> 8), max=_ENT_CHUNK_CAP_BITS)
+    del dbl
+    b = syms.t().to(torch.int64).reshape(nc, LC_CHUNK, 4)
+    decoded = to_i32(b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16)
+                     | (b[..., 3] << 24))
+    m = modes[:, None]
+    out = torch.where(m == 1, decoded, torch.where(m == 2, padded, 0))
+    return out.reshape(-1)[:n_words]

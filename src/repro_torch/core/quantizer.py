@@ -128,6 +128,9 @@ def quantize_rel(x: torch.Tensor, cfg: QuantizerConfig) -> Quantized:
     safe = torch.where(finite & ~too_small, ax, one)
     lg = log2approx(safe)
     bin_f = torch.round(lg * full_scalar(inv_log_step, dt, dev))
+    # a zero log step (eb below ~1.1e-16) gives rint(0 * inf) = NaN at
+    # |x| = 1; XLA and CUDA cast it to 0, torch on the CPU to INT32_MIN
+    bin_f = torch.where(torch.isnan(bin_f), torch.zeros_like(bin_f), bin_f)
     range_bad = bin_f.abs() >= full_scalar(float(maxbin), dt, dev)
     bin_i = torch.where(range_bad, torch.zeros_like(bin_f), bin_f).to(torch.int32)
     range_bad_i = (bin_i >= maxbin) | (bin_i <= -maxbin)

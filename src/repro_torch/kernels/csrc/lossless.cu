@@ -2,8 +2,8 @@
 // CUDA counterparts of the four Pallas kernels in
 // src/repro/kernels/lossless.py:
 //
-//   abs_pack_lc_kernel  replaces _abs_pack_lc_kernel  (lossless.py:110)
-//   rel_pack_lc_kernel  replaces _rel_pack_lc_kernel  (lossless.py:128)
+//   pack_lc_kernel<BITS, false>  replaces _abs_pack_lc_kernel  (lossless.py:110)
+//   pack_lc_kernel<BITS, true>   replaces _rel_pack_lc_kernel  (lossless.py:128)
 //   select_kernel       replaces _lc_select_kernel    (lossless.py:100)
 //   expand_kernel       replaces _lc_expand_kernel    (lossless.py:106)
 //

@@ -2,10 +2,10 @@
 // (sm_90a), the CUDA counterparts of the four Pallas kernels in
 // src/repro/kernels/pack.py:
 //
-//   abs_pack_kernel    replaces _abs_pack_kernel    (pack.py:141)
-//   rel_pack_kernel    replaces _rel_pack_kernel    (pack.py:152)
-//   abs_unpack_kernel  replaces _abs_unpack_kernel  (pack.py:168)
-//   rel_unpack_kernel  replaces _rel_unpack_kernel  (pack.py:180)
+//   pack_kernel<BITS, false>    replaces _abs_pack_kernel    (pack.py:141)
+//   pack_kernel<BITS, true>     replaces _rel_pack_kernel    (pack.py:152)
+//   unpack_kernel<BITS, false>  replaces _abs_unpack_kernel  (pack.py:168)
+//   unpack_kernel<BITS, true>   replaces _rel_unpack_kernel  (pack.py:180)
 //
 // Each computes what its TPU kernel computes, bit for bit (the plain torch
 // versions in kernels/pack.py are the oracle).  Layout (the §4 wire): the
@@ -245,7 +245,7 @@ int launch_pack(int bits, const float* x, long long n, const float* eb,
                 uint32_t* sign_words, cudaStream_t s) {
   // the preconditions of quantize.cuh's exact forms, which keep y finite
   // for (c): ABS needs a normal floor; REL's 1/log_step is +inf only for
-  // log_step = 0 (eb below ~1e-38), where FLT_MAX gives the same bins and
+  // log_step = 0 (eb below ~1.1e-16), where FLT_MAX gives the same bins and
   // outliers (0 stays 0, every other log2approx, at least 2^-23 in size,
   // goes far out of range as +-inf does)
   if (!REL && !(eb_floor >= 1.17549435e-38f))

@@ -15,12 +15,17 @@ computes float32 only).
 A wrapper takes its plain version only for a tensor on the CPU.  For a CUDA
 tensor it launches the kernel (built from source at first use) or raises;
 nothing falls back.  Each launch adds one to `LAUNCHES[name]`.
+
+`encode_packed`/`decode_packed` put B8-B11 on the pipeline's main path:
+the chains with a predictor stage, and `verify=`/`return_quantized=`
+encodes, which need the dense `Quantized` planes.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..core import codec as C
 from ..core import quantizer as q
 from ..core.bitops import bits_to_float
 from ..core.config import QuantizerConfig
@@ -174,3 +179,51 @@ def dequantize_rel(bins: torch.Tensor, payload_bits: torch.Tensor,
             b.device, b.data_ptr(), p.data_ptr(), o.data_ptr(), s.data_ptr(),
             rel_constants_f32(cfg)[1], y.data_ptr(), b.numel())
     return y.reshape(bins.shape)
+
+
+# ------------------------------------------------------------ public API --
+
+def encode_packed(x: torch.Tensor, cfg: QuantizerConfig, eb=None,
+                  bin_transform=None):
+    """Kernel twin of `core.codec.encode_packed(x, cfg, eb,
+    return_quantized=True, bin_transform=...)` (bit-exact): B8 or B9 give
+    the `Quantized` planes (NOA: the finite range's bound, then B8 with
+    it; a static ABS bound goes in as the traced plane, which gives the
+    same step), then the outlier table, the bin transform and the pack
+    are torch ops, as in the reference's jit path.  Returns
+    (EncodedPacked, Quantized)."""
+    flat = x.reshape(-1).contiguous()
+    C.check_f32(flat)
+    if cfg.mode == "rel":
+        qt = quantize_rel(flat, cfg)
+    else:
+        if cfg.mode == "noa":
+            eb = q.value_range_eb(flat, cfg)
+        qt = quantize_abs(flat, cfg, eb=cfg.error_bound if eb is None else eb)
+    enc = C.pack_quantized(flat, qt, cfg, eb, cfg.outlier_cap(flat.shape[0]),
+                           bin_transform)
+    return enc, qt
+
+
+def decode_packed(enc: C.EncodedPacked, cfg: QuantizerConfig,
+                  n: int | None = None, shape=None, bin_untransform=None):
+    """Kernel twin of `core.codec.decode_packed(..., bin_untransform=...)`
+    (bit-exact): unpack and the bin untransform as torch ops, then B10 or
+    B11 with the outlier table as dense planes."""
+    if n is None:
+        if shape is None:
+            raise ValueError("decode_packed needs n or shape")
+        n = int(np.prod(shape))
+    if getattr(torch, cfg.dtype) != torch.float32:
+        raise NotImplementedError("the dense kernels decode float32 only "
+                                  "(ROADMAP C-port-2)")
+    bins = C.unpack_words(enc.words, n, cfg.bin_bits)
+    if bin_untransform is not None:
+        bins = bin_untransform(bins)
+    outlier, payload = C.outlier_planes(n, enc.out_idx, enc.out_payload)
+    if cfg.mode == "rel":
+        y = dequantize_rel(bins, payload, outlier,
+                           C.unpack_flags(enc.sign_words, n), cfg)
+    else:
+        y = dequantize_abs(bins, payload, outlier, cfg, eb=enc.eb)
+    return y.reshape(shape) if shape is not None else y

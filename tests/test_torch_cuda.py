@@ -508,3 +508,154 @@ def test_kv_attention_makes_no_host_sync_on_card():
     want = TA._kv_decode_attention_plain(q, kq, vq, lengths)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+
+
+# ------------------- the rest of the grammar and the audit plane (A7-A9) --
+
+def _planes_equal(a, b):
+    """Every plane of two Encoded wires (or Quantized / AuditReport
+    tuples) bit for bit, the first on the card."""
+    for u, v in zip(a, b):
+        if isinstance(u, tuple):
+            _planes_equal(u, v)
+        elif u is None or v is None:
+            assert u is None and v is None
+        else:
+            assert u.dtype == v.dtype and torch.equal(u.cpu(), v.cpu())
+
+
+_PRED_SHAPES = {"sci-lorenzo-ent": (8, 64, 40), "kv-delta": (80, 32, 8)}
+
+
+def _preset_case(name, n=20480):
+    from repro_torch.configs.registry import PIPELINES
+    from repro_torch.core.pipeline import parse_pipeline
+    pipe = parse_pipeline(PIPELINES.get(name, name))
+    x = _mix(n)
+    x[RNG.random(n) < 0.5] = 0.0                # zero and narrow chunks
+    eb = torch.tensor(1e-2) if pipe.quant.eb == 1.0 else None
+    return pipe, x, eb, _PRED_SHAPES.get(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["grad-wire-16-ent", "grad-wire-pred",
+                                  "sci-rel-shuffle", "sci-rel-ent",
+                                  "sci-lorenzo-ent", "kv-delta",
+                                  "abs:0.01|pack:16|ent",
+                                  "noa:0.001|pack:8|shuffle|zero"])
+def test_stage_and_pred_chains_on_card_match_cpu(name):
+    """The shuffle/ent stages and the pred chains on the card (B8/B9 and
+    B10/B11 for the pred chains) against the CPU reference: every plane,
+    wire_bits, and the decoded floats."""
+    _need_card()
+    pipe, x, eb, shape = _preset_case(name)
+    on_card = pipe.encode(x, None if eb is None else eb.cuda(),
+                          pred_shape=shape)
+    on_cpu = pipe.encode(x, eb, device="cpu", pred_shape=shape)
+    _planes_equal(on_card, on_cpu)
+    wb = pipe.wire_bits(on_card, x.size)
+    assert float(wb) == float(pipe.wire_bits(on_cpu, x.size))
+    y = pipe.decode(on_card, n=x.size, pred_shape=shape)
+    y_cpu = pipe.decode(on_cpu, n=x.size, device="cpu", pred_shape=shape)
+    assert torch.equal(y.cpu().view(torch.int32), y_cpu.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["grad-wire-pred", "sci-lorenzo-ent",
+                                  "kv-delta", "rel:0.001|pack:16",
+                                  "noa:0.001|pack:16|narrow",
+                                  "lorenzo|rel:0.001|pack:32|narrow"])
+def test_pred_and_verify_paths_launch_dense_kernels_only(name, monkeypatch):
+    """On the card the pred chains and verify=/return_quantized= encodes
+    quantize with B8/B9 and the pred chains decode with B10/B11; the
+    plain quantizers and the plain packed codec run on none of these
+    paths.  The report, the Quantized planes and the checksum equal the
+    CPU path's."""
+    _need_card()
+    from repro_torch.core import codec as C
+    from repro_torch.core import quantizer as Q
+    from repro_torch.kernels import dense as D
+    pipe, x, eb, shape = _preset_case(name)
+    eb_card = None if eb is None else eb.cuda()
+    pipe.encode(x, eb_card, pred_shape=shape, verify=True)   # build first
+    want = pipe.encode(x, eb, device="cpu", pred_shape=shape, verify=True,
+                       return_quantized=True, integrity=True)
+
+    def forbidden(*args, **kw):
+        raise AssertionError("a plain quantizer ran on the card's path")
+
+    for mod, fn in ((Q, "quantize_abs"), (Q, "quantize_rel"),
+                    (Q, "quantize_noa"), (Q, "dequantize_abs"),
+                    (Q, "dequantize_rel"), (C, "encode_packed"),
+                    (C, "decode_packed")):
+        monkeypatch.setattr(mod, fn, forbidden)
+    D.reset_launches()
+    got = pipe.encode(x, eb_card, pred_shape=shape, verify=True,
+                      return_quantized=True, integrity=True)
+    rel = pipe.quant.mode == "rel"
+    assert D.LAUNCHES["_quantize_rel" if rel else "_quantize_abs"] == 1
+    assert D.LAUNCHES["_quantize_abs" if rel else "_quantize_rel"] == 0
+    enc, qt, rep = got
+    _planes_equal(enc, want[0])
+    _planes_equal(qt, want[1])
+    _planes_equal(rep, want[2])
+    assert bool(rep.ok()) or bool(enc.overflow)
+    y = pipe.decode(enc, n=x.size, pred_shape=shape, verify=True)
+    deq = "_dequantize_rel" if rel else "_dequantize_abs"
+    assert D.LAUNCHES[deq] == (1 if pipe.pred else 0)
+    monkeypatch.undo()
+    y_cpu = pipe.decode(want[0], n=x.size, device="cpu", pred_shape=shape)
+    assert torch.equal(y.cpu().view(torch.int32), y_cpu.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_ent_and_checksum_encode_make_no_host_sync_on_card():
+    """The ent coder's two scans and the checksum fold stay on the card."""
+    _need_card()
+    pipe, x, eb, _ = _preset_case("grad-wire-16-ent")
+    xc, ebc = torch.from_numpy(x).cuda(), eb.cuda()
+    pipe.encode(xc, ebc, integrity=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        enc = pipe.encode(xc, ebc, integrity=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _planes_equal(enc, pipe.encode(x, eb, device="cpu", integrity=True))
+
+
+@pytest.mark.cuda
+def test_ent_decode_of_a_corrupt_codebook_on_card():
+    """Corrupted 4-bit code lengths (15 > ENT_MAX_LEN) decode on the card
+    without a device-side assert, and the card keeps working."""
+    _need_card()
+    from repro_torch.core import codec as C
+    pipe, x, eb, _ = _preset_case("grad-wire-16-ent")
+    enc = pipe.encode(x, eb.cuda())
+    hdr = enc.headers[-1].clone()
+    hdr[:4] = -1
+    out = C.decode_words_ent(hdr, enc.payload, pipe.stage_sizes(x.size)[-2])
+    torch.cuda.synchronize()
+    assert out.is_cuda and int((out * 0).sum()) == 0
+
+
+@pytest.mark.cuda
+def test_guard_on_card_detects_every_fault():
+    """detection_matrix on a card wire: every class caught, the corrupted
+    planes back on the card, decode(verify=True) raises."""
+    _need_card()
+    from repro_torch.core import audit as A
+    from repro_torch.runtime import guard as G
+    pipe, x, eb, _ = _preset_case("sci-rel-ent")
+    enc, rep = pipe.encode(x, verify=True, integrity=True)
+    bad_x = G.FaultPlan("card", "nan_input").corrupt_input(
+        torch.from_numpy(x).cuda())
+    assert bad_x.is_cuda
+    _, nan_rep = pipe.encode(bad_x, verify=True)
+    m = G.detection_matrix(enc, suite="card", report=nan_rep)
+    assert all(m.values()) and len(m) == 4
+    for cls in G.applicable_classes(enc):
+        bad = G.FaultPlan("card", cls).corrupt_wire(enc)
+        assert bad.payload.is_cuda
+        with pytest.raises(A.WireIntegrityError):
+            pipe.decode(bad, n=x.size, verify=True)

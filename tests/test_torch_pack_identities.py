@@ -461,10 +461,10 @@ def _check_abs_kernel(lib, cfg, eb_in):
 def test_rel_kernel_with_a_zero_log_step(host_lib):
     """REL at eb = 1e-30, where log_step is 0 and 1/log_step +inf: the
     launcher's FLT_MAX in its place gives the same planes.  At x = +-1 the
-    reference computes rint(0 * inf) = NaN and casts it to int32, which
-    XLA and torch leave to the platform: the CPU gives INT32_MIN (an
-    outlier), CUDA's conversion 0 (bin 0, exact), which the kernel gives
-    at every width (ROADMAP C-port-4)."""
+    reference computes rint(0 * inf) = NaN and casts it to int32: XLA (on
+    the CPU too) and CUDA's conversion give 0 (bin 0, exact), torch on the
+    CPU INT32_MIN, which the plain quantize_rel therefore maps to 0 first
+    (ROADMAP C-port-4).  The kernel gives bin 0 at every width."""
     x = field(3, 1.0)
     assert np.array_equal(x[-2:], [1.0, -1.0])
     for bits_ in (8, 16, 32):

@@ -137,13 +137,7 @@ def test_registry_mirror_and_grammar():
     assert PIPELINES == J_PIPELINES
     for name, spec in PIPELINES.items():
         assert get_pipeline(name) == spec
-        try:
-            pipe = TP.parse_pipeline(spec)
-        except NotImplementedError as e:
-            assert "ROADMAP" in str(e)
-            with pytest.raises(NotImplementedError):
-                TP.parse_pipeline(spec)
-            continue
+        pipe = TP.parse_pipeline(spec)        # every preset is ported
         assert pipe.spec() == JP.parse_pipeline(spec).spec()
         assert TP.parse_pipeline(pipe.spec()) == pipe
     assert TP.parse_pipeline(get_pipeline("grad-wire-8")).spec() == \
@@ -156,33 +150,60 @@ def test_registry_mirror_and_grammar():
         get_pipeline("no-such-preset")
 
 
-@pytest.mark.parametrize("spec,exc,item", [
-    ("delta|abs:1e-3|pack:8", NotImplementedError, "A8"),
-    ("abs:1e-3|pack:8|zero|ent", NotImplementedError, "A7"),
-    ("rel:1e-3|pack:32|narrow|shuffle", NotImplementedError, "A7"),
-    ("rel:1e-3|pack:32|shuffle|narrow", NotImplementedError, "A7"),
-    ("abs:1e-3|pack:16|ent", NotImplementedError, "A7"),
+_SPEC_CASES = [
+    # (spec, exception or None, match); None: the chain is ported (A7, A8)
+    # and parses to the reference's spec.  The ids are the ones these cases
+    # had while the chains raised NotImplementedError.
+    ("delta|abs:1e-3|pack:8", None, "A8"),
+    ("abs:1e-3|pack:8|zero|ent", None, "A7"),
+    ("rel:1e-3|pack:32|narrow|shuffle", None, "A7"),
+    ("rel:1e-3|pack:32|shuffle|narrow", None, "A7"),
+    ("abs:1e-3|pack:16|ent", None, "A7"),
     ("abs:1e-3:dtype=float64|pack:16", NotImplementedError, "C-port-2"),
     ("abs:1e-3|pack:8|bogus", ValueError, "unknown stage"),
     ("bogus:1e-3|pack:8", ValueError, "unknown stage"),
     ("abs:1e-3|pack:12", ValueError, "pack bits"),
     ("abs:1e-3", ValueError, "at least"),
-])
+]
+
+
+@pytest.mark.parametrize(
+    "spec,exc,item", _SPEC_CASES,
+    ids=[f"{s}-{'NotImplementedError' if e is None else e.__name__}-{m}"
+         for s, e, m in _SPEC_CASES])
 def test_unported_and_bad_specs_raise(spec, exc, item):
+    """Bad specs raise, float64 still raises (C-port-2), and the chains of
+    A7/A8 that raised before this slice now parse like the reference's."""
+    if exc is None:
+        pipe = TP.parse_pipeline(spec)
+        assert pipe.spec() == JP.parse_pipeline(spec).spec()
+        assert TP.parse_pipeline(pipe.spec()) == pipe
+        return
     with pytest.raises(exc, match=item):
         TP.parse_pipeline(spec)
 
 
 def test_unported_options_raise():
+    """float64 data still raises (C-port-2); verify=, integrity= and
+    return_quantized= (A9, A10), which raised before this slice, now return
+    the reference's shapes: enc | (enc, qt) | (enc, report) |
+    (enc, qt, report)."""
     pipe = TP.parse_pipeline("abs:1e-3|pack:16")
     x = np.zeros(16, np.float32)
-    for kw, item in ((dict(verify=True), "A9"), (dict(integrity=True), "A9"),
-                     (dict(return_quantized=True), "A10")):
-        with pytest.raises(NotImplementedError, match=item):
-            pipe.encode(x, device="cpu", **kw)
     enc = pipe.encode(x, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        pipe.decode(enc, n=16, device="cpu", verify=True)
+    assert isinstance(enc, TP.Encoded) and enc.checksum is None
+    enc_i = pipe.encode(x, device="cpu", integrity=True)
+    assert enc_i.checksum is not None
+    enc_v, rep = pipe.encode(x, device="cpu", verify=True)
+    assert isinstance(rep, TA.AuditReport) and bool(rep.ok())
+    enc_q, qt = pipe.encode(x, device="cpu", return_quantized=True)
+    assert qt.bins.shape == (16,)
+    enc_qv, qt, rep = pipe.encode(x, device="cpu", verify=True,
+                                  return_quantized=True)
+    for e in (enc_v, enc_q, enc_qv):
+        assert torch.equal(e.payload, enc.payload)
+    y = pipe.decode(enc_i, n=16, device="cpu", verify=True)
+    assert torch.equal(y, pipe.decode(enc, n=16, device="cpu"))
     with pytest.raises(NotImplementedError, match="C-port-2"):
         pipe.encode(x.astype(np.float64), device="cpu")
 

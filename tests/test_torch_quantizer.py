@@ -216,3 +216,45 @@ def test_denormal_step_differs_from_flushing_reference():
         err = np.abs(x[keep].astype(np.float64)
                      - np.asarray(planes.recon)[keep].astype(np.float64))
         assert np.all(err <= np.float64(eb))
+
+
+def _zero_log_step_input(spec):
+    if spec.startswith("rel:1e-16"):
+        x = (RNG.standard_normal(70) * 3).astype(np.float32)
+        x[::9] = 1.0
+        x[4::9] = -1.0
+        return x
+    return np.array([1.0] * 60 + [-1.0] * 3 + [2.0], np.float32)
+
+
+@pytest.mark.parametrize("spec", ["rel:1e-30|pack:8", "rel:1e-30|pack:16",
+                                  "rel:1e-30|pack:32",
+                                  "rel:1e-30|pack:16|narrow",
+                                  "rel:1e-16|pack:16"])
+def test_rel_zero_log_step_matches_reference(spec):
+    """ROADMAP C-port-4: at a zero log step (eb below ~1.1e-16) x = +-1
+    gives rint(0 * inf) = NaN before the int32 cast, which XLA (and CUDA)
+    cast to 0, a bin that decodes +-1 exactly.  The plain quantize_rel maps
+    NaN to 0 the same way, so every plane of the CPU path is the
+    reference's.  The numpy oracle keeps INT32_MIN (an outlier), as the
+    reference's oracle does."""
+    from repro.core import pipeline as JP
+    from repro_torch.core import pipeline as TP
+    x = _zero_log_step_input(spec)
+    t = TP.parse_pipeline(spec).encode(x, device="cpu")
+    j = JP.parse_pipeline(spec).encode(jnp.asarray(x), kernels=False)
+    for f in ("payload", "payload_len", "out_idx", "out_payload",
+              "n_outliers", "overflow", "sign_words"):
+        np.testing.assert_array_equal(
+            getattr(t, f).numpy().view(np.uint32) if f != "overflow"
+            else getattr(t, f).numpy(),
+            np.asarray(getattr(j, f)).view(np.uint32) if f != "overflow"
+            else np.asarray(getattr(j, f)), err_msg=f)
+    for u, v in zip(t.headers, j.headers):
+        np.testing.assert_array_equal(u.numpy().view(np.uint32),
+                                      np.asarray(v))
+    cfg = TCfg(mode="rel", error_bound=float(spec.split("|")[0][4:]),
+               bin_bits=16)
+    ones = np.abs(x) == 1.0
+    assert not tq.quantize_rel(torch.from_numpy(x), cfg).outlier.numpy()[ones].any()
+    assert tor.quantize_rel(x, cfg)[1][ones].all()
