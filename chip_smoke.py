@@ -97,8 +97,32 @@ timed over 10 calls in a row (a decode loop's view: the host's per-call
 time hides under the device's), and the attention kernels' launches per
 call from the trace.
 
+A `grads` phase drives the compressed gradient all-reduce
+(`compression.grads.compressed_mean_tree` -> `compress_shard` ->
+`core.transport.Transport.reduce_sum`) over the gradients of one
+internlm2-20b decoder layer at full width (ln1, wq, wkv, wo, ln2, w1,
+w3, w2: 390.1M float32 values a pod, made on the card from the seed as a
+shared N(0,1)*3e-3 part plus a per-pod N(0,1)*1e-3 one), two pods as a
+2-rank thread axis on the card (`core.axis.run_threads`), 2 steps with
+error feedback at eb = 2**-5 * rms for `grad-wire-8`,
+`grad-wire-16-narrow` and `pipeline="auto"` (the `grad-wire` selector
+set).  Every pod's mean must be bit-equal to the plain result (each
+pod's wire decoded with kernels=False, summed in rank order, over p),
+every residual within eb in float64, each selector wire bit-equal to its
+chosen chain's own wire, `wire_bytes` equal to the bytes counted from
+the wire's planes, `plain_calls` 0.  Then a pair of wq leaves built for
+the ring (3e-3 tanh(N(0,1)) and its negation: one grid, no outliers)
+reduces through the ring and the gather, bit-equal, and the checked
+reduces count p under no fault and p - 1 under `hop_bitflip` on the ring
+and `payload_bitflip` on one gathered shard.  Each configuration's line
+has its step times (one call by CUDA events, both pods' work on one
+card), bytes moved against a float32 all-reduce, each leaf's branch,
+the chain ids `auto` chose, max |residual|/eb, peak memory, launches per
+step, and on w1 the times of one compress_shard and one decode (and for
+`auto` its stats pass and every candidate's own wire bytes).
+
 Output: the card's name and power limit, one JSON line per chain, one
-JSON line per phase (dense, audit, code sweep, kv), one JSON line
+JSON line per phase (dense, audit, code sweep, kv, grads), one JSON line
 {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.  On stderr: the build log and a summary of
 its `-Xptxas -v` lines for the pack kernel (registers, stack, spills of
@@ -1401,6 +1425,469 @@ def kv_phase(seed: int, batch: int = KV_BATCH, s: int = KV_S):
              "b1_library_ms": lib1_ms, "b1_plain_ms": plain1_ms}], k_row0
 
 
+# the grads phase: the gradients of one internlm2-20b decoder layer at full
+# width (src/repro/configs/registry.py:22-25, the leaves of
+# src/repro/models/transformer.py:37-60 with swiglu), all-reduced across
+# the two pods of the multi-pod mesh (src/repro/launch/mesh.py:42) as a
+# 2-rank thread axis on the card
+GRAD_LEAVES = (("ln1", (6144,)), ("wq", (6144, 6144)), ("wkv", (6144, 2048)),
+               ("wo", (6144, 6144)), ("ln2", (6144,)),
+               ("w1", (6144, 16384)), ("w3", (6144, 16384)),
+               ("w2", (16384, 6144)))
+GRAD_PODS, GRAD_STEPS = 2, 2
+GRAD_EB_REL = 2.0 ** -5                # as rms_eb
+GRAD_RING_LEAF = "wq"                  # the leaf pair built for the ring
+
+
+def grad_inputs(seed: int):
+    """Each pod's gradients {leaf: float32 on the card}: a shared
+    N(0,1)*3e-3 component plus a per-pod N(0,1)*1e-3 one, from the seed."""
+    gen = torch.Generator(device=DEV).manual_seed(seed + 4)
+    pods = [{} for _ in range(GRAD_PODS)]
+    for name, shape in GRAD_LEAVES:
+        shared = torch.randn(shape, generator=gen, device=DEV) * 3e-3
+        for pod in pods:
+            pod[name] = shared + torch.randn(shape, generator=gen,
+                                             device=DEV) * 1e-3
+        del shared
+    return pods
+
+
+def grad_branch(shards, tp) -> str:
+    """The branch a reduce of these wires takes, from the wires alone: the
+    lossless sum on any overflow; the ring under its rule (static, then
+    one grid and no outliers); else the gather."""
+    if any(bool(s.enc.overflow) for s in shards):
+        return "lossless"
+    pipe = shards[0].pipe
+    if not tp._ring_ok(pipe, pipe.qcfg(), len(shards)):
+        return "gather"
+    same = all(bool(s.enc.eb == shards[0].enc.eb) for s in shards)
+    clean = all(int(s.enc.n_outliers) == 0 for s in shards)
+    return "ring" if same and clean else "gather"
+
+
+def plain_mean(shards, g_in, branch: str):
+    """What every pod's mean must be: each pod's wire decoded on the plain
+    path (kernels=False) and summed from 0 in rank order, over p; on the
+    lossless branch the inputs summed in rank order, over p."""
+    p, n = len(shards), shards[0].n
+    if branch == "lossless":
+        total = g_in[0].reshape(-1)
+        for g in g_in[1:]:
+            total = total + g.reshape(-1)
+        return total / p
+    total = torch.zeros(n, device=DEV)
+    for s in shards:
+        total = total + s.pipe.decode(s.enc, n=n, device=DEV, kernels=False)
+    return total / p
+
+
+def measured_bytes(pipe, enc, n: int) -> float:
+    """The wire's transmitted bytes counted from its planes: the payload
+    prefix (payload_len words, read here) after a length-variable stage,
+    else the whole payload; each stage's header content; the outlier
+    table; the sign plane; the 8-byte packed header; the length field; the
+    checksum; and a selector's chain-id byte."""
+    from repro_torch.core.select import Selector
+    extra, checksum = 0, enc.checksum is not None
+    if isinstance(pipe, Selector):
+        i = int(enc.chain_id)
+        enc, pipe, extra = pipe._view(enc, i, n), pipe.chains[i], 1
+    sizes = pipe.stage_sizes(n)
+    bits = 64 + 64 * enc.out_idx.numel()
+    bits += 32 * (0 if enc.sign_words is None else enc.sign_words.numel())
+    bits += 32 * checksum
+    bits += sum(st.header_content_bits(sz)
+                for st, sz in zip(pipe.stages, sizes))
+    if pipe.stages and pipe.stages[-1].transmits_len:
+        bits += 32 + 32 * int(enc.payload_len)
+    else:
+        bits += 32 * enc.payload.numel()
+    return bits / 8 + extra
+
+
+def wire_bytes_error(acct, measured: float) -> float:
+    """|accounted - measured| / measured; the accounting is a Python int
+    (exact) for static chains and float32 past a length-variable stage, as
+    the reference's (one float32 rounding of the word count, relative
+    error <= 2^-24, and of the chain-id byte's add)."""
+    return abs(float(acct) - measured) / measured
+
+
+GRAD_WIRE_TOL = 2.0 ** -23
+
+
+def grad_step(cfg, g, r, tp=None):
+    """One step of `compressed_mean_tree` on every pod (p threads on the
+    card), timed as one call by CUDA events.  Returns (means, residuals,
+    ms)."""
+    from repro_torch.compression import grads as G
+    from repro_torch.core.axis import run_threads
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = run_threads(GRAD_PODS, lambda ax: G.compressed_mean_tree(
+        g[ax.rank], r[ax.rank], cfg, ax, tp, device=DEV))
+    b.record()
+    b.synchronize()
+    return [o[0] for o in out], [o[1] for o in out], a.elapsed_time(b)
+
+
+def grad_check_step(label, cfg, g_in, means, resids) -> dict:
+    """Hold one step's results, leaf by leaf: every pod's mean bit-equal to
+    the plain result, every residual within eb in float64 (0 on the
+    lossless branch), each selector wire bit-equal to its chosen chain's
+    own wire, and `wire_bytes` equal to the measured transmitted bytes.
+    Returns the leaf facts (branch, chain ids, bytes moved, max
+    |residual|/eb, the largest wire_bytes error)."""
+    from repro_torch.compression import grads as G
+    from repro_torch.core.select import Selector
+    from repro_torch.core.transport import TRANSPORT
+    facts = {"branch": {}, "chain_ids": {}, "bytes_moved": 0.0,
+             "f32_bytes": 0, "max_resid_over_eb": 0.0,
+             "wire_bytes_max_rel_err": 0.0}
+    for name, shape in GRAD_LEAVES:
+        ins = [g[name] for g in g_in]
+        shards = [G.compress_shard(x, cfg, device=DEV)[0] for x in ins]
+        n = shards[0].n
+        branch = grad_branch(shards, TRANSPORT)
+        facts["branch"][name] = branch
+        want = plain_mean(shards, ins, branch)
+        for r, m in enumerate(means):
+            check(planes_equal(m[name].reshape(-1), want),
+                  f"grads {label}: pod {r}'s mean of {name} differs from "
+                  f"the plain decode-and-sum")
+        for r, (s, res) in enumerate(zip(shards, resids)):
+            e = res[name].reshape(-1).double().abs()
+            if branch == "lossless":
+                check(not bool(torch.count_nonzero(e)),
+                      f"grads {label}: {name} residual not 0 on the "
+                      "lossless branch")
+                continue
+            eb = float(s.enc.eb)
+            worst = float(e.max())
+            check(worst <= eb, f"grads {label}: pod {r}'s residual of "
+                               f"{name} exceeds eb ({worst} > {eb})")
+            facts["max_resid_over_eb"] = max(facts["max_resid_over_eb"],
+                                             worst / eb)
+            acct = G.CompressedShard(s.enc, s.pipe, n).nbytes()
+            err = wire_bytes_error(acct, measured_bytes(s.pipe, s.enc, n))
+            tol = 0.0 if isinstance(acct, int) else GRAD_WIRE_TOL
+            check(err <= tol, f"grads {label}: wire_bytes of {name} is off "
+                              f"the measured bytes by {err}")
+            facts["wire_bytes_max_rel_err"] = max(
+                facts["wire_bytes_max_rel_err"], err)
+        if isinstance(shards[0].pipe, Selector):
+            sel = shards[0].pipe
+            ids = [int(s.enc.chain_id) for s in shards]
+            facts["chain_ids"][name] = ids
+            for x, s, i in zip(ins, shards, ids):
+                direct = sel.chains[i].encode(x.reshape(-1), s.enc.eb,
+                                              device=DEV,
+                                              return_quantized=True)[0]
+                check(planes_equal(tuple(sel._view(s.enc, i, n)),
+                                   tuple(direct)),
+                      f"grads {label}: the selector wire of {name} differs "
+                      f"from its chosen chain's ({i}) own wire")
+        facts["bytes_moved"] += float(TRANSPORT.bytes_moved(
+            shards[0], op="reduce_mean", axis_size=GRAD_PODS))
+        facts["f32_bytes"] += TRANSPORT.bytes_moved(
+            ins[0], op="all_gather", axis_size=GRAD_PODS)
+        del shards, want
+    return facts
+
+
+def grad_run(label: str, spec: str, pods) -> tuple:
+    """GRAD_STEPS steps with error feedback of one configuration on every
+    pod, each step held by `grad_check_step`; prints the configuration's
+    line.  Returns (the launch counts of its steps, each leaf's
+    branch)."""
+    from repro_torch.compression import grads as G
+    cfg = G.GradCompressionConfig(eb_rel=GRAD_EB_REL, pipeline=spec)
+    torch.cuda.reset_peak_memory_stats()
+    r = [{k: torch.zeros_like(v) for k, v in g.items()} for g in pods]
+    step_ms, steps, total = [], [], {}
+    for _ in range(GRAD_STEPS):
+        g_in = [{k: g[k] + res[k] for k in g} for g, res in zip(pods, r)]
+        torch.cuda.synchronize()
+        reset_launches()
+        with plain_calls() as plain:
+            means, r, ms = grad_step(cfg, pods, r)
+        for k, v in launches().items():
+            total[k] = total.get(k, 0) + v
+        check(plain["calls"] == 0, f"grads {label}: the card's path called "
+                                   "a plain quantizer or codec")
+        step_ms.append(ms)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        steps.append(grad_check_step(label, cfg, g_in, means, r))
+        del g_in, means
+    info = steps[-1]
+    n_total = sum(int(np.prod(s)) for _, s in GRAD_LEAVES)
+    parts = grad_parts(cfg, pods[0]["w1"])
+    if spec != "auto":      # auto's ent loops would flood the trace
+        parts.update(grad_busy(cfg, pods, r))
+    print(json.dumps({
+        "phase": "grads", "config": label, "spec": spec,
+        "model": "internlm2-20b", "layer": "one decoder layer, 8 leaves",
+        "pods": GRAD_PODS, "values_per_pod": n_total, "steps": GRAD_STEPS,
+        "eb_rel": GRAD_EB_REL, "step_ms": step_ms,
+        "bytes_moved_per_step": [s["bytes_moved"] for s in steps],
+        "f32_allreduce_bytes_per_step": info["f32_bytes"],
+        "ratio_vs_f32": [info["f32_bytes"] / s["bytes_moved"]
+                         for s in steps],
+        "branch": info["branch"],
+        "chain_ids": [s["chain_ids"] for s in steps],
+        "max_resid_over_eb": max(s["max_resid_over_eb"] for s in steps),
+        "wire_bytes_max_rel_err": max(s["wire_bytes_max_rel_err"]
+                                      for s in steps),
+        "plain_calls": 0, "peak_device_GB": peak, **parts,
+        "launches_per_step": {k: v / GRAD_STEPS for k, v in total.items()
+                              if v}}), flush=True)
+    return total, info["branch"]
+
+
+def grad_busy(cfg, pods, r) -> dict:
+    """One more step under `torch.profiler`: its length by CUDA events and
+    the card's busy time in it (the sum of its kernels' device times; one
+    stream, so they do not overlap), hence the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, ms = grad_step(cfg, pods, r)
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return {"profiled_step_ms": ms, "device_busy_ms": busy or None,
+            "device_idle_share": 1 - busy / ms if busy else None}
+
+
+def grad_parts(cfg, x) -> dict:
+    """Where a step's time goes, on pod 0's w1 (100.7M values, the largest
+    leaf), each one call by CUDA events: `compress_shard` and one decode
+    of its wire; for a selector also the stats pass and each candidate's
+    own wire bytes beside the selector's estimates, so the choice can be
+    held against the bytes each candidate really moves."""
+    from repro_torch.compression import grads as G
+    from repro_torch.core.select import Selector
+    shard, _ = G.compress_shard(x, cfg, device=DEV)
+    heavy = isinstance(shard.pipe, Selector)
+    reps = 3 if heavy else 10
+    out = {"w1_compress_shard_ms": time_ms(
+        lambda: G.compress_shard(x, cfg, device=DEV), reps=reps, warm=1),
+        "w1_decode_ms": time_ms(lambda: shard.pipe.decode(
+            shard.enc, n=shard.n, device=DEV), reps=reps, warm=1)}
+    if heavy:
+        sel, eb, flat = shard.pipe, shard.enc.eb, x.reshape(-1)
+        out["w1_score_ms"] = time_ms(lambda: sel.score(flat, eb, device=DEV),
+                                     reps=reps, warm=1)
+        out["w1_estimated_bytes"] = [float(c) / 8 for c in
+                                     sel.score(flat, eb, device=DEV)]
+        out["w1_candidate_bytes"] = [
+            float(c.wire_bytes(c.encode(flat, eb, device=DEV), shard.n))
+            for c in sel.chains]
+        out["w1_chosen"] = int(shard.enc.chain_id)
+    return out
+
+
+def grad_pair_phase(seed: int) -> tuple:
+    """The ring on a full-width leaf: a pair built so its rule holds at
+    grad-wire-8 (3e-3 tanh(N(0,1)) and its negation: the same rms bit for
+    bit, so one grid, and no outliers), reduced with reduce='auto' (the
+    ring) and 'gather', bit-equal to each other and to the plain result;
+    then the checked reduces: clean (p contributions), `hop_bitflip`
+    on the ring hops and `payload_bitflip` on one gathered shard (p - 1),
+    and `compressed_mean(integrity='drop')` under the gathered flip.
+    Returns (launch counts, the ring's bins and eb for the B10 row)."""
+    from repro_torch.compression import grads as G
+    from repro_torch.configs.registry import get_pipeline
+    from repro_torch.core import codec as C
+    from repro_torch.core.axis import run_threads
+    from repro_torch.core.transport import TRANSPORT, Transport
+    from repro_torch.runtime.guard import FaultPlan
+    shape = dict(GRAD_LEAVES)[GRAD_RING_LEAF]
+    gen = torch.Generator(device=DEV).manual_seed(seed + 5)
+    a = 3e-3 * torch.tanh(torch.randn(shape, generator=gen, device=DEV))
+    pair = [a, -a]
+    cfg = G.GradCompressionConfig(eb_rel=GRAD_EB_REL,
+                                  pipeline=get_pipeline("grad-wire-8"))
+    gather = Transport(reduce="gather")
+    flip = FaultPlan("grads-gather", "payload_bitflip").corrupt_wire
+    hop = Transport(fault=FaultPlan("grads-ring", "hop_bitflip").corrupt_hop)
+
+    def timed(tp):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        out = run_threads(GRAD_PODS, lambda ax: G.compressed_mean(
+            pair[ax.rank], cfg, ax, transport=tp, device=DEV))
+        ev[1].record()
+        ev[1].synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+
+    def checked(ax):
+        s, _ = G.compress_shard(pair[ax.rank], cfg, integrity=True,
+                                device=DEV)
+        e, pp, n = s.enc, s.pipe, s.n
+        return (TRANSPORT.uses_ring(e, pp, ax),
+                TRANSPORT.reduce_mean(e, pp, n, ax, integrity="drop",
+                                      return_valid=True),
+                hop.reduce_mean(e, pp, n, ax, integrity="drop",
+                                return_valid=True),
+                gather.reduce_mean(e, pp, n, ax, integrity="drop",
+                                   return_valid=True),
+                Transport(reduce="gather", fault=flip).reduce_mean(
+                    e, pp, n, ax, integrity="drop", return_valid=True),
+                G.compressed_mean(pair[ax.rank], cfg, ax,
+                                  transport=Transport(fault=flip),
+                                  integrity="drop", device=DEV)[0])
+
+    torch.cuda.synchronize()
+    reset_launches()
+    with plain_calls() as plain:
+        ring, ring_ms = timed(TRANSPORT)
+        gathered, gather_ms = timed(gather)
+        chk = run_threads(GRAD_PODS, checked)
+    counts = launches()
+    check(plain["calls"] == 0, "grads ring: the card's path called a plain "
+                               "quantizer or codec")
+    for name in ("_quantize_abs", "_dequantize_abs", "_abs_unpack"):
+        check(counts[name] > 0, f"grads ring: {name} not launched")
+    shards = [G.compress_shard(x, cfg, device=DEV)[0] for x in pair]
+    branch = grad_branch(shards, TRANSPORT)
+    check(branch == "ring", f"grads ring: the pair took the {branch} path")
+    want = plain_mean(shards, pair, branch)
+    decodes = [s.pipe.decode(s.enc, n=s.n, device=DEV, kernels=False)
+               for s in shards]
+    worst = 0.0
+    for r in range(GRAD_PODS):
+        (m, res), (mg, _) = ring[r], gathered[r]
+        check(planes_equal(m.reshape(-1), mg.reshape(-1)),
+              f"grads ring: pod {r}'s ring mean differs from the gather's")
+        check(planes_equal(m.reshape(-1), want),
+              f"grads ring: pod {r}'s mean differs from the plain result")
+        eb = float(shards[r].enc.eb)
+        e = float(res.double().abs().max())
+        check(e <= eb, f"grads ring: pod {r}'s residual exceeds eb")
+        worst = max(worst, e / eb)
+        fired, (mc, nc), (_, nh), (_, ng), (mb, nb), cm = chk[r]
+        check(fired, f"grads ring: pod {r} did not take the ring")
+        check(int(nc) == GRAD_PODS and int(ng) == GRAD_PODS,
+              f"grads ring: a clean checked reduce counted {int(nc)}, "
+              f"{int(ng)} of {GRAD_PODS}")
+        check(planes_equal(mc.reshape(-1), m.reshape(-1)),
+              f"grads ring: pod {r}'s clean checked ring moved a bit")
+        check(int(nh) == GRAD_PODS - 1 and int(nb) == GRAD_PODS - 1,
+              f"grads ring: pod {r} counted {int(nh)} (hop flip) and "
+              f"{int(nb)} (shard flip), not {GRAD_PODS - 1}")
+        check(any(planes_equal(mb, d) for d in decodes)
+              and planes_equal(cm.reshape(-1), mb),
+              f"grads ring: pod {r}'s mean under the shard flip is not the "
+              "clean shard's decode")
+    n = shards[0].n
+    bins = sum(C.unpack_words(s.enc.payload, n, 8) for s in shards)
+    print(json.dumps({
+        "phase": "grads", "config": "ring-pair", "spec": cfg.pipe().spec(),
+        "leaf": GRAD_RING_LEAF, "values_per_pod": n, "pods": GRAD_PODS,
+        "branch": branch, "ring_ms": ring_ms, "gather_ms": gather_ms,
+        "bytes_moved_gather_bound": TRANSPORT.bytes_moved(
+            shards[0], op="reduce_mean", axis_size=GRAD_PODS),
+        "bytes_moved_ring": GRAD_PODS * (GRAD_PODS - 1)
+        * shards[0].enc.payload.numel() * 4,
+        "max_resid_over_eb": worst,
+        "n_valid": {what: [int(c[k][1]) for c in chk] for what, k in
+                    (("clean_ring", 1), ("hop_bitflip", 2),
+                     ("clean_gather", 3), ("payload_bitflip", 4))},
+        "plain_calls": 0,
+        "launches": {k: v for k, v in counts.items() if v}}), flush=True)
+    return counts, (bins.to(torch.int32), shards[0].enc.eb, cfg.qcfg())
+
+
+def grad_kernel_rows(pods, counts: dict, per_step: dict, ring_in) -> list:
+    """B1, B2, B6, B7, B8 and B10 on the grads path's own inputs (pod 0's
+    w1, the largest leaf: 100.7M values; the ring pair's bin sum for B10),
+    each held against its plain version and timed.  `launches` counts the
+    phase's counted runs; `launches_per_step` the tree steps' mean."""
+    from repro_torch.compression import grads as G
+    from repro_torch.core import codec as C
+    from repro_torch.core.select import get_selector
+    from repro_torch.kernels import dense as D
+    from repro_torch.kernels import lossless as L
+    from repro_torch.kernels import pack as K
+    x = pods[0]["w1"].reshape(-1)
+    n = x.numel()
+    cfg = G.GradCompressionConfig(eb_rel=GRAD_EB_REL,
+                                  pipeline="abs:1.0|pack:16|narrow")
+    shard, q = G.compress_shard(x, cfg, device=DEV)
+    qc, eb = shard.pipe.qcfg(), shard.enc.eb.reshape(1)
+    sel_cfg = get_selector("grad-wire").qcfg()
+    words = C.pack_words(q.bins, 16)
+    n_words = words.numel()
+    codes = C.unpack_words(shard.enc.headers[0], C.lc_chunk_count(n_words), 2,
+                           signed=False)
+    padded = C.lc_gather_chunks(shard.enc.payload, codes).reshape(-1)
+    bins, ring_eb, ring_qc = ring_in
+    zeros_i = torch.zeros_like(bins)
+    zeros_b = torch.zeros_like(bins, dtype=torch.bool)
+    ring_eb = ring_eb.reshape(1)
+    calls = [
+        ("_abs_pack", "selector stats", 16, n, None,
+         lambda: K.abs_pack(x, eb, sel_cfg),
+         lambda: K._abs_pack_plain(x, eb, sel_cfg)),
+        ("_quantize_abs", "compress_shard", 16, n, None,
+         lambda: tuple(D.quantize_abs(x, qc, eb=eb)[:3]),
+         lambda: tuple(D._quantize_abs_plain(x, eb, qc)[:3])),
+        ("_lc_select", "0:narrow", 16, n_words, None,
+         lambda: L.lc_select(words, "narrow"),
+         lambda: L._lc_select_plain(words, "narrow")),
+        ("_lc_expand", "0:narrow", 16, n_words, hist_of(codes),
+         lambda: L.lc_expand(padded, codes, n_words),
+         lambda: L._lc_expand_plain(padded, codes, n_words)),
+        ("_abs_unpack", "gather decode", 16, n, None,
+         lambda: K.abs_unpack(words, eb, n, qc),
+         lambda: K._abs_unpack_plain(words, eb, n, qc)),
+        ("_dequantize_abs", "ring", 8, bins.numel(), None,
+         lambda: D.dequantize_abs(bins, zeros_i, zeros_b, ring_qc,
+                                  eb=ring_eb),
+         lambda: D._dequantize_abs_plain(bins, zeros_i, zeros_b, ring_eb,
+                                         ring_qc)),
+    ]
+    rows = []
+    for name, label, bits, size, hist, kern, plain in calls:
+        check(counts.get(name, 0) > 0,
+              f"grads: {name} not launched on the grads path")
+        row = kernel_row(name, label, "grads", bits, size, hist, kern, plain,
+                         counts[name])
+        row["launches_per_step"] = per_step.get(name, 0)
+        rows.append(row)
+    return rows
+
+
+def grads_phase(seed: int) -> list:
+    """The compressed gradient all-reduce at full width: each configuration
+    for GRAD_STEPS steps, the ring pair with the checked reduces, then the
+    kernel rows of the path.  Returns the rows."""
+    from repro_torch.configs.registry import get_pipeline
+    pods = grad_inputs(seed)
+    configs = (("grad-wire-8", get_pipeline("grad-wire-8")),
+               ("grad-wire-16-narrow", get_pipeline("grad-wire-16-narrow")),
+               ("auto", "auto"))
+    counts, branches = {}, set()
+    for label, spec in configs:
+        run_counts, branch = grad_run(label, spec, pods)
+        branches |= set(branch.values())
+        for k, v in run_counts.items():
+            counts[k] = counts.get(k, 0) + v
+    check("gather" in branches, "grads: no full-width leaf took the gather")
+    per_step = {k: v / (len(configs) * GRAD_STEPS) for k, v in counts.items()}
+    pair_counts, ring_in = grad_pair_phase(seed)
+    for k, v in pair_counts.items():
+        counts[k] = counts.get(k, 0) + v
+    rows = grad_kernel_rows(pods, counts, per_step, ring_in)
+    del pods, ring_in
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=N_DEFAULT,
@@ -1462,6 +1949,7 @@ def main(argv=None) -> int:
                       k_row0.reshape(-1), rms_eb(k_row0),
                       shape=(g * s // KV_PAGE, KV_PAGE, d))
     del k_row0
+    rows += grads_phase(args.seed)
     check(set(KERNELS) <= {r["name"] for r in rows},
           "a kernel has no main-path row")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -36,3 +36,38 @@ def get_pipeline(name: str) -> str:
         return name
     raise KeyError(f"unknown pipeline preset {name!r}; have "
                    f"{sorted(PIPELINES)} (or pass a '|'-spec)")
+
+
+# Selector candidate sets (the adaptive chain choice), mirrored from the
+# JAX package's `SELECTOR_SETS` with its autotuned biases (a test pins the
+# two equal).  `base` is the shared quantizer + pack spec; `chains` are
+# the word-stage (and pred-stage) fragments appended to it; `bias` is the
+# per-candidate calibration in bits per 1024 words.  `base: None` marks a
+# KV page-fragment set, mirrored as data: its per-page selector comes with
+# the packed KV wire (ROADMAP A12).
+SELECTOR_SETS = {
+    "grad-wire": {
+        "base": "abs:0.001:cap=0.015625|pack:16",
+        "chains": ("", "zero", "narrow", "narrow|ent",
+                   "delta|narrow|ent"),
+        "bias": (0, 0, 0, 24.119, 30.48),
+    },
+    "sci-plane": {
+        "base": "abs:64.0:cap=0.015625|pack:32",
+        "chains": ("", "narrow", "narrow|ent", "lorenzo|narrow|ent"),
+        "bias": (0, 0, 4.297, 8.176),
+    },
+    "kv-page": {
+        "base": None,
+        "chains": ("zero", "zero|narrow", "kvdelta|zero|narrow"),
+        "bias": (0, 0, 0),
+    },
+}
+
+
+def get_selector_set(name: str) -> dict:
+    """The `SELECTOR_SETS` entry of a set name."""
+    if name not in SELECTOR_SETS:
+        raise KeyError(f"unknown selector set {name!r}; have "
+                       f"{sorted(SELECTOR_SETS)}")
+    return SELECTOR_SETS[name]

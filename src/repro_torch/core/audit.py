@@ -22,10 +22,10 @@ a halving tree (torch has no xor reduction).  Every digest is an int32 0-d
 tensor holding the uint32 bits, computed on the wire's device.
 
 Dispatch over wire types is duck-typed, so this module imports none of the
-container modules.  The `SelectedWire` and `PackedKV` branches of
-`_planes` (and `PackedKV.with_checksum` in `attach_checksum`), and
-`verify_gathered`, come with the modules that define those wires (ROADMAP
-A10-A12).
+container modules: `Encoded` (`core.pipeline`) and `SelectedWire`
+(`core.select`) are covered; the `PackedKV` branch comes with the packed
+KV wire (ROADMAP A12).  `verify_gathered` gives per-shard verdicts over a
+wire gathered by `core.transport.Transport.all_gather`.
 """
 from __future__ import annotations
 
@@ -102,14 +102,22 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
 def plane_checksum(plane) -> torch.Tensor:
     """The fold over one plane (an int32 0-d digest holding uint32 bits):
     the building block `wire_checksum` combines per container, and the
-    per-hop digest of the packed-domain ring (ROADMAP A10)."""
+    per-hop digest of `core.transport`'s packed-domain ring."""
     return to_i32(_fold(plane))
 
 
 def _planes(wire) -> list:
-    """The covered planes of a wire container, in a fixed order.
-    Duck-typed: `headers` -> `core.pipeline.Encoded`."""
-    if hasattr(wire, "headers"):                          # core.pipeline.Encoded
+    """The covered planes of a wire container, in a fixed order (the
+    reference's).  Duck-typed: `eb2` -> PackedKV, `chain_id` ->
+    `core.select.SelectedWire`, `headers` -> `core.pipeline.Encoded`."""
+    if hasattr(wire, "eb2"):
+        from .pipeline import not_ported
+        raise not_ported("the PackedKV wire", "ROADMAP A12")
+    if hasattr(wire, "chain_id"):                         # core.select.SelectedWire
+        planes = [wire.chain_id, wire.payload, wire.payload_len,
+                  wire.header, wire.out_idx, wire.out_payload,
+                  wire.n_outliers, wire.overflow]
+    elif hasattr(wire, "headers"):                        # core.pipeline.Encoded
         planes = [wire.payload, wire.payload_len, *wire.headers,
                   wire.out_idx, wire.out_payload, wire.n_outliers,
                   wire.overflow]
@@ -150,6 +158,26 @@ def verify_wire(wire) -> torch.Tensor:
         raise ValueError("wire carries no checksum — encode it with "
                          "integrity=True")
     return wire_checksum(wire) == wire.checksum.to(torch.int32)
+
+
+def shard_of(wire, i: int):
+    """Shard i of a wire with a gathered leading axis: every plane indexed
+    at i (header tuples plane by plane, None kept)."""
+    def take(f):
+        if f is None:
+            return None
+        if isinstance(f, tuple):
+            return tuple(h[i] for h in f)
+        return f[i]
+    return type(wire)(*(take(f) for f in wire))
+
+
+def verify_gathered(wire) -> torch.Tensor:
+    """Per-shard verdicts for a wire with a gathered leading axis (the
+    result of `Transport.all_gather`): bool[axis size] on the wire's
+    device."""
+    p = wire.payload.shape[0]
+    return torch.stack([verify_wire(shard_of(wire, i)) for i in range(p)])
 
 
 # ----------------------------------------------------- length validation --

@@ -265,6 +265,32 @@ def transmitted_bits(payload_len: torch.Tensor, static_bits: int):
     return words.to(torch.float32) * 32.0 + rem
 
 
+_SUM_WINDOW = 32
+
+
+def f32_sum(v: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of a 1-d plane in the order the reference's CPU
+    build sums it, so that sums past 2^24 round the same way: while more
+    than 32 values remain, pad with zeros (half of the padding in front,
+    the larger half behind) to windows of 32 and fold each window from 0
+    in index order; then fold what is left from 0.  A 0-d float32 tensor
+    on v's device, no host sync.  (Under jit the reference fuses an
+    elementwise producer of up to 32 values into its sum: ROADMAP
+    C-port-5.)"""
+    v = v.reshape(-1).to(torch.float32)
+    while v.shape[0] > _SUM_WINDOW:
+        pad = (-v.shape[0]) % _SUM_WINDOW
+        win = torch.cat([v.new_zeros(pad // 2), v,
+                         v.new_zeros(pad - pad // 2)]).reshape(-1, _SUM_WINDOW)
+        v = torch.zeros(win.shape[0], dtype=torch.float32, device=v.device)
+        for j in range(_SUM_WINDOW):
+            v = v + win[:, j]
+    total = torch.zeros((), dtype=torch.float32, device=v.device)
+    for i in range(v.shape[0]):
+        total = total + v[i]
+    return total
+
+
 def lc_chunk_count(n_words: int) -> int:
     return -(-n_words // LC_CHUNK)
 

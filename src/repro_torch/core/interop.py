@@ -4,9 +4,10 @@ The system has no weights: its state is the wire and the cache.  A
 reference `Encoded` (any object with its fields, as numpy or JAX arrays)
 converts to the port's `Encoded` on a device, and back to numpy planes with
 the reference's dtypes, so a wire encoded by either package decodes in the
-other.  Word planes travel as uint32 in numpy and as int32 tensors (the
-same bits) in the port.  A `QuantizedKV` crosses the same way, so that a
-cache quantized by either package feeds both attentions.
+other; a selector's `SelectedWire` crosses the same way.  Word planes
+travel as uint32 in numpy and as int32 tensors (the same bits) in the
+port.  A `QuantizedKV` crosses the same way, so that a cache quantized by
+either package feeds both attentions.
 """
 from __future__ import annotations
 
@@ -15,9 +16,10 @@ import torch
 
 from ..compression.kv import QuantizedKV
 from .pipeline import Encoded, resolve_device
+from .select import SelectedWire
 
 # fields that hold uint32 bit planes on the reference side
-_U32_FIELDS = ("payload", "out_payload", "sign_words", "checksum")
+_U32_FIELDS = ("payload", "out_payload", "sign_words", "checksum", "header")
 
 
 def _to_tensor(a, dev: torch.device) -> torch.Tensor:
@@ -27,12 +29,10 @@ def _to_tensor(a, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(dev)      # a writable copy
 
 
-def encoded_from_numpy(wire, device="cuda") -> Encoded:
-    """Reference wire (numpy or JAX planes) -> the port's Encoded on
-    `device`."""
+def _wire_from_numpy(cls, wire, device):
     dev = resolve_device(device)
     fields = {}
-    for name in Encoded._fields:
+    for name in cls._fields:
         v = getattr(wire, name, None)
         if v is None:
             fields[name] = None
@@ -40,7 +40,19 @@ def encoded_from_numpy(wire, device="cuda") -> Encoded:
             fields[name] = tuple(_to_tensor(h, dev) for h in v)
         else:
             fields[name] = _to_tensor(v, dev)
-    return Encoded(**fields)
+    return cls(**fields)
+
+
+def encoded_from_numpy(wire, device="cuda") -> Encoded:
+    """Reference wire (numpy or JAX planes) -> the port's Encoded on
+    `device`."""
+    return _wire_from_numpy(Encoded, wire, device)
+
+
+def selected_wire_from_numpy(wire, device="cuda") -> SelectedWire:
+    """Reference `SelectedWire` (numpy or JAX planes) -> the port's on
+    `device`."""
+    return _wire_from_numpy(SelectedWire, wire, device)
 
 
 def _to_numpy(t: torch.Tensor, u32: bool) -> np.ndarray:
@@ -48,12 +60,9 @@ def _to_numpy(t: torch.Tensor, u32: bool) -> np.ndarray:
     return arr.view(np.uint32) if u32 else arr
 
 
-def encoded_to_numpy(enc: Encoded) -> Encoded:
-    """The port's Encoded -> an Encoded of numpy planes with the
-    reference's dtypes (uint32 word planes), ready for
-    `repro.core.pipeline.Encoded(*map(jnp.asarray, ...))`."""
+def _wire_to_numpy(enc):
     fields = {}
-    for name in Encoded._fields:
+    for name in enc._fields:
         v = getattr(enc, name)
         if v is None:
             fields[name] = None
@@ -61,7 +70,21 @@ def encoded_to_numpy(enc: Encoded) -> Encoded:
             fields[name] = tuple(_to_numpy(h, True) for h in v)
         else:
             fields[name] = _to_numpy(v, name in _U32_FIELDS)
-    return Encoded(**fields)
+    return type(enc)(**fields)
+
+
+def encoded_to_numpy(enc: Encoded) -> Encoded:
+    """The port's Encoded -> an Encoded of numpy planes with the
+    reference's dtypes (uint32 word planes), ready for
+    `repro.core.pipeline.Encoded(*map(jnp.asarray, ...))`."""
+    return _wire_to_numpy(enc)
+
+
+def selected_wire_to_numpy(wire: SelectedWire) -> SelectedWire:
+    """The port's SelectedWire -> one of numpy planes with the reference's
+    dtypes, ready for `repro.core.select.SelectedWire(*map(jnp.asarray,
+    ...))`."""
+    return _wire_to_numpy(wire)
 
 
 def quantized_kv_from_numpy(qkv, device="cuda") -> QuantizedKV:

@@ -313,14 +313,15 @@ def decode_word_stages(stages, headers, payload, n_words: int,
     return cur
 
 
-def _to_device(enc: Encoded, dev: torch.device) -> Encoded:
+def _to_device(enc, dev: torch.device):
+    """A wire (`Encoded` or another NamedTuple of planes) on `dev`."""
     def mv(f):
         if f is None:
             return None
         if isinstance(f, tuple):
             return tuple(h.to(dev) for h in f)
         return f.to(dev)
-    return Encoded(*(mv(f) for f in enc))
+    return type(enc)(*(mv(f) for f in enc))
 
 
 @dataclasses.dataclass(frozen=True)

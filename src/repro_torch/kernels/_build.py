@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -55,6 +56,7 @@ _SIGNATURES = {
 }
 
 _LIB: ctypes.CDLL | None = None
+_LOAD_LOCK = threading.Lock()   # ranks on threads must not race the build
 
 
 def nvcc_path() -> str:
@@ -106,14 +108,15 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for fn, argtypes in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+    with _LOAD_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for fn, argtypes in _SIGNATURES.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            _LIB = lib
     return _LIB
 
 

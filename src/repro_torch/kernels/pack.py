@@ -16,6 +16,8 @@ min/max, the outlier table (`nonzero_static`), and the decode scatter.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -28,6 +30,7 @@ assert LANES == C.PACK_LANES, "kernel tile width must match the wire layout"
 
 KERNELS = ("_abs_pack", "_rel_pack", "_abs_unpack", "_rel_unpack")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -54,13 +57,15 @@ def _eb_operand(eb: torch.Tensor, device) -> torch.Tensor:
 
 def _launch(counts: dict, name: str, fn: str, device, *args) -> None:
     """Call C function `fn` of the kernel library on `device`'s current
-    stream; raise if the launch failed, else add one to counts[name]."""
+    stream; raise if the launch failed, else add one to counts[name] (under
+    a lock: ranks on threads launch concurrently)."""
     from . import _build
     lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         _build.check(lib, getattr(lib, fn)(*args, stream), name)
-    counts[name] += 1
+    with _COUNT_LOCK:
+        counts[name] += 1
 
 
 # ------------------------------------------------------- plain versions --

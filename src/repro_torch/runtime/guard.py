@@ -16,11 +16,12 @@ Fault classes (`FAULT_CLASSES`):
                    header-free chains)
   length_truncate  halve the transmitted `payload_len` and zero the tail
   chainid_swap     rotate the chain id to another valid id (selector
-                   wires only, which come with ROADMAP A11)
+                   wires, `core.select.SelectedWire`, only)
   nan_input        plant NaN/+-Inf in the input before encode, caught by
                    the `verify=` report (`n_nonfinite > 0`)
-  hop_bitflip      flip one bit of an in-flight ring hop (`corrupt_hop`,
-                   a transport hook, which comes with ROADMAP A10)
+  hop_bitflip      flip one bit of an in-flight wire (`corrupt_hop`, the
+                   `core.transport.Transport(fault=...)` hook: a ring hop,
+                   or the largest plane of a gathered wire)
 
 Every plan seeds `np.random.default_rng` from `zlib.crc32` of its suite
 and class, as the reference does, so fault positions equal the
@@ -179,8 +180,13 @@ class FaultPlan:
         return _swap_leaf(wire, wire.payload, pay)
 
     def _header_plane(self, wire):
-        """First non-empty header plane, else the outlier count."""
-        for p in getattr(wire, "headers", ()) or ():
+        """First non-empty header plane (a selector wire's flat `header`),
+        else the outlier count."""
+        planes = getattr(wire, "headers", None)
+        if planes is None:
+            h = getattr(wire, "header", None)
+            planes = () if h is None else (h,)
+        for p in planes:
             if p is not None and p.numel():
                 return p
         return wire.n_outliers

@@ -659,3 +659,86 @@ def test_guard_on_card_detects_every_fault():
         assert bad.payload.is_cuda
         with pytest.raises(A.WireIntegrityError):
             pipe.decode(bad, n=x.size, verify=True)
+
+
+def _pods(p, n, seed):
+    r = np.random.default_rng(seed)
+    base = r.standard_normal(n)
+    return [torch.from_numpy(((base + 0.5 * r.standard_normal(n)) * 3e-3)
+                             .astype(np.float32)).cuda() for _ in range(p)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("spec", ["", "abs:1.0|pack:16|narrow", "auto"])
+def test_thread_axis_on_card_matches_the_plain_path(spec, p):
+    """p ranks as threads on one card: every rank's mean equals the plain
+    result (each rank's wire decoded with kernels=False, summed from 0 in
+    rank order, over p) and the CPU's; a ring pair (x, -x) at p = 2 takes
+    the ring, bit-equal to the gather."""
+    _need_card()
+    from repro_torch.compression import grads as G
+    from repro_torch.core.axis import run_threads
+    from repro_torch.core.transport import TRANSPORT, Transport
+    cfg = G.GradCompressionConfig(eb_rel=2.0 ** -5, pipeline=spec)
+    n = 3 * 4096 + 77
+    xs = _pods(p, n, seed=p)
+
+    def run(ax, dev, tp=None):
+        g = xs[ax.rank].to(dev)
+        shard, _ = G.compress_shard(g, cfg, device=dev)
+        return shard, G.compressed_mean(g, cfg, ax, transport=tp,
+                                        device=dev)[0]
+
+    card = run_threads(p, lambda ax: run(ax, "cuda"))
+    cpu = run_threads(p, lambda ax: run(ax, "cpu"))
+    total = torch.zeros(n, device="cuda")
+    for shard, _ in card:
+        total = total + shard.pipe.decode(shard.enc, n=n, kernels=False)
+    for (_, m), (_, mc) in zip(card, cpu):
+        assert m.is_cuda
+        assert torch.equal(m.view(torch.int32), (total / p).view(torch.int32))
+        assert torch.equal(m.cpu().view(torch.int32), mc.view(torch.int32))
+    if spec == "" and p == 2:
+        a = torch.tanh(xs[0]) * 3e-3
+        xs[:] = [a, -a]
+
+        def ring(ax):
+            shard, m = run(ax, "cuda")
+            return (TRANSPORT.uses_ring(shard.enc, shard.pipe, ax), m,
+                    run(ax, "cuda", Transport(reduce="gather"))[1])
+
+        for fired, m, mg in run_threads(2, ring):
+            assert fired and torch.equal(m.view(torch.int32),
+                                         mg.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", range(5))
+def test_selector_candidates_on_card(chain):
+    """Each grad-wire candidate through the Selector on the card: forced
+    to win by its bias, the wire equals that chain's own wire and the CPU
+    selector's, and the decode equals the CPU's, with no plain fallback."""
+    _need_card()
+    import dataclasses
+    from repro_torch.core import select as S
+    sel = S.get_selector("grad-wire")
+    sel = dataclasses.replace(sel, bias=tuple(
+        0.0 if i == chain else 1e9 for i in range(5)))
+    n = 5 * 1024
+    x = torch.from_numpy(((np.random.default_rng(chain).standard_normal(n))
+                          * 3e-3).astype(np.float32))
+    eb = torch.tensor(np.float32(1e-4))
+    w = sel.encode(x, eb.cuda(), integrity=True)
+    wc = sel.encode(x, eb, device="cpu", integrity=True)
+    assert int(w.chain_id) == int(wc.chain_id) == chain
+    for a, b in zip(w, wc):
+        assert (a is None and b is None) or torch.equal(a.cpu(), b)
+    direct = sel.chains[chain].encode(x, eb.cuda())
+    view = sel._view(w, chain, n)
+    assert torch.equal(view.payload, direct.payload)
+    y = sel.decode(w, n=n, verify=True)
+    assert y.is_cuda
+    assert torch.equal(y.cpu().view(torch.int32),
+                       sel.decode(wc, n=n, device="cpu").view(torch.int32))
+    assert float(sel.wire_bits(w, n)) == float(sel.wire_bits(wc, n))
