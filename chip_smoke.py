@@ -138,6 +138,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1518,31 +1519,77 @@ def wire_bytes_error(acct, measured: float) -> float:
 GRAD_WIRE_TOL = 2.0 ** -23
 
 
+@contextlib.contextmanager
+def sent_wires():
+    """Wrap `compress_shard` for the block so that the wires the pods send
+    are kept as sent.  Yields (wires, each_pod): `wires[r]` lists pod r's
+    CompressedShards in the order it encoded them, and `each_pod(fn)` is
+    fn with its rank noted, to hand to `run_threads`."""
+    from repro_torch.compression import grads as G
+    real, rank = G.compress_shard, threading.local()
+    wires = [[] for _ in range(GRAD_PODS)]
+
+    def kept(*args, **kw):
+        out = real(*args, **kw)
+        wires[rank.r].append(out[0])
+        return out
+
+    def each_pod(fn):
+        def run(ax):
+            rank.r = ax.rank
+            return fn(ax)
+        return run
+
+    G.compress_shard = kept
+    try:
+        yield wires, each_pod
+    finally:
+        G.compress_shard = real
+
+
 def grad_step(cfg, g, r, tp=None):
     """One step of `compressed_mean_tree` on every pod (p threads on the
     card), timed as one call by CUDA events.  Returns (means, residuals,
-    ms)."""
+    each pod's {leaf: the CompressedShard it sent}, ms)."""
     from repro_torch.compression import grads as G
     from repro_torch.core.axis import run_threads
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    a.record()
-    out = run_threads(GRAD_PODS, lambda ax: G.compressed_mean_tree(
-        g[ax.rank], r[ax.rank], cfg, ax, tp, device=DEV))
-    b.record()
-    b.synchronize()
-    return [o[0] for o in out], [o[1] for o in out], a.elapsed_time(b)
+    with sent_wires() as (sent, each_pod):
+        torch.cuda.synchronize()
+        a.record()
+        out = run_threads(GRAD_PODS, each_pod(
+            lambda ax: G.compressed_mean_tree(g[ax.rank], r[ax.rank], cfg,
+                                              ax, tp, device=DEV)))
+        b.record()
+        b.synchronize()
+    wires = [dict(zip(g[k], w)) for k, w in enumerate(sent)]
+    return ([o[0] for o in out], [o[1] for o in out], wires,
+            a.elapsed_time(b))
 
 
-def grad_check_step(label, cfg, g_in, means, resids) -> dict:
-    """Hold one step's results, leaf by leaf: every pod's mean bit-equal to
-    the plain result, every residual within eb in float64 (0 on the
-    lossless branch), each selector wire bit-equal to its chosen chain's
-    own wire, and `wire_bytes` equal to the measured transmitted bytes.
-    Returns the leaf facts (branch, chain ids, bytes moved, max
-    |residual|/eb, the largest wire_bytes error)."""
-    from repro_torch.compression import grads as G
+def grad_bytes_moved(shards, branch: str) -> float:
+    """The bytes one reduce of these pods' wires moves between pods: on
+    the ring each pod's word plane at each of the p - 1 hops; on the
+    gather each pod's own wire (`wire_bytes`) to each of the p - 1
+    others; on the lossless branch the float32 psum, counted as a
+    gather of every pod's values."""
+    p = len(shards)
+    if branch == "ring":
+        return float(p * (p - 1) * shards[0].enc.payload.numel() * 4)
+    if branch == "lossless":
+        return float(p * (p - 1) * shards[0].n * 4)
+    return float((p - 1) * sum(float(s.nbytes()) for s in shards))
+
+
+def grad_check_step(label, g_in, means, resids, wires) -> dict:
+    """Hold one step's results, leaf by leaf, on the wires the pods sent:
+    every pod's mean bit-equal to the plain result, every residual within
+    eb in float64 (0 on the lossless branch), each selector wire
+    bit-equal to its chosen chain's own wire, and `wire_bytes` equal to
+    the measured transmitted bytes.  Returns the leaf facts (branch,
+    chain ids, bytes moved, max |residual|/eb, the largest wire_bytes
+    error)."""
     from repro_torch.core.select import Selector
     from repro_torch.core.transport import TRANSPORT
     facts = {"branch": {}, "chain_ids": {}, "bytes_moved": 0.0,
@@ -1550,7 +1597,7 @@ def grad_check_step(label, cfg, g_in, means, resids) -> dict:
              "wire_bytes_max_rel_err": 0.0}
     for name, shape in GRAD_LEAVES:
         ins = [g[name] for g in g_in]
-        shards = [G.compress_shard(x, cfg, device=DEV)[0] for x in ins]
+        shards = [w[name] for w in wires]
         n = shards[0].n
         branch = grad_branch(shards, TRANSPORT)
         facts["branch"][name] = branch
@@ -1572,7 +1619,7 @@ def grad_check_step(label, cfg, g_in, means, resids) -> dict:
                                f"{name} exceeds eb ({worst} > {eb})")
             facts["max_resid_over_eb"] = max(facts["max_resid_over_eb"],
                                              worst / eb)
-            acct = G.CompressedShard(s.enc, s.pipe, n).nbytes()
+            acct = s.nbytes()
             err = wire_bytes_error(acct, measured_bytes(s.pipe, s.enc, n))
             tol = 0.0 if isinstance(acct, int) else GRAD_WIRE_TOL
             check(err <= tol, f"grads {label}: wire_bytes of {name} is off "
@@ -1591,8 +1638,7 @@ def grad_check_step(label, cfg, g_in, means, resids) -> dict:
                                    tuple(direct)),
                       f"grads {label}: the selector wire of {name} differs "
                       f"from its chosen chain's ({i}) own wire")
-        facts["bytes_moved"] += float(TRANSPORT.bytes_moved(
-            shards[0], op="reduce_mean", axis_size=GRAD_PODS))
+        facts["bytes_moved"] += grad_bytes_moved(shards, branch)
         facts["f32_bytes"] += TRANSPORT.bytes_moved(
             ins[0], op="all_gather", axis_size=GRAD_PODS)
         del shards, want
@@ -1614,15 +1660,15 @@ def grad_run(label: str, spec: str, pods) -> tuple:
         torch.cuda.synchronize()
         reset_launches()
         with plain_calls() as plain:
-            means, r, ms = grad_step(cfg, pods, r)
+            means, r, wires, ms = grad_step(cfg, pods, r)
         for k, v in launches().items():
             total[k] = total.get(k, 0) + v
         check(plain["calls"] == 0, f"grads {label}: the card's path called "
                                    "a plain quantizer or codec")
         step_ms.append(ms)
         peak = torch.cuda.max_memory_allocated() / 1e9
-        steps.append(grad_check_step(label, cfg, g_in, means, r))
-        del g_in, means
+        steps.append(grad_check_step(label, g_in, means, r, wires))
+        del g_in, means, wires
     info = steps[-1]
     n_total = sum(int(np.prod(s)) for _, s in GRAD_LEAVES)
     parts = grad_parts(cfg, pods[0]["w1"])
@@ -1655,7 +1701,7 @@ def grad_busy(cfg, pods, r) -> dict:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, ms = grad_step(cfg, pods, r)
+        ms = grad_step(cfg, pods, r)[3]
     busy = sum(e.time_range.elapsed_us() for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     return {"profiled_step_ms": ms, "device_busy_ms": busy or None,
@@ -1717,13 +1763,15 @@ def grad_pair_phase(seed: int) -> tuple:
 
     def timed(tp):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        torch.cuda.synchronize()
-        ev[0].record()
-        out = run_threads(GRAD_PODS, lambda ax: G.compressed_mean(
-            pair[ax.rank], cfg, ax, transport=tp, device=DEV))
-        ev[1].record()
-        ev[1].synchronize()
-        return out, ev[0].elapsed_time(ev[1])
+        with sent_wires() as (sent, each_pod):
+            torch.cuda.synchronize()
+            ev[0].record()
+            out = run_threads(GRAD_PODS, each_pod(
+                lambda ax: G.compressed_mean(pair[ax.rank], cfg, ax,
+                                             transport=tp, device=DEV)))
+            ev[1].record()
+            ev[1].synchronize()
+        return out, [w[0] for w in sent], ev[0].elapsed_time(ev[1])
 
     def checked(ax):
         s, _ = G.compress_shard(pair[ax.rank], cfg, integrity=True,
@@ -1745,15 +1793,14 @@ def grad_pair_phase(seed: int) -> tuple:
     torch.cuda.synchronize()
     reset_launches()
     with plain_calls() as plain:
-        ring, ring_ms = timed(TRANSPORT)
-        gathered, gather_ms = timed(gather)
+        ring, shards, ring_ms = timed(TRANSPORT)
+        gathered, _, gather_ms = timed(gather)
         chk = run_threads(GRAD_PODS, checked)
     counts = launches()
     check(plain["calls"] == 0, "grads ring: the card's path called a plain "
                                "quantizer or codec")
     for name in ("_quantize_abs", "_dequantize_abs", "_abs_unpack"):
         check(counts[name] > 0, f"grads ring: {name} not launched")
-    shards = [G.compress_shard(x, cfg, device=DEV)[0] for x in pair]
     branch = grad_branch(shards, TRANSPORT)
     check(branch == "ring", f"grads ring: the pair took the {branch} path")
     want = plain_mean(shards, pair, branch)
@@ -1790,10 +1837,8 @@ def grad_pair_phase(seed: int) -> tuple:
         "phase": "grads", "config": "ring-pair", "spec": cfg.pipe().spec(),
         "leaf": GRAD_RING_LEAF, "values_per_pod": n, "pods": GRAD_PODS,
         "branch": branch, "ring_ms": ring_ms, "gather_ms": gather_ms,
-        "bytes_moved_gather_bound": TRANSPORT.bytes_moved(
-            shards[0], op="reduce_mean", axis_size=GRAD_PODS),
-        "bytes_moved_ring": GRAD_PODS * (GRAD_PODS - 1)
-        * shards[0].enc.payload.numel() * 4,
+        "bytes_moved_gather": grad_bytes_moved(shards, "gather"),
+        "bytes_moved_ring": grad_bytes_moved(shards, "ring"),
         "max_resid_over_eb": worst,
         "n_valid": {what: [int(c[k][1]) for c in chk] for what, k in
                     (("clean_ring", 1), ("hop_bitflip", 2),

@@ -32,7 +32,6 @@ import torch
 
 from ..configs.registry import get_selector_set
 from ..core import codec as C
-from ..core.audit import shard_of
 from ..core import select as SEL
 from ..core.pipeline import (PackStage, Pipeline, QuantStage,
                              parse_pipeline, resolve_device)
@@ -43,7 +42,6 @@ class GradCompressionConfig(NamedTuple):
     eb_rel: float = 2.0 ** -8       # bound relative to the gradient's rms
     bin_bits: int = 8               # used when `pipeline` is empty
     outlier_cap_frac: float = 1 / 64
-    enabled: bool = True
     pipeline: str = ""              # a spec ("abs:1.0|pack:8|narrow"); its
     #                                 eb is a placeholder (the per-tensor
     #                                 bound overrides it) and a spec without
@@ -206,15 +204,12 @@ def compressed_mean(g, cfg: GradCompressionConfig, axis, *,
     if any_overflow:
         mean = axis.psum(flat) / p
     elif integrity == "drop":
-        # every shard is decoded and weighted by its verdict, summed from
-        # 0 in rank order, as the reference does
-        enc_all, ok = tp.all_gather(shard.enc, axis, verify="mask")
-        w = ok.to(torch.float32)
-        s = torch.zeros(n, dtype=torch.float32, device=dev)
-        for i in range(p):
-            s = s + shard.pipe.decode(shard_of(enc_all, i), n=n,
-                                      device=dev) * w[i]
-        mean = s / torch.clamp(w.sum(), min=1.0)
+        # the transport's checked gather (never the ring, as the
+        # reference's drop branch): failed shards add 0, the sum
+        # renormalizes by the count that verified
+        total, n_valid = tp._gather_sum_checked(shard.enc, shard.pipe, n,
+                                                axis)
+        mean = total / torch.clamp(n_valid, min=1).to(total.dtype)
     else:
         mean = tp.reduce_sum(shard.enc, shard.pipe, n, axis) / p
     # the residual: what this pod did not ship (outliers went exact; the

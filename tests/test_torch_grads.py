@@ -11,6 +11,7 @@ branch; `integrity='drop'`; error feedback over two steps; and the
 thread axis bit for bit.
 """
 import functools
+import os
 import pickle
 import subprocess
 import sys
@@ -350,7 +351,7 @@ def test_gloo_axis_agrees_with_the_thread_axis(tmp_path):
     (tmp_path / "res.in").write_bytes(pickle.dumps(cases))
     script = tmp_path / "gloo_ranks.py"
     script.write_text(GLOO_SCRIPT)
-    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
     procs = [subprocess.Popen([sys.executable, str(script), str(rank),
                                str(tmp_path / "store"), str(out)],
                               env=env, stdout=subprocess.PIPE,
@@ -383,3 +384,38 @@ def test_gloo_axis_agrees_with_the_thread_axis(tmp_path):
                     assert u == v
         assert dist_res[0][c][2] == (c == 0)       # the ring fired in case 0
         assert dist_res[0][c][4]                   # rank 0 verified rank 1's
+
+
+def test_chip_smoke_holds_the_wires_the_pods_sent():
+    """chip_smoke's `sent_wires` keeps each pod's wire as compressed_mean
+    sent it (the same planes as a fresh encode, and the wires the mean
+    decodes to), and `grad_bytes_moved` counts each pod's own wire on the
+    gather, the word planes on the ring."""
+    from test_torch_pipeline import _chip_script
+    cs = _chip_script("chip_smoke")
+    _, tc = cfgs("narrow-16")
+    xs = [torch.from_numpy(x) for x in grads(cs.GRAD_PODS, n=4096, seed=11)]
+    xs[1][:1024] = 0                 # one all-zero chunk: a shorter wire
+    real = TG.compress_shard
+    with cs.sent_wires() as (sent, each_pod):
+        means = run_threads(cs.GRAD_PODS, each_pod(
+            lambda ax: TG.compressed_mean(xs[ax.rank], tc, ax,
+                                          device="cpu")[0]))
+    shards = [w[0] for w in sent]
+    assert [len(w) for w in sent] == [1] * cs.GRAD_PODS
+    for x, s in zip(xs, shards):
+        fresh = TG.compress_shard(x, tc, device="cpu")[0]
+        for a, b in zip(s.enc, fresh.enc):
+            if isinstance(a, torch.Tensor):
+                assert_bits(a, b)
+    want = sum(s.pipe.decode(s.enc, n=s.n, device="cpu", kernels=False)
+               for s in shards) / cs.GRAD_PODS
+    for m in means:
+        assert_bits(m, want)
+    sizes = [float(s.nbytes()) for s in shards]
+    assert sizes[0] != sizes[1]          # narrow: each pod's own length
+    p = cs.GRAD_PODS
+    assert cs.grad_bytes_moved(shards, "gather") == (p - 1) * sum(sizes)
+    assert cs.grad_bytes_moved(shards, "ring") == (
+        p * (p - 1) * shards[0].enc.payload.numel() * 4)
+    assert TG.compress_shard is real                   # the wrap is undone
