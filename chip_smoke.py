@@ -97,6 +97,32 @@ timed over 10 calls in a row (a decode loop's view: the host's per-call
 time hides under the device's), and the attention kernels' launches per
 call from the trace.
 
+A `serve` phase drives serving at internlm2-20b's full width and depth
+(48 layers, 20.3G parameters in bf16 made on the card from the seed by
+`models.model.ModelBundle.init`): (a) 8 requests of seeded tokens for
+256 steps through `models.serve.serve_step` with the quantized cache
+(B12 over the closed pages, 2 launches a layer once a page has closed)
+and with the raw bf16 cache; every page a step closes held against the
+bf16 hot page it came from (0 values outside the page bound, a wrapper
+of `serve._quantize_page`), the quantized logits within 0.15 of the
+raw ones' max, the `PackedCache` wire for `kv-page`, `kv-page-narrow`,
+`kv-page-pred` and `auto` with checksums (B6 on pack, B7 on unpack),
+each round trip bit-exact and its `wire_bytes` within 2^-23 of the bytes
+counted from its planes, `transfer_cache` from rank 0 to rank 1 of a
+2-thread axis bit-exact, 16 more steps on the received cache bit-equal
+to 16 on the original, B12 with its (m, l) output within 2e-5 of its
+plain version on layer 0's real q and cache, no plain version run on the
+card (`plain_calls`); (b) `models.engine.DecodeEngine` with 2 slots over
+3 requests (prompts of 130, 17 and 140 tokens, 8 new tokens each, one
+evict -> insert), each slot's logits bit-identical to the batch-1
+`serve_step` path, and whether an aligned step of 2 or 4 rows keeps the
+batch-1 bits; (c) 4 requests at decode_32k's 32,768 tokens (its batch
+128 cut to 4), every layer's closed pages from `quantize_kv` of seeded
+K, V = N(0,1)*0.7, 5 steps from position 32,700: step time (CUDA events,
+median of 5), B12's and the GEMMs' device time a step (`torch.profiler`),
+the step's bytes bound, launches a step (96 of B12), peak memory.  The
+weights are freed before the `grads` phase.
+
 A `grads` phase drives the compressed gradient all-reduce
 (`compression.grads.compressed_mean_tree` -> `compress_shard` ->
 `core.transport.Transport.reduce_sum`) over the gradients of one
@@ -122,7 +148,8 @@ step, and on w1 the times of one compress_shard and one decode (and for
 `auto` its stats pass and every candidate's own wire bytes).
 
 Output: the card's name and power limit, one JSON line per chain, one
-JSON line per phase (dense, audit, code sweep, kv, grads), one JSON line
+JSON line per phase (dense, audit, code sweep, kv, serve a/b/c, grads),
+one JSON line
 {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.  On stderr: the build log and a summary of
 its `-Xptxas -v` lines for the pack kernel (registers, stack, spills of
@@ -559,19 +586,30 @@ def oracle_check(pipe, x, eb) -> None:
           f"oracle: outlier table of {pipe.spec()}")
 
 
+# the plain versions that a card path must not call: the packed codec with
+# its chunk coder, and the quantizers (the packed phases) or B12 (the serve
+# path, where quantize_kv is torch ops by design: B8 is not on it)
+CODEC_PLAIN_FNS = tuple(("core.codec", f) for f in (
+    "encode_packed", "decode_packed", "encode_words_lc",
+    "decode_words_lc")) + (("kernels.lossless", "_lc_select_plain"),
+                           ("kernels.lossless", "_lc_expand_plain"))
+PLAIN_FNS = tuple(("core.quantizer", f) for f in (
+    "quantize_abs", "quantize_rel", "quantize_noa", "dequantize_abs",
+    "dequantize_rel")) + CODEC_PLAIN_FNS
+SERVE_PLAIN_FNS = (("kernels.kv_attention", "_kv_decode_attention_plain"),
+                   *CODEC_PLAIN_FNS)
+
+
 @contextlib.contextmanager
-def plain_calls():
-    """Count the calls, with a CUDA tensor, of the plain quantizers and the
-    plain packed codec while the block runs (the card's paths take none)."""
-    from repro_torch.core import codec as C
-    from repro_torch.core import quantizer as Q
+def plain_calls(names=PLAIN_FNS):
+    """Count the calls, with a CUDA tensor, of the plain functions `names`
+    ((module under repro_torch, name) pairs) while the block runs (the
+    card's paths take none)."""
+    import importlib
     count = {"calls": 0}
     saved = []
-    for mod, name in ((Q, "quantize_abs"), (Q, "quantize_rel"),
-                      (Q, "quantize_noa"), (Q, "dequantize_abs"),
-                      (Q, "dequantize_rel"), (C, "encode_packed"),
-                      (C, "decode_packed"), (C, "encode_words_lc"),
-                      (C, "decode_words_lc")):
+    for path, name in names:
+        mod = importlib.import_module(f"repro_torch.{path}")
         fn = getattr(mod, name)
 
         def counted(*args, _fn=fn, **kw):
@@ -1214,11 +1252,12 @@ def with_page_outliers(qkv, page: int, seed: int):
     return qkv._replace(bins=bins, out_idx=idx, out_val=val)
 
 
-def device_kernels(fn, reps: int = 20):
+def device_kernels(fn, reps: int = 20, per_kernel: dict | None = None):
     """(kernels launched per call, {kernel: device ms per call}) of fn, from
     torch.profiler's trace of the card over `reps` calls after one warm-up
     call; (None, {}) when the trace holds no kernel (no card, or no
-    device tracing)."""
+    device tracing).  `per_kernel`, if given, gets {kernel: launches per
+    call}."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1236,6 +1275,8 @@ def device_kernels(fn, reps: int = 20):
         key = short.group(1) if short else e.name
         n += 1
         ms[key] = ms.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+        if per_kernel is not None:
+            per_kernel[key] = per_kernel.get(key, 0.0) + 1 / reps
     return (n / reps if n else None), ms
 
 
@@ -1933,6 +1974,633 @@ def grads_phase(seed: int) -> list:
     return rows
 
 
+# the serve phase: internlm2-20b at full width and depth
+# (src/repro/configs/registry.py:22-25), random weights from the seed, the
+# decode step of src/repro/models/serve.py:240 over the quantized and the
+# raw cache, the PackedCache wire (serve.py:93-125) and the DecodeEngine
+# (src/repro/models/engine.py:99); (c) at decode_32k's context
+# (src/repro/configs/base.py:159) with its batch cut from 128 to 4
+SERVE_ARCH = "internlm2-20b"
+SERVE_B, SERVE_SEQ, SERVE_STEPS, SERVE_MORE = 8, 512, 256, 16
+SERVE_CHAINS = ("kv-page", "kv-page-narrow", "kv-page-pred", "auto")
+SERVE_QUANT_TOL = 0.15         # tests/test_models_smoke.py:115
+SERVE_PROMPTS = (130, 17, 140)
+SERVE_NEW = 8
+SERVE_BATCHED_ROWS, SERVE_BATCHED_STEPS = (2, 4), 3
+LONG_B, LONG_SEQ, LONG_POS, LONG_STEPS = 4, 32_768, 32_700, 5
+B12_QUERIES = 4               # layer 0's queries B12 is held on, per part
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+
+
+@contextlib.contextmanager
+def closed_pages():
+    """Wrap `models.serve._quantize_page` for the block: keep every page a
+    step closes (the layer's planes, written in place, and a copy of the
+    bfloat16 hot page it was made from; the copy is the wrapper's only
+    work on the card).  Yields the list that `page_bound_tally` reads
+    after the block."""
+    from repro_torch.models import serve as S
+    real, kept = S._quantize_page, []
+
+    def wrapped(qkv, hot, page_idx, kv_cfg):
+        out = real(qkv, hot, page_idx, kv_cfg)
+        kept.append((out, hot.clone(), page_idx, kv_cfg))
+        return out
+
+    S._quantize_page = wrapped
+    try:
+        yield kept
+    finally:
+        S._quantize_page = real
+
+
+def page_bound_tally(kept) -> dict:
+    """Each kept page held against the hot page it was made from:
+    {"pages", "violations", "overflow"}, where violations count the values
+    of non-overflowed pages outside eb_rel * max|page| (finite values
+    only)."""
+    from repro_torch.compression import kv as KV
+    tally = {"pages": 0, "violations": 0, "overflow": 0}
+    for out, hot, page_idx, kv_cfg in kept:
+        b, page, g, hd = hot.shape
+        x = hot.permute(0, 2, 1, 3).to(torch.float32)       # [B, G, P, hd]
+        sl = slice(page_idx * page, (page_idx + 1) * page)
+        one = slice(page_idx, page_idx + 1)
+        got = KV.QuantizedKV(out.bins[:, :, sl], out.eb2[:, :, one],
+                             out.out_idx[:, :, one], out.out_val[:, :, one],
+                             out.overflow[:, :, one])
+        y = KV.dequantize_kv(got, page=page)
+        xf = x.reshape(b, g, -1)
+        finite = torch.isfinite(xf)
+        amax = torch.where(finite, xf, torch.zeros_like(xf)).abs().amax(-1)
+        eb = kv_cfg.error_bound * amax
+        bad = finite & ((xf - y.reshape(b, g, -1)).abs() > eb[..., None])
+        bad &= ~got.overflow.reshape(b, g, 1)
+        tally["pages"] += b * g
+        tally["violations"] += int(bad.sum())
+        tally["overflow"] += int(got.overflow.sum())
+    return tally
+
+
+@contextlib.contextmanager
+def first_call_args(mod, name: str):
+    """Keep the arguments of the first call of mod.name with a tensor on
+    DEV while the block runs (the main path's inputs of a kernel
+    wrapper)."""
+    real, kept = getattr(mod, name), []
+
+    def wrapped(*args, **kw):
+        if not kept and any(torch.is_tensor(a) and a.device.type == DEV
+                            for a in args):
+            kept.append(args)
+        return real(*args, **kw)
+
+    setattr(mod, name, wrapped)
+    try:
+        yield kept
+    finally:
+        setattr(mod, name, real)
+
+
+def kv_wire_measured_bytes(p) -> float:
+    """The bytes a PackedKV transmits, counted from its planes on the host:
+    per page its transmitted payload words (all of them for a stage-free
+    chain), each stage's header content words (the chosen fragment's for a
+    selected wire), the 4-byte length of a length-variable chain (and the
+    1-byte chain id of a selected one), eb2, the cap outlier (idx, val)
+    slots and the 1-byte overflow flag; plus the 4-byte checksum."""
+    from repro_torch.core import codec as C
+    n_pages = p.payload_len.numel()
+    wpp = p.payload.shape[-1]
+    cap = p.out_idx.shape[-1]
+    per_page = 4 + 8 * cap + 1
+    words = int(p.payload_len.to(torch.int64).sum())
+
+    def hdr_words(stages) -> int:
+        return sum(C.lc_header_content_words(C.lc_chunk_count(wpp))
+                   for _ in stages)
+
+    if p.select is not None:
+        per_id = torch.tensor([hdr_words(w) for _, w in p.select.chains])
+        ids = p.chain_id.reshape(-1).cpu().to(torch.int64)
+        hdr = int(per_id[ids].sum())
+        total = n_pages * (per_page + 4 + 1) + 4 * (words + hdr)
+    elif p.stages:
+        total = n_pages * (per_page + 4 + 4 * hdr_words(p.stages)) + 4 * words
+    else:
+        total = n_pages * per_page + 4 * p.payload.numel()
+    return float(total + (4 if p.checksum is not None else 0))
+
+
+def cache_planes(c):
+    return (*c.k, *c.v, c.hot_k, c.hot_v)
+
+
+def caches_equal(a, b) -> bool:
+    return all(planes_equal(x, y) for x, y in zip(cache_planes(a),
+                                                  cache_planes(b)))
+
+
+def serve_steps(step, cache, toks, pos0: int):
+    """Run len(toks) decode steps from pos0, each timed by CUDA events (the
+    host's enqueue included).  Returns (logits per step, ms per step)."""
+    out, evs = [], []
+    for i, t in enumerate(toks):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, cache = step(cache, t, pos0 + i)
+        b.record()
+        out.append(logits)
+        evs.append((a, b))
+    torch.cuda.synchronize()
+    return out, [a.elapsed_time(b) for a, b in evs]
+
+
+def step_bytes(params, lengths, b: int, hg: int, s: int, n_layers: int):
+    """Least bytes of one decode step: every weight read once, every layer's
+    closed pages that hold a token < lengths (`kv_work`), the hot pages."""
+    w = sum(t.numel() * t.element_size() for t in
+            (params["emb"], params["final_norm"],
+             *params["layers"].values()))
+    kv = n_layers * kv_work(lengths, b, hg, s)[0]
+    return w + kv
+
+
+def b12_outputs_agree(got, want) -> dict:
+    """B12's (out, m, l) against its plain version's, output by output:
+    the largest |difference|, the |plain value| where it falls, and the
+    share of the allclose limit (KV_TOL + KV_TOL * |plain|) it uses, the
+    largest over the elements."""
+    res = {}
+    for name, a, w in zip(("out", "m", "l"), got, want):
+        d = (a.double() - w.double()).abs()
+        used = d / (KV_TOL + KV_TOL * w.double().abs())
+        i = int(torch.argmax(torch.nan_to_num(d, nan=float("inf"))))
+        res[name] = {"max_abs_err": float(d.reshape(-1)[i]),
+                     "at_abs_value": float(w.reshape(-1)[i].abs()),
+                     "tolerance_used": float(torch.nan_to_num(
+                         used, nan=float("inf")).max())}
+    return res
+
+
+def b12_row(label, qs, kq, vq, lengths, s: int, launches_: int) -> dict:
+    """B12 at a serve call's shapes: the kernel with its (m, l) against its
+    plain version for each query in qs (the first one is timed), timed
+    beside the plain version and one scaled_dot_product_attention call
+    over the dequantized cache."""
+    import torch.nn.functional as F
+    from repro_torch.compression import kv as KV
+    from repro_torch.kernels import kv_attention as A
+    name = "_kv_decode_attention"
+    q = qs[0]
+    b = q.shape[0]
+
+    def kern(q=q):
+        return A.kv_decode_attention(q, kq, vq, lengths, page=KV_PAGE,
+                                     cap=KV_CAP, return_stats=True)
+
+    def plain(q=q):
+        return A._kv_decode_attention_plain(q, kq, vq, lengths, page=KV_PAGE,
+                                            return_stats=True)
+
+    close, err, per_q = True, 0.0, []
+    for qi in qs:
+        got, want = kern(qi), plain(qi)
+        close &= all(bool(torch.allclose(a, w, rtol=KV_TOL, atol=KV_TOL))
+                     for a, w in zip(got, want))
+        err = max(err, *(max_abs_err(a, w) for a, w in zip(got, want)))
+        per_q.append(b12_outputs_agree(got, want))
+    check(close, f"serve: {name} ({label}) differs from its plain version "
+                 f"by {err}")
+    used = max(o["tolerance_used"] for r in per_q for o in r.values())
+    kd, vd = (KV.dequantize_kv(t, page=KV_PAGE) for t in (kq, vq))
+    mask = (torch.arange(s, device=DEV)[None, :] < lengths[:, None].long())
+    mask = mask[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask)
+
+    ms, lib_ms = time_ms(kern), time_ms(library)
+    per_call, dev_ms = device_kernels(kern)
+    del kd, vd
+    plain_ms = time_ms(plain, reps=3, warm=1)
+    n_bytes, ops = kv_work(lengths, b, q.shape[2], s)
+    bound_ms, bound_by = bound_from(n_bytes, ops)
+    return {"name": name, "route": "cuda", "source": CSRC + KERNELS[name][0],
+            "replaces": KERNELS[name][1], "chain": f"serve-{label}",
+            "caller": "models.serve._attn_history",
+            "stage": f"B={b} G={q.shape[1]} Hg={q.shape[2]} D={q.shape[3]} "
+                     f"S={s} lengths={int(lengths[0])}",
+            "bits": 8, "launches": launches_, "launches_per_call": per_call,
+            "max_abs_err": err, "tolerance": KV_TOL, "match": close,
+            "queries": len(qs), "tolerance_used": used,
+            "outputs_by_query": per_q,
+            "ms": ms, "device_ms": sum(dev_ms.values()) or None,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share": bound_ms / ms, "library_ms": lib_ms,
+            "library": "scaled_dot_product_attention over the dequantized "
+                       "float32 cache (dequantization not included)"}
+
+
+def layer0_queries(cfg, params, toks, pos: int, gen) -> list:
+    """Layer 0's real queries at `pos`: for the tokens toks [B, 1] and for
+    B12_QUERIES - 1 more seeded draws of tokens, each float32
+    [B, G, Hg, D]."""
+    from repro_torch.models import serve as S
+    lp0 = {k: v[0] for k, v in params["layers"].items()}
+    b = toks.shape[0]
+    draws = [toks] + [torch.randint(0, cfg.vocab, toks.shape, generator=gen,
+                                    device=DEV, dtype=toks.dtype)
+                      for _ in range(B12_QUERIES - 1)]
+    out = []
+    for t in draws:
+        x = params["emb"][t].to(torch.bfloat16)
+        q, _, _ = S._project_token(cfg, lp0, x, pos)
+        out.append(q.to(torch.float32).reshape(
+            b, cfg.n_kv_heads, cfg.group_size, cfg.head_dim).contiguous())
+    return out
+
+
+def lc_rows(select_args, expand_args, counts) -> list:
+    """B6 and B7 on the inputs pack_kv and unpack_kv gave them in the serve
+    phase, held bit for bit against their plain versions."""
+    from repro_torch.core import codec as C
+    from repro_torch.kernels import lossless as L
+    rows = []
+    words, mode = select_args
+    n = words.shape[0]
+    sel, codes = L.lc_select(words, mode)
+    hist = [int(v) for v in torch.bincount(codes.long(), minlength=4).cpu()]
+    rows.append(kernel_row("_lc_select", "serve", "pack_kv", 8, n, hist,
+                           lambda: L.lc_select(words, mode),
+                           lambda: L._lc_select_plain(words, mode),
+                           counts["_lc_select"]))
+    padded, codes, n_words = expand_args
+    hist = [int(v) for v in torch.bincount(codes.long(), minlength=4).cpu()]
+    rows.append(kernel_row("_lc_expand", "serve", "unpack_kv", 8, n_words,
+                           hist, lambda: L.lc_expand(padded, codes, n_words),
+                           lambda: L._lc_expand_plain(padded, codes, n_words),
+                           counts["_lc_expand"]))
+    for r in rows:
+        r["caller"] = ("compression.kv.pack_kv" if r["name"] == "_lc_select"
+                       else "compression.kv.unpack_kv")
+    return rows
+
+
+def serve_aligned(cfg, params, seed: int) -> tuple:
+    """(a): SERVE_B requests of seeded tokens for SERVE_STEPS steps through
+    serve_step with the quantized and the raw cache; the wire for every
+    chain in SERVE_CHAINS; the transfer between two thread ranks; 16 more
+    steps on the received cache.  Returns (line, kernel rows, counts)."""
+    from repro_torch.compression import kv as KV
+    from repro_torch.configs.registry import get_kv_chain
+    from repro_torch.core.axis import run_threads
+    from repro_torch.core.transport import wire_bytes
+    from repro_torch.kernels import lossless as L
+    from repro_torch.models import serve as S
+    kv_cfg = KV.kv_quantizer_config()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 20)
+    n_all = SERVE_STEPS + SERVE_MORE
+    toks = torch.randint(0, cfg.vocab, (n_all, SERVE_B, 1), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    qcache = S.make_quant_cache(cfg, SERVE_B, SERVE_SEQ, device=DEV)
+    rcache = S.make_raw_cache(cfg, SERVE_B, SERVE_SEQ, device=DEV)
+
+    def qstep(c, t, pos):
+        return S.serve_step(cfg, params, c, t, pos, None, kv_cfg)
+
+    def rstep(c, t, pos):
+        return S.serve_step(cfg, params, c, t, pos, None, None)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    with closed_pages() as kept, plain_calls(SERVE_PLAIN_FNS) as plain:
+        q_logits, q_ms = serve_steps(qstep, qcache, toks[:SERVE_STEPS], 0)
+        counts = launches()
+        r_logits, r_ms = serve_steps(rstep, rcache, toks[:SERVE_STEPS], 0)
+        reset_launches()
+        with first_call_args(L, "lc_select") as sel_args:
+            wires = {c: S.pack_cache(qcache, stages=get_kv_chain(c),
+                                     integrity=True) for c in SERVE_CHAINS}
+        with first_call_args(L, "lc_expand") as exp_args:
+            backs = {c: S.unpack_cache(w, verify=True)
+                     for c, w in wires.items()}
+        lc_counts = launches()
+    pages = page_bound_tally(kept)
+    del kept
+    b12 = "_kv_decode_attention"
+    # a B12 call is two kernel launches (split + merge), counted once
+    check(counts[b12] == cfg.n_layers * (SERVE_STEPS - KV_PAGE),
+          f"serve: {counts[b12]} B12 calls in (a), want "
+          f"{cfg.n_layers * (SERVE_STEPS - KV_PAGE)}")
+    check(pages["pages"] == 2 * 2 * cfg.n_layers * SERVE_B * cfg.n_kv_heads,
+          f"serve: {pages['pages']} pages closed")
+    check(pages["violations"] == 0,
+          f"serve: {pages['violations']} values outside their page bound")
+    check(plain["calls"] == 0, f"serve: {plain['calls']} plain calls")
+    for c in SERVE_CHAINS:
+        check(caches_equal(backs[c], qcache), f"serve: {c} round trip")
+    rel = [float((lq - lr).abs().max() / lr.abs().max())
+           for lq, lr in zip(q_logits, r_logits)]
+    finite = all(bool(torch.isfinite(t).all()) for t in q_logits + r_logits)
+    check(finite, "serve: a logit is not finite")
+    check(max(rel) < SERVE_QUANT_TOL,
+          f"serve: quantized logits {max(rel)} of max|raw| from the raw ones")
+    acct = {c: float(wire_bytes(w)) for c, w in wires.items()}
+    measured = {c: sum(kv_wire_measured_bytes(p) for p in (w.k, w.v))
+                + 2 * w.hot_k.numel() * w.hot_k.element_size()
+                for c, w in wires.items()}
+    acct_err = {c: wire_bytes_error(acct[c], measured[c])
+                for c in SERVE_CHAINS}
+    for c in SERVE_CHAINS:
+        check(acct_err[c] <= GRAD_WIRE_TOL,
+              f"serve: {c} wire_bytes {acct[c]} against {measured[c]} "
+              f"counted from its planes")
+    raw_bytes = 2 * rcache.k.numel() * rcache.k.element_size()
+    del r_logits, backs, rcache
+
+    def rank(ax):
+        mine = qcache if ax.rank == 0 else S.make_quant_cache(
+            cfg, SERVE_B, SERVE_SEQ, device=DEV)
+        return S.transfer_cache(mine, 0, 1, ax, stages=get_kv_chain("auto"))
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    moved = run_threads(2, rank)[1]
+    torch.cuda.synchronize()
+    transfer_s = time.time() - t0
+    check(caches_equal(moved, qcache), "serve: transfer_cache is not exact")
+    more = toks[SERVE_STEPS:]
+    la, _ = serve_steps(qstep, qcache, more, SERVE_STEPS)
+    lb, _ = serve_steps(qstep, moved, more, SERVE_STEPS)
+    after = all(planes_equal(a, b) for a, b in zip(la, lb))
+    check(after, "serve: steps on the received cache differ")
+    pos = [n_all]
+
+    def one():
+        qstep(qcache, toks[-1], pos[0])
+        pos[0] += 1
+
+    traced_a = {}
+    kernels_a, dev_a = device_kernels(one, reps=2, per_kernel=traced_a)
+
+    # B12 on layer 0's real q and cache (the next token's projection)
+    b, hg = SERVE_B, cfg.group_size
+    qs = layer0_queries(cfg, params, toks[-1], pos[0], gen)
+    kq0 = KV.QuantizedKV(*(t[0] for t in qcache.k))
+    vq0 = KV.QuantizedKV(*(t[0] for t in qcache.v))
+    lens = torch.full((b,), pos[0] - pos[0] % KV_PAGE, dtype=torch.int32,
+                      device=DEV)
+    row_b12 = b12_row("a", qs, kq0, vq0, lens, SERVE_SEQ, counts[b12])
+    rows = [row_b12] + lc_rows(sel_args[0][:2], exp_args[0][:3], lc_counts)
+    hist_ms = statistics.median(q_ms[KV_PAGE:])
+    line = {
+        "phase": "serve", "part": "a", "arch": SERVE_ARCH,
+        "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "batch": SERVE_B, "seq": SERVE_SEQ, "steps": SERVE_STEPS,
+        "step_ms_no_history": statistics.median(q_ms[:KV_PAGE]),
+        "step_ms_with_history": hist_ms,
+        "step_ms_page_close": [q_ms[KV_PAGE - 1], q_ms[SERVE_STEPS - 1]],
+        "raw_step_ms": statistics.median(r_ms[KV_PAGE:]),
+        "device_ms_per_step": sum(dev_a.values()) or None,
+        "b12_device_ms_per_step": sum(
+            v for k, v in dev_a.items() if k.startswith("kv_")) or None,
+        "kernels_per_step": kernels_a,
+        "step_bound_ms": bound_from(step_bytes(
+            params, lens, b, hg, SERVE_SEQ, cfg.n_layers),
+            2 * sum(t.numel() for t in params["layers"].values()) * b)[0],
+        "pages_closed": pages["pages"], "bound_violations":
+            pages["violations"], "overflow_pages": pages["overflow"],
+        "quant_vs_raw_max": max(rel), "quant_vs_raw_last": rel[-1],
+        "tolerance": SERVE_QUANT_TOL,
+        "b12_calls": counts[b12],
+        # the wrapper's count of calls; each call launches the split and
+        # the merge kernel (csrc/kv_attention.cu's C API)
+        "b12_calls_per_step_with_history":
+            counts[b12] / (SERVE_STEPS - KV_PAGE),
+        "b12_kernel_launches_per_step_traced": sum(
+            v for k, v in traced_a.items() if k.startswith("kv_")) or None,
+        "wire_bytes": acct, "wire_bytes_counted": measured,
+        "wire_bytes_rel_err": acct_err, "raw_cache_bytes": raw_bytes,
+        "round_trips_exact": True, "transfer_s": transfer_s,
+        "steps_after_transfer_bit_equal": after,
+        "b12_max_abs_err": row_b12["max_abs_err"],
+        "plain_calls": plain["calls"], "launches": counts}
+    del wires, moved, qcache
+    return line, rows
+
+
+def serve_engine(cfg, params, seed: int) -> dict:
+    """(b): DecodeEngine with 2 slots over 3 requests (one evict -> insert);
+    each request's tokens and logits against the sequential batch-1
+    serve_step path; then whether one aligned batched step of 2 rows keeps
+    the batch-1 bits (the evidence for the engine's design)."""
+    from repro_torch.compression import kv as KV
+    from repro_torch.configs.registry import get_kv_chain
+    from repro_torch.models import engine as E
+    from repro_torch.models import serve as S
+    gen = torch.Generator(device=DEV).manual_seed(seed + 21)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen, device=DEV,
+                             dtype=torch.int32) for n in SERVE_PROMPTS]
+    eng = E.DecodeEngine(cfg, params, n_slots=2, seq=SERVE_SEQ,
+                         stages=get_kv_chain("kv-page"), integrity="raise",
+                         device=DEV)
+    got = {r: [] for r in range(len(prompts))}
+    t0 = time.time()
+    pres = {r: eng.prefill(p) for r, p in enumerate(prompts)}
+    for r in (0, 1):
+        eng.insert(eng.allocate(), pres[r], request=r)
+        got[r].append(pres[r].logits[0])
+    evicted = False
+    pending = [2]
+    steps = 0
+    while any(r is not None for r in eng.requests):
+        logits, _ = eng.generate_step()
+        steps += 1
+        for slot, r in enumerate(list(eng.requests)):
+            if r is None:
+                continue
+            got[r].append(logits[slot].clone())
+            if len(got[r]) == SERVE_NEW:
+                eng.release(slot)
+                if pending:
+                    r2 = pending.pop()
+                    eng.insert(slot, pres[r2], request=r2)
+                    got[r2].append(pres[r2].logits[0])
+        if steps == 3 and not evicted:
+            slot = eng.requests.index(1)
+            pre = eng.evict(slot)
+            check(eng.insert(slot, pre, request=1), "serve: re-insert")
+            evicted = True
+    torch.cuda.synchronize()
+    engine_s = time.time() - t0
+    same = True
+    for r, p in enumerate(prompts):
+        cache = S.make_quant_cache(cfg, 1, SERVE_SEQ, device=DEV)
+        for i in range(p.shape[0]):
+            logits, cache = eng.step_one(cache, p[i].reshape(1, 1), i)
+        want = [logits[0]]
+        for k in range(SERVE_NEW - 1):
+            tok = torch.argmax(logits, -1).to(torch.int32).reshape(1, 1)
+            logits, cache = eng.step_one(cache, tok, p.shape[0] + k)
+            want.append(logits[0])
+        same &= all(planes_equal(a, b) for a, b in zip(got[r], want))
+    check(same, "serve: an engine slot's logits differ from batch-1")
+    # aligned steps of n rows against n batch-1 steps: does one batched
+    # step keep the batch-1 bits?
+    kv_cfg = KV.kv_quantizer_config()
+    batched = {}
+    for n in SERVE_BATCHED_ROWS:
+        toks = torch.randint(0, cfg.vocab, (SERVE_BATCHED_STEPS, n, 1),
+                             generator=gen, device=DEV, dtype=torch.int32)
+        cb = S.make_quant_cache(cfg, n, SERVE_SEQ, device=DEV)
+        c1 = [S.make_quant_cache(cfg, 1, SERVE_SEQ, device=DEV)
+              for _ in range(n)]
+        first = None
+        for pos in range(SERVE_BATCHED_STEPS):
+            lb, _ = S.serve_step(cfg, params, cb, toks[pos], pos, None,
+                                 kv_cfg)
+            for s in range(n):
+                l1, _ = S.serve_step(cfg, params, c1[s], toks[pos, s:s + 1],
+                                     pos, None, kv_cfg)
+                diff = l1[0].view(torch.int32) != lb[s].view(torch.int32)
+                if first is None and bool(diff.any()):
+                    i = int(diff.nonzero()[0])
+                    first = {"pos": pos, "slot": s, "index": i,
+                             "batch1": float(l1[0, i]),
+                             "batched": float(lb[s, i]),
+                             "n_differ": int(diff.sum())}
+        batched[n] = {"bit_identical": first is None,
+                      "first_differing_logit": first}
+        del cb, c1
+    st = eng.stats()
+    return {"phase": "serve", "part": "b", "slots": 2,
+            "prompts": list(SERVE_PROMPTS), "new_tokens": SERVE_NEW,
+            "engine_s": engine_s, "generate_steps": steps,
+            "slots_bit_identical_to_batch1": same,
+            "aligned_steps_vs_batch1": batched,
+            "wire_bytes": st["wire_bytes"], "sends": st["sends"],
+            "evictions": st["evictions"],
+            "audit_checks": st["audit_checks"]}
+
+
+def serve_long(cfg, params, seed: int) -> tuple:
+    """(c): LONG_B requests at LONG_SEQ with every layer's closed pages from
+    quantize_kv of seeded K, V = N(0,1)*0.7 and a hot page of LONG_POS %
+    page tokens; LONG_STEPS steps from LONG_POS.  Returns (line, row)."""
+    from repro_torch.compression import kv as KV
+    from repro_torch.models import serve as S
+    kv_cfg = KV.kv_quantizer_config()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 22)
+    cache = S.make_quant_cache(cfg, LONG_B, LONG_SEQ, device=DEV)
+    g, d = cfg.n_kv_heads, cfg.head_dim
+    t0 = time.time()
+    for layer in range(cfg.n_layers):
+        for qkv in (cache.k, cache.v):
+            x = torch.randn((LONG_B, g, LONG_SEQ, d), generator=gen,
+                            device=DEV) * 0.7
+            qq = KV.quantize_kv(x, kv_cfg, page=KV_PAGE, cap=KV_CAP)
+            for dst, src in zip(qkv, qq):
+                dst[layer].copy_(src)
+            del x, qq
+    in_page = LONG_POS % KV_PAGE
+    for hot in (cache.hot_k, cache.hot_v):
+        hot[:, :, :in_page] = (torch.randn(hot[:, :, :in_page].shape,
+                                           generator=gen, device=DEV)
+                               * 0.7).to(hot.dtype)
+    torch.cuda.synchronize()
+    fill_s = time.time() - t0
+    toks = torch.randint(0, cfg.vocab, (LONG_STEPS + 3, LONG_B, 1),
+                         generator=gen, device=DEV, dtype=torch.int32)
+
+    def qstep(c, t, pos):
+        return S.serve_step(cfg, params, c, t, pos, None, kv_cfg)
+
+    b12 = "_kv_decode_attention"
+    reset_launches()
+    logits, ms = serve_steps(qstep, cache, toks[:LONG_STEPS], LONG_POS)
+    counts = launches()
+    finite = all(bool(torch.isfinite(t).all()) for t in logits)
+    check(finite, "serve (c): a logit is not finite")
+    per_step = counts[b12] / LONG_STEPS      # calls: split + merge each
+    check(per_step == cfg.n_layers,
+          f"serve (c): {per_step} B12 calls per step")
+    pos = [LONG_POS + LONG_STEPS]
+
+    def one():
+        i = pos[0] - LONG_POS - LONG_STEPS
+        qstep(cache, toks[LONG_STEPS + i], pos[0])
+        pos[0] += 1
+
+    traced = {}
+    n_launch, dev_ms = device_kernels(one, reps=2, per_kernel=traced)
+    b12_dev = sum(v for k, v in dev_ms.items() if k.startswith("kv_"))
+    gemm_dev = sum(v for k, v in dev_ms.items()
+                   if re.search(r"gemm|gemv|nvjet|sm90|cutlass|splitK", k, re.I))
+    lens = torch.full((LONG_B,), LONG_POS - in_page, dtype=torch.int32,
+                      device=DEV)
+    n_bytes = step_bytes(params, lens, LONG_B, cfg.group_size, LONG_SEQ,
+                         cfg.n_layers)
+    ops = 2 * sum(t.numel() for t in params["layers"].values()) * LONG_B
+    bound_ms = max(n_bytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+    # B12 alone on layer 0's cache at these lengths
+    qs = layer0_queries(cfg, params, toks[-1], pos[0], gen)
+    row = b12_row("c", qs, KV.QuantizedKV(*(t[0] for t in cache.k)),
+                  KV.QuantizedKV(*(t[0] for t in cache.v)), lens, LONG_SEQ,
+                  counts[b12])
+    step_ms = statistics.median(ms)
+    line = {"phase": "serve", "part": "c", "batch": LONG_B,
+            "seq": LONG_SEQ, "pos": LONG_POS, "steps": LONG_STEPS,
+            "fill_s": fill_s, "step_ms": step_ms, "step_ms_all": ms,
+            "step_bound_ms": bound_ms, "step_bytes": n_bytes,
+            "share": bound_ms / step_ms,
+            "device_ms_per_step": sum(dev_ms.values()) or None,
+            "b12_device_ms_per_step": b12_dev or None,
+            "gemm_device_ms_per_step": gemm_dev or None,
+            "b12_share_of_step": (b12_dev / step_ms) if b12_dev else None,
+            "kernels_per_step": n_launch,
+            "b12_calls_per_step": per_step,
+            "b12_kernel_launches_per_step_traced": sum(
+                v for k, v in traced.items() if k.startswith("kv_")) or None,
+            "device_ms_by_kernel": dev_ms,
+            "logits_finite": finite,
+            "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+    del cache
+    return line, row
+
+
+def serve_phase(seed: int) -> list:
+    """internlm2-20b at full width and depth, made on the card from the
+    seed: (a) the aligned batch, (b) the engine, (c) the long context.
+    Frees the weights before it returns the kernel rows."""
+    from repro_torch.configs.registry import get
+    from repro_torch.models import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get(SERVE_ARCH)
+    bundle = build(cfg)
+    t0 = time.time()
+    params = bundle.init(torch.Generator(device=DEV).manual_seed(seed + 19),
+                         device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = bundle.n_params()
+    check(n_params == sum(t.numel() for t in
+                          (params["emb"], params["final_norm"],
+                           *params["layers"].values())),
+          "serve: parameter count")
+    line_a, rows = serve_aligned(cfg, params, seed)
+    line_a.update(n_params=n_params, init_s=init_s)
+    print(json.dumps(line_a), flush=True)
+    print(json.dumps(serve_engine(cfg, params, seed)), flush=True)
+    line_c, row_c = serve_long(cfg, params, seed)
+    print(json.dumps(line_c), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return rows + [row_c]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=N_DEFAULT,
@@ -1994,6 +2662,7 @@ def main(argv=None) -> int:
                       k_row0.reshape(-1), rms_eb(k_row0),
                       shape=(g * s // KV_PAGE, KV_PAGE, d))
     del k_row0
+    rows += serve_phase(args.seed)
     rows += grads_phase(args.seed)
     check(set(KERNELS) <= {r["name"] for r in rows},
           "a kernel has no main-path row")

@@ -9,6 +9,9 @@ of the grammar: `delta`/`lorenzo`/`kvdelta` predictors, the
 checksums, `core.audit`, and its fault harness `runtime.guard`),
 `repro_torch.kernels.ops` (the dense-layout quantize/dequantize),
 `repro_torch.compression.kv` with `repro_torch.kernels.kv_attention` (the
-int8 quantized KV cache and its flash-decode attention).  Every kernel is
-hand-written CUDA C++ in `kernels/csrc/`.
+int8 quantized KV cache, its packed wire and its flash-decode attention),
+`repro_torch.compression.grads` (the compressed gradient all-reduce over
+`core.transport`), and `repro_torch.models` (the dense and vlm decode
+step over a raw or quantized cache, and the `DecodeEngine`).  Every
+kernel is hand-written CUDA C++ in `kernels/csrc/`.
 """

@@ -1,2 +1,3 @@
-"""The port's compression layer (counterpart of `repro.compression`): so
-far the dense half of the KV-cache quantizer, `compression.kv`."""
+"""The port's compression layer (counterpart of `repro.compression`): the
+KV-cache quantizer and its packed wire (`compression.kv`) and the
+compressed gradient all-reduce (`compression.grads`)."""

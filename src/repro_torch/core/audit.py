@@ -22,10 +22,10 @@ a halving tree (torch has no xor reduction).  Every digest is an int32 0-d
 tensor holding the uint32 bits, computed on the wire's device.
 
 Dispatch over wire types is duck-typed, so this module imports none of the
-container modules: `Encoded` (`core.pipeline`) and `SelectedWire`
-(`core.select`) are covered; the `PackedKV` branch comes with the packed
-KV wire (ROADMAP A12).  `verify_gathered` gives per-shard verdicts over a
-wire gathered by `core.transport.Transport.all_gather`.
+container modules: `Encoded` (`core.pipeline`), `SelectedWire`
+(`core.select`) and `PackedKV` (`compression.kv`) are covered.
+`verify_gathered` gives per-shard verdicts over a wire gathered by
+`core.transport.Transport.all_gather`.
 """
 from __future__ import annotations
 
@@ -110,9 +110,12 @@ def _planes(wire) -> list:
     """The covered planes of a wire container, in a fixed order (the
     reference's).  Duck-typed: `eb2` -> PackedKV, `chain_id` ->
     `core.select.SelectedWire`, `headers` -> `core.pipeline.Encoded`."""
-    if hasattr(wire, "eb2"):
-        from .pipeline import not_ported
-        raise not_ported("the PackedKV wire", "ROADMAP A12")
+    if hasattr(wire, "eb2"):                              # compression.kv.PackedKV
+        planes = [wire.payload, wire.payload_len, *wire.headers, wire.eb2,
+                  wire.out_idx, wire.out_val, wire.overflow]
+        if wire.chain_id is not None:
+            planes.append(wire.chain_id)
+        return planes
     if hasattr(wire, "chain_id"):                         # core.select.SelectedWire
         planes = [wire.chain_id, wire.payload, wire.payload_len,
                   wire.header, wire.out_idx, wire.out_payload,
@@ -163,6 +166,9 @@ def verify_wire(wire) -> torch.Tensor:
 def shard_of(wire, i: int):
     """Shard i of a wire with a gathered leading axis: every plane indexed
     at i (header tuples plane by plane, None kept)."""
+    if hasattr(wire, "map_planes"):                       # PackedKV
+        return wire.map_planes(lambda t: t[i])
+
     def take(f):
         if f is None:
             return None

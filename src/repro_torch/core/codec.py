@@ -351,25 +351,38 @@ def compact_chunks(sel: torch.Tensor, lens: torch.Tensor):
     """Concatenate per-chunk word prefixes at their true lengths.  sel:
     int32[n_chunks, LC_CHUNK] (each chunk's words left-aligned), lens:
     int32[n_chunks] words used per chunk.  Returns (payload
-    int32[n_chunks * LC_CHUNK], tail zero; payload_len int32 0-d).
+    int32[n_chunks * LC_CHUNK], tail zero; payload_len int32 0-d)."""
+    payload, plen = compact_chunk_rows(sel[None], lens[None])
+    return payload[0], plen[0]
 
-    Slots past a chunk's length, and destinations outside the plane
+
+def compact_chunk_rows(sel: torch.Tensor, lens: torch.Tensor):
+    """`compact_chunks` of each row on its own: sel int32[R, n_chunks,
+    LC_CHUNK], lens int32[R, n_chunks] -> (payload int32[R, n_chunks *
+    LC_CHUNK], payload_len int32[R]).  A row is one stream (a KV page):
+    its offsets are a cumsum along the row.
+
+    Slots past a chunk's length, and destinations outside the row
     (negative ones wrap first, as the reference's `.at[].set(mode="drop")`
-    does), go to one spare word past the end, so no mask and no host sync
-    is needed."""
-    n_chunks = sel.shape[0]
+    does), go to one spare word past the row's end, so no mask and no host
+    sync is needed."""
+    rows, n_chunks = lens.shape
     cap = n_chunks * LC_CHUNK
     lens = lens.to(torch.int32)
-    ends = torch.cumsum(lens, 0, dtype=torch.int32)
+    ends = torch.cumsum(lens, 1, dtype=torch.int32)
     offs = ends - lens
-    slot = torch.arange(LC_CHUNK, dtype=torch.int32, device=sel.device)[None, :]
-    dest = (offs[:, None] + slot).to(torch.int64)
+    slot = torch.arange(LC_CHUNK, dtype=torch.int32, device=sel.device)
+    dest = (offs[..., None] + slot).to(torch.int64)
     dest = torch.where(dest < 0, dest + cap, dest)
-    keep = (slot < lens[:, None]) & (dest >= 0) & (dest < cap)
+    keep = (slot < lens[..., None]) & (dest >= 0) & (dest < cap)
     dest = torch.where(keep, dest, cap)
-    payload = torch.zeros(cap + 1, dtype=torch.int32, device=sel.device)
-    payload.index_put_((dest.reshape(-1),), sel.reshape(-1).to(torch.int32))
-    return payload[:cap], ends[-1]
+    base = torch.arange(rows, dtype=torch.int64,
+                        device=sel.device)[:, None, None] * (cap + 1)
+    payload = torch.zeros(rows * (cap + 1), dtype=torch.int32,
+                          device=sel.device)
+    payload.index_put_(((dest + base).reshape(-1),),
+                       sel.reshape(-1).to(torch.int32))
+    return payload.reshape(rows, cap + 1)[:, :cap], ends[:, -1]
 
 
 def gather_chunks(payload: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
@@ -377,15 +390,45 @@ def gather_chunks(payload: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     slots.  Returns int32[n_chunks, LC_CHUNK].  Over-long (corrupt)
     lengths are clamped to the plane, as in the reference; the decode
     entries check the transmitted length on the host first."""
+    return gather_chunk_rows(payload[None], lens[None])[0]
+
+
+def gather_chunk_rows(payload: torch.Tensor, lens: torch.Tensor):
+    """`gather_chunks` of each row on its own: payload int32[R, W], lens
+    int32[R, n_chunks] -> int32[R, n_chunks, LC_CHUNK]."""
+    rows, n_chunks = lens.shape
     lens = lens.to(torch.int32)
-    ends = torch.cumsum(lens, 0, dtype=torch.int32)
+    ends = torch.cumsum(lens, 1, dtype=torch.int32)
     offs = ends - lens
-    slot = torch.arange(LC_CHUNK, dtype=torch.int32,
-                        device=payload.device)[None, :]
-    valid = slot < lens[:, None]
-    src = torch.where(valid, offs[:, None] + slot, 0)
-    src = src.clamp(0, payload.shape[0] - 1)
-    return torch.where(valid, payload[src.to(torch.int64)], 0)
+    slot = torch.arange(LC_CHUNK, dtype=torch.int32, device=payload.device)
+    valid = slot < lens[..., None]
+    src = torch.where(valid, offs[..., None] + slot, 0)
+    src = src.clamp(0, payload.shape[1] - 1).to(torch.int64)
+    got = torch.gather(payload, 1, src.reshape(rows, -1))
+    return torch.where(valid, got.reshape(rows, n_chunks, LC_CHUNK), 0)
+
+
+def pack_word_rows(values: torch.Tensor, bin_bits: int) -> torch.Tensor:
+    """`pack_words` of each row of values [R, n] on its own:
+    int32[R, packed_word_count(n, bin_bits)].  Each row is zero-padded to
+    whole tiles, so the rows pack as one stream."""
+    vpw = 32 // bin_bits
+    rows, n = values.shape
+    tile = vpw * PACK_LANES
+    pad = -(-n // tile) * tile - n
+    if pad:
+        values = torch.cat([values, values.new_zeros(rows, pad)], 1)
+    return pack_words(values.reshape(-1), bin_bits).reshape(rows, -1)
+
+
+def unpack_word_rows(words: torch.Tensor, n: int, bin_bits: int,
+                     signed: bool = True) -> torch.Tensor:
+    """Inverse of pack_word_rows: words int32[R, W] (W whole tiles) ->
+    int32[R, n]."""
+    rows, w = words.shape
+    per = w * (32 // bin_bits)
+    return unpack_words(words.reshape(-1), rows * per, bin_bits,
+                        signed).reshape(rows, per)[:, :n]
 
 
 def lc_compact_payload(sel: torch.Tensor, codes: torch.Tensor):
@@ -525,33 +568,47 @@ def shuffle_words(words: torch.Tensor, width: int) -> torch.Tensor:
     """Fold + byte-plane-shuffle a packed word stream whose lanes are
     `width`-bit values (width in {8, 16, 32}); unshuffle_words inverts
     it."""
+    return shuffle_word_rows(words[None], width)[0]
+
+
+def shuffle_word_rows(words: torch.Tensor, width: int) -> torch.Tensor:
+    """`shuffle_words` of each row of words int32[R, n] on its own (a row
+    is one stream: its byte planes stay in the row)."""
     if width not in (8, 16, 32):
         raise ValueError(f"shuffle width must be 8, 16 or 32, got {width}")
-    n_words = words.shape[0]
+    rows, n_words = words.shape
     npad = shuffle_word_count(n_words)
-    w = torch.cat([words, words.new_zeros(npad - n_words)])
+    w = torch.cat([words, words.new_zeros(rows, npad - n_words)], 1)
     if width == 32:
         return to_i32(_zigzag(w.to(torch.int64), 32))
-    lanes = unpack_words(w, npad * 32 // width, width, signed=False)
+    lanes = unpack_word_rows(w, npad * 32 // width, width, signed=False)
     z = _zigzag(lanes.to(torch.int64), width)
-    planes = [(z >> (8 * j)) & 0xFF for j in range(width // 8)]
-    return pack_words(torch.cat(planes), 8)
+    planes = torch.stack([(z >> (8 * j)) & 0xFF for j in range(width // 8)],
+                         1)
+    return pack_word_rows(planes.reshape(rows, -1), 8)
 
 
 def unshuffle_words(shuffled: torch.Tensor, n_words: int,
                     width: int) -> torch.Tensor:
     """Exact inverse of shuffle_words; n_words is the pre-shuffle count."""
+    return unshuffle_word_rows(shuffled[None], n_words, width)[0]
+
+
+def unshuffle_word_rows(shuffled: torch.Tensor, n_words: int,
+                        width: int) -> torch.Tensor:
+    """Exact inverse of shuffle_word_rows: int32[R, npad] -> [R, n_words]."""
+    rows = shuffled.shape[0]
     npad = shuffle_word_count(n_words)
     if width == 32:
-        z = shuffled[:npad].to(torch.int64) & _U32
-        return to_i32(_unzigzag(z, 32))[:n_words]
+        z = shuffled[:, :npad].to(torch.int64) & _U32
+        return to_i32(_unzigzag(z, 32))[:, :n_words]
     n_lanes = npad * 32 // width
-    stream = unpack_words(shuffled, 4 * npad, 8, signed=False)
-    planes = stream.to(torch.int64).reshape(width // 8, n_lanes)
-    z = planes[0]
+    stream = unpack_word_rows(shuffled[:, :npad], 4 * npad, 8, signed=False)
+    planes = stream.to(torch.int64).reshape(rows, width // 8, n_lanes)
+    z = planes[:, 0]
     for j in range(1, width // 8):
-        z = z | (planes[j] << (8 * j))
-    return pack_words(_unzigzag(z, width), width)[:n_words]
+        z = z | (planes[:, j] << (8 * j))
+    return pack_word_rows(_unzigzag(z, width), width)[:, :n_words]
 
 
 # ---------------------------------------------------------------------------

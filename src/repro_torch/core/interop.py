@@ -7,19 +7,22 @@ the reference's dtypes, so a wire encoded by either package decodes in the
 other; a selector's `SelectedWire` crosses the same way.  Word planes
 travel as uint32 in numpy and as int32 tensors (the same bits) in the
 port.  A `QuantizedKV` crosses the same way, so that a cache quantized by
-either package feeds both attentions.
+either package feeds both attentions, and so does the packed KV wire
+`PackedKV`, whose page chain is rebuilt from its stages' specs (or its
+selector's set name).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..compression.kv import QuantizedKV
+from ..compression.kv import PackedKV, QuantizedKV, _page_stages
 from .pipeline import Encoded, resolve_device
-from .select import SelectedWire
+from .select import SelectedWire, get_kv_selector
 
 # fields that hold uint32 bit planes on the reference side
-_U32_FIELDS = ("payload", "out_payload", "sign_words", "checksum", "header")
+_U32_FIELDS = ("payload", "out_payload", "sign_words", "checksum", "header",
+               "headers")
 
 
 def _to_tensor(a, dev: torch.device) -> torch.Tensor:
@@ -99,3 +102,38 @@ def quantized_kv_to_numpy(qkv: QuantizedKV) -> QuantizedKV:
     """The port's QuantizedKV -> a QuantizedKV of numpy planes, ready for
     `repro.compression.kv.QuantizedKV(*map(jnp.asarray, ...))`."""
     return QuantizedKV(*(_to_numpy(t, False) for t in qkv))
+
+
+def packed_kv_from_numpy(wire, device="cuda") -> PackedKV:
+    """Reference `PackedKV` (numpy or JAX planes) -> the port's on
+    `device`.  The page chain is rebuilt from the reference's stage
+    objects' specs, or from its selector's set name."""
+    dev = resolve_device(device)
+    planes = {}
+    for name in PackedKV._fields:
+        v = getattr(wire, name, None)
+        if v is None:
+            planes[name] = None
+        elif name == "headers":
+            planes[name] = tuple(_to_tensor(h, dev) for h in v)
+        else:
+            planes[name] = _to_tensor(v, dev)
+    if getattr(wire, "select", None) is not None:
+        return PackedKV(**planes, select=get_kv_selector(wire.select.name))
+    spec = "|".join(st.spec() for st in (*wire.pred, *wire.stages))
+    pred, stages = _page_stages(spec)
+    return PackedKV(**planes, stages=stages, pred=pred)
+
+
+def packed_kv_to_numpy(p: PackedKV) -> PackedKV:
+    """The port's PackedKV -> one of numpy planes with the reference's
+    dtypes (uint32 word planes and checksum), the statics kept."""
+    planes = {}
+    for name, v in zip(p._fields, p):
+        if v is None:
+            planes[name] = None
+        elif name == "headers":
+            planes[name] = tuple(_to_numpy(h, True) for h in v)
+        else:
+            planes[name] = _to_numpy(v, name in _U32_FIELDS)
+    return PackedKV(**planes, stages=p.stages, pred=p.pred, select=p.select)

@@ -129,15 +129,48 @@ class ChunkStage:
         return 32 * C.lc_header_content_words(C.lc_chunk_count(n_in))
 
     def encode_words(self, words, n_in: int, kernels: bool = False):
-        if kernels:
-            return L.encode_words_lc(words, self.mode)
-        return C.encode_words_lc(words, self.mode)
+        """One stream int32[n_in] -> (header, payload, payload_len): the
+        one-row case of encode_pages."""
+        h, p, n = self.encode_pages(words[None], n_in, kernels)
+        return h[0], p[0], n[0]
 
     def decode_words(self, header, payload, n_in: int,
                      kernels: bool = False):
-        if kernels:
-            return L.decode_words_lc(header, payload, n_in)
-        return C.decode_words_lc(header, payload, n_in)
+        return self.decode_pages(header[None], payload[None], n_in,
+                                 kernels)[0]
+
+    def encode_pages(self, words, n_in: int, kernels: bool = False):
+        """Each row of words int32[R, n_in] coded as its own stream (a row
+        is one KV page): (headers [R, hw], payload [R, cap], len
+        int32[R]).  The chunks of every row go through one chunk select
+        (the select kernel B6 with kernels=True); only the compaction and
+        the 2-bit header pack take the row axis."""
+        rows = words.shape[0]
+        nc = C.lc_chunk_count(n_in)
+        if nc * C.LC_CHUNK != n_in:
+            words = torch.cat([words, words.new_zeros(
+                rows, nc * C.LC_CHUNK - n_in)], 1)
+        flat = words.reshape(-1).contiguous()
+        select = L.lc_select if kernels else L._lc_select_plain
+        sel, codes = select(flat, self.mode)
+        codes = codes.reshape(rows, nc)
+        payload, plen = C.compact_chunk_rows(
+            sel.reshape(rows, nc, C.LC_CHUNK), C.lc_chunk_lens(codes))
+        return C.pack_word_rows(codes, 2), payload, plen
+
+    def decode_pages(self, header, payload, n_in: int,
+                     kernels: bool = False):
+        """Exact inverse of encode_pages: int32[R, n_in] (the expand
+        kernel B7 over every row's chunks with kernels=True)."""
+        rows = payload.shape[0]
+        nc = C.lc_chunk_count(n_in)
+        codes = C.unpack_word_rows(header, nc, 2, signed=False)
+        padded = C.gather_chunk_rows(payload, C.lc_chunk_lens(codes))
+        expand = L.lc_expand if kernels else L._lc_expand_plain
+        words = expand(padded.reshape(-1).contiguous(),
+                       codes.reshape(-1).contiguous(),
+                       rows * nc * C.LC_CHUNK)
+        return words.reshape(rows, -1)[:, :n_in]
 
     def spec(self) -> str:
         return self.mode
@@ -169,6 +202,17 @@ class EntStage:
                      kernels: bool = False):
         return C.decode_words_ent(header, payload, n_in)
 
+    def encode_pages(self, words, n_in: int, kernels: bool = False):
+        """`encode_words` row by row (each row builds its own codebook;
+        no registered KV page chain holds `ent`)."""
+        outs = [self.encode_words(w, n_in) for w in words]
+        return tuple(torch.stack(p) for p in zip(*outs))
+
+    def decode_pages(self, header, payload, n_in: int,
+                     kernels: bool = False):
+        return torch.stack([self.decode_words(h, p, n_in)
+                            for h, p in zip(header, payload)])
+
     def spec(self) -> str:
         return "ent"
 
@@ -192,14 +236,22 @@ class ShuffleStage:
         return 0
 
     def encode_words(self, words, n_in: int, kernels: bool = False):
-        out = C.shuffle_words(words, self.width)
-        return (words.new_zeros(0), out,
-                torch.full((), self.capacity_words(n_in), dtype=torch.int32,
-                           device=words.device))
+        h, p, n = self.encode_pages(words[None], n_in, kernels)
+        return h[0], p[0], n[0]
 
     def decode_words(self, header, payload, n_in: int,
                      kernels: bool = False):
-        return C.unshuffle_words(payload, n_in, self.width)
+        return self.decode_pages(header[None], payload[None], n_in)[0]
+
+    def encode_pages(self, words, n_in: int, kernels: bool = False):
+        out = C.shuffle_word_rows(words, self.width)
+        return (words.new_zeros(words.shape[0], 0), out,
+                torch.full((words.shape[0],), self.capacity_words(n_in),
+                           dtype=torch.int32, device=words.device))
+
+    def decode_pages(self, header, payload, n_in: int,
+                     kernels: bool = False):
+        return C.unshuffle_word_rows(payload, n_in, self.width)
 
     def spec(self) -> str:
         return f"shuffle:{self.width}"
@@ -292,24 +344,41 @@ def word_stage_sizes(stages, n_words: int) -> list:
 
 def encode_word_stages(stages, words, n_words: int, kernels: bool = False):
     """Run a word-stage chain over a packed plane.  Returns (headers tuple,
-    payload, transmitted_len).  Each stage after the first takes the
-    previous stage's padded capacity."""
-    headers, cur, cur_n = [], words, n_words
-    plen = torch.full((), n_words, dtype=torch.int32, device=words.device)
-    for st in stages:
-        hdr, cur, plen = st.encode_words(cur, cur_n, kernels=kernels)
-        headers.append(hdr)
-        cur_n = st.capacity_words(cur_n)
-    return tuple(headers), cur, plen
+    payload, transmitted_len): the one-row case of encode_page_stages."""
+    headers, payload, plen = encode_page_stages(stages, words[None],
+                                                n_words, kernels)
+    return tuple(h[0] for h in headers), payload[0], plen[0]
 
 
 def decode_word_stages(stages, headers, payload, n_words: int,
                        kernels: bool = False):
     """Exact inverse of encode_word_stages."""
+    return decode_page_stages(stages, tuple(h[None] for h in headers),
+                              payload[None], n_words, kernels)[0]
+
+
+def encode_page_stages(stages, words, n_words: int, kernels: bool = False):
+    """Run a word-stage chain over each row of words int32[R, n_words] as
+    its own stream (a row is one KV page): (headers tuple of [R, hw],
+    payload [R, cap], transmitted_len int32[R]).  Each stage after the
+    first takes the previous stage's padded capacity."""
+    headers, cur, cur_n = [], words, n_words
+    plen = torch.full((words.shape[0],), n_words, dtype=torch.int32,
+                      device=words.device)
+    for st in stages:
+        hdr, cur, plen = st.encode_pages(cur, cur_n, kernels=kernels)
+        headers.append(hdr)
+        cur_n = st.capacity_words(cur_n)
+    return tuple(headers), cur, plen
+
+
+def decode_page_stages(stages, headers, payload, n_words: int,
+                       kernels: bool = False):
+    """Exact inverse of encode_page_stages: int32[R, n_words]."""
     sizes = word_stage_sizes(stages, n_words)
     cur = payload
     for st, hdr, n_in in reversed(list(zip(stages, headers, sizes[:-1]))):
-        cur = st.decode_words(hdr, cur, n_in, kernels=kernels)
+        cur = st.decode_pages(hdr, cur, n_in, kernels=kernels)
     return cur
 
 

@@ -1,8 +1,7 @@
 """Adaptive chain selection, in torch: pick the encoding chain per shard at
 run time from a small static candidate set.
 
-Counterpart of `repro.core.select` (its full-pipeline half; the per-page
-`KVSelector` comes with the packed KV wire, ROADMAP A12):
+Counterpart of `repro.core.select`:
 
   * `plane_stats`: one pass over the packed word plane.  The per-chunk
     codes give the zero-chunk fraction and the exact zero/narrow payload
@@ -31,6 +30,13 @@ Counterpart of `repro.core.select` (its full-pipeline half; the per-page
 `CompressedShard`/`Transport` path (always the gather branch: each shard
 picked its own chain).  Candidates may hold only `zero`/`narrow`/`ent`
 word stages: the shared statistics cannot price `shuffle`.
+
+`KVSelector` picks a page fragment (optional pred stages + word stages)
+per KV page: the same statistics per page (`page_stats`, every page of a
+plane at once), the costs, an argmin per page, and each fragment's own
+page encode over every page, the chosen one kept per page (the reference
+vmaps a `lax.switch`, which selects the same way).  `compression.kv`
+packs and unpacks with it.
 """
 from __future__ import annotations
 
@@ -48,8 +54,9 @@ from . import codec as C
 from . import predict as P
 from . import quantizer as Q
 from .pipeline import (ChunkStage, Encoded, EntStage, Pipeline,
-                       _to_device, parse_pipeline, parse_word_stages,
-                       resolve_device, word_stage_sizes)
+                       _to_device, decode_page_stages, encode_page_stages,
+                       parse_pipeline, parse_word_stages, resolve_device,
+                       word_stage_sizes)
 
 CHAIN_ID_BITS = 8          # the transmitted chain-id header
 MAX_CHAINS = 1 << CHAIN_ID_BITS
@@ -127,6 +134,33 @@ def plane_stats(words: torch.Tensor, n_words: int) -> PlaneStats:
                       torch.minimum(ent_bits, narrow_bits))
 
 
+def page_stats(words: torch.Tensor, n_words: int,
+               need_ent: bool = False) -> PlaneStats:
+    """`plane_stats` of each row of words int32[R, n_words] (a KV page
+    each), as float32[R] planes; the elementwise float32 arithmetic is the
+    scalar one's, so each row's numbers are bit-equal to plane_stats of
+    that row.  `ent_bits` is computed (row by row) only with need_ent,
+    else None."""
+    f32 = torch.float32
+    rows = words.shape[0]
+    nc = C.lc_chunk_count(n_words)
+    if nc * C.LC_CHUNK != n_words:
+        words = torch.cat([words, words.new_zeros(
+            rows, nc * C.LC_CHUNK - n_words)], 1)
+    codes = C.lc_chunk_codes(words.reshape(-1, C.LC_CHUNK),
+                             "narrow").reshape(rows, nc)
+    lens_w = C.lc_chunk_lens(codes)
+    n_alive = (codes > 0).sum(1, dtype=torch.int32).to(f32)
+    zero_bits = 32.0 * C.LC_CHUNK * n_alive
+    narrow_bits = 32.0 * lens_w.sum(1, dtype=torch.int32).to(f32)
+    ent_bits = None
+    if need_ent:
+        ent_bits = torch.stack([plane_stats(w, n_words).ent_bits
+                                for w in words])
+    return PlaneStats(1.0 - n_alive / float(nc), zero_bits, narrow_bits,
+                      ent_bits)
+
+
 def _static_hdr_bits(stages: tuple, n_words: int) -> int:
     """Transmitted header-content bits of a word chain: per-stage header
     content plus the 32-bit length field of a length-variable chain."""
@@ -149,6 +183,8 @@ def _est_payload_bits(stages: tuple, st: PlaneStats, n_words: int):
         return _f32(32 * n_words, st.zero_bits)
     last = stages[-1]
     if isinstance(last, EntStage):
+        if st.ent_bits is None:
+            raise ValueError("ent_bits was not computed (need_ent=False)")
         return st.ent_bits
     if isinstance(last, ChunkStage) and last.mode == "narrow":
         return st.narrow_bits
@@ -166,6 +202,10 @@ def chain_cost(stages: tuple, st: PlaneStats, n_words: int,
     return (_est_payload_bits(stages, st, n_words)
             + _f32(_static_hdr_bits(stages, n_words), like)
             + _f32(bias, like) * _f32(n_words / 1024.0, like))
+
+
+def _ends_in_ent(stages: tuple) -> bool:
+    return bool(stages) and isinstance(stages[-1], EntStage)
 
 
 def _check_scoreable(stages: tuple):
@@ -431,11 +471,118 @@ class Selector:
         return b
 
 
+# ----------------------------------------------------------- KV selector --
+
+@dataclasses.dataclass(frozen=True)
+class KVSelector:
+    """Per-page chain selection over page fragments of the two-domain
+    grammar (optional pred stages + word stages; the quantizer is the
+    per-page KV bound).  Every fragment must preserve the per-page word
+    count so pages stay independently migratable; the chosen fragment's
+    id is transmitted per page (1 byte) next to the page's length."""
+    name: str
+    chains: tuple                 # tuple[(pred tuple, word tuple), ...]
+    bias: tuple = ()
+
+    def __post_init__(self):
+        if not self.chains:
+            raise ValueError("a KV selector needs at least one fragment")
+        if len(self.chains) > MAX_CHAINS:
+            raise ValueError(f"at most {MAX_CHAINS} fragments fit the "
+                             f"{CHAIN_ID_BITS}-bit chain-id header")
+        for _, word in self.chains:
+            _check_scoreable(word)
+        if self.bias and len(self.bias) != len(self.chains):
+            raise ValueError("bias must have one entry per fragment")
+
+    def spec(self) -> str:
+        return f"auto:{self.name}"
+
+    def validate_page(self, wpp: int):
+        for _, word in self.chains:
+            sizes = word_stage_sizes(word, wpp)
+            if not all(sz == wpp for sz in sizes):
+                raise ValueError(
+                    f"selector fragments must preserve the per-page word "
+                    f"count so pages stay self-describing: {wpp}, {sizes}")
+
+    def header_capacity_words(self, wpp: int) -> int:
+        return max((sum(st.header_words(sz) for st, sz in
+                        zip(word, word_stage_sizes(word, wpp)[:-1]))
+                    for _, word in self.chains))
+
+    def header_content_bits(self, i: int, wpp: int) -> int:
+        """Transmitted header-content bits of fragment `i` for one page
+        (the per-page accounting `transport.wire_bytes` sums)."""
+        pred, word = self.chains[i]
+        return (_static_hdr_bits(word, wpp) - (32 if word else 0)
+                + sum(p.header_content_bits() for p in pred))
+
+    # --- per-page select / encode / decode --------------------------------
+
+    def page_costs(self, bins, bits: int, wpp: int,
+                   pred_codes) -> torch.Tensor:
+        """float32[R, n_chains] estimated transmitted bits of each page of
+        bins int32[R, page * D]: the scoring rule over each page's
+        word-plane statistics.  `pred_codes(pred)` gives a pred prefix's
+        residual codes [R, page * D]."""
+        stats, costs = {}, []
+        need_ent = {_pred_key(p) for p, w in self.chains if _ends_in_ent(w)}
+        for i, (pred, word) in enumerate(self.chains):
+            key = _pred_key(pred)
+            if key not in stats:
+                codes = pred_codes(pred) if pred else bins
+                stats[key] = page_stats(C.pack_word_rows(codes, bits), wpp,
+                                        need_ent=key in need_ent)
+            b = self.bias[i] if self.bias else 0.0
+            costs.append(torch.broadcast_to(
+                chain_cost(word, stats[key], wpp, b), (bins.shape[0],)))
+        return torch.stack(costs, 1)
+
+    def page_select(self, bins, bits: int, wpp: int,
+                    pred_codes) -> torch.Tensor:
+        """Chain id per page, int32[R]: the argmin of `page_costs` (the
+        first on ties)."""
+        return torch.argmin(self.page_costs(bins, bits, wpp, pred_codes),
+                            1).to(torch.int32)
+
+    def encode_pages(self, i: int, codes, bits: int, wpp: int,
+                     kernels: bool = False):
+        """Encode every page with fragment `i` from its pred codes int32[R,
+        page * D] (the bins when the fragment has no pred stage) into the
+        uniform (header [R, hw], payload [R, wpp], payload_len [R])."""
+        _, word = self.chains[i]
+        words = C.pack_word_rows(codes, bits)
+        headers, payload, plen = encode_page_stages(word, words, wpp,
+                                                    kernels)
+        hw = self.header_capacity_words(wpp)
+        rows = words.shape[0]
+        flat_h = ([h.reshape(rows, -1) for h in headers]
+                  + [words.new_zeros(rows, hw)])
+        return torch.cat(flat_h, 1)[:, :hw], payload, plen
+
+    def decode_pages(self, i: int, header, payload, bits: int, wpp: int,
+                     kernels: bool = False):
+        """Exact inverse of `encode_pages` up to the pred stages: the pred
+        codes (or bins) int32[R, wpp * 32 / bits] of every page read as
+        fragment `i`."""
+        _, word = self.chains[i]
+        headers, off = [], 0
+        for st, sz in zip(word, word_stage_sizes(word, wpp)[:-1]):
+            hw = st.header_words(sz)
+            headers.append(header[:, off:off + hw])
+            off += hw
+        words = decode_page_stages(word, tuple(headers), payload, wpp,
+                                   kernels)
+        return C.unpack_word_rows(words, wpp * 32 // bits, bits)
+
+
 # ---------------------------------------------------------- set registry --
 
 def _split_fragment(frag: str, pack_bits: int):
-    """'delta|narrow|ent' -> (pred tuple, word tuple): leading registered
-    pred names form the value chain."""
+    """'kvdelta|zero|narrow' -> (pred tuple, word tuple): leading
+    registered pred names form the value chain (the page-fragment split
+    `compression.kv` uses too)."""
     parts = [p.strip() for p in str(frag).split("|") if p.strip()]
     npred = 0
     while (npred < len(parts)
@@ -446,20 +593,32 @@ def _split_fragment(frag: str, pack_bits: int):
 
 
 @functools.lru_cache(maxsize=None)
-def get_selector(name: str) -> Selector:
-    """The `Selector` of a full-pipeline `SELECTOR_SETS` entry (cached: one
-    instance per name)."""
+def get_selector(name: str):
+    """The selector of a `SELECTOR_SETS` entry (cached: one instance per
+    name): a `Selector` for a full-pipeline set, the per-page `KVSelector`
+    for a KV page-fragment set (base None; the reference raises there and
+    points to `get_kv_selector`)."""
     entry = get_selector_set(name)
     if entry["base"] is None:
-        raise KeyError(f"selector set {name!r} is a KV page-fragment set "
-                       f"(base=None); its per-page selector comes with "
-                       f"ROADMAP A12")
+        return get_kv_selector(name)
     base = parse_pipeline(entry["base"])
     chains = []
     for frag in entry["chains"]:
         pred, word = _split_fragment(frag, base.pack.bits)
         chains.append(Pipeline(base.quant, base.pack, word, pred))
     return Selector(name, tuple(chains), tuple(entry.get("bias", ())))
+
+
+@functools.lru_cache(maxsize=None)
+def get_kv_selector(name: str) -> KVSelector:
+    """The per-page `KVSelector` of a base-less `SELECTOR_SETS` entry (KV
+    pages pack at 8 bits/value)."""
+    entry = get_selector_set(name)
+    if entry["base"] is not None:
+        raise KeyError(f"selector set {name!r} is a full-pipeline set; "
+                       f"use get_selector")
+    chains = tuple(_split_fragment(f, 8) for f in entry["chains"])
+    return KVSelector(name, chains, tuple(entry.get("bias", ())))
 
 
 def is_auto_spec(spec) -> bool:
@@ -477,6 +636,14 @@ def parse_selector(spec: str, *, default: str = "grad-wire") -> Selector:
     if not is_auto_spec(spec):
         raise ValueError(f"not an auto spec: {spec!r}")
     return get_selector(_set_name(spec, default))
+
+
+def parse_kv_selector(spec: str, *,
+                      default: str = "kv-page") -> KVSelector:
+    """Resolve an 'auto' / 'auto:SET' spec to its `KVSelector`."""
+    if not is_auto_spec(spec):
+        raise ValueError(f"not an auto spec: {spec!r}")
+    return get_kv_selector(_set_name(spec, default))
 
 
 def parse_chain(spec):

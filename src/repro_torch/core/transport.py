@@ -32,8 +32,11 @@ with the card's kernels (`kernels=None`) and sums in rank order.
 `integrity='drop'` verifies every received contribution (a per-hop
 `audit.plane_checksum` that travels with the hop on the ring, the wire
 checksum per gathered shard) and drops the failed ones from the sum and
-from the per-rank valid count.  The PackedKV wire and its accounting come
-with ROADMAP A12.
+from the per-rank valid count.
+
+`send_pages` moves any wire point to point, the KV cache's `PackedKV`
+(`compression.kv`) and `PackedCache` (`models.serve`) included, and
+`wire_bytes` accounts a `PackedKV` page by page.
 """
 from __future__ import annotations
 
@@ -45,19 +48,19 @@ import torch
 from ..kernels import dense as D
 from . import audit as A
 from . import codec as C
-from .pipeline import Encoded, Pipeline, not_ported
+from .pipeline import Encoded, Pipeline
 from .select import SelectedWire
-
-_KV_ITEM = "ROADMAP A12"
 
 
 def tree_map(fn, node):
     """fn over every tensor of a wire: NamedTuples, tuples and lists keep
-    their structure, None stays None."""
+    their structure, None stays None, a `PackedKV` keeps its statics."""
     if torch.is_tensor(node):
         return fn(node)
     if node is None:
         return None
+    if hasattr(node, "map_planes"):
+        return node.map_planes(fn)
     if hasattr(node, "_fields"):
         return type(node)(*(tree_map(fn, v) for v in node))
     if isinstance(node, (tuple, list)):
@@ -67,6 +70,45 @@ def tree_map(fn, node):
 
 # ------------------------------------------------------ byte accounting ---
 
+def _kv_wire_bytes(wire):
+    """Per-page accounting of a `PackedKV`: the eb2 / outlier / overflow
+    planes, each page's header content bits (not the tile-padded stored
+    plane), and the transmitted payload prefix with its 32-bit length per
+    page when a stage is length-variable.  Bits accumulate across stages
+    and pages and are divided by 8 once.  A Python number for static
+    chains, else a 0-d float32 tensor (the word count summed as exact
+    int32, converted once: `codec.transmitted_bits`)."""
+    cap = wire.payload.shape[-1]
+    n_pages = wire.payload_len.numel()
+    checksum_bits = 32 if wire.checksum is not None else 0
+    table_bits = (wire.eb2.numel() * 32 + wire.out_idx.numel() * 32
+                  + wire.out_val.numel() * 32 + wire.overflow.numel() * 8)
+    sel = wire.select
+    if sel is not None:
+        # each page sends a 1-byte chain id and its own length, and pays
+        # the chosen fragment's header content
+        hcb = torch.tensor([sel.header_content_bits(i, cap)
+                            for i in range(len(sel.chains))],
+                           dtype=torch.int32, device=wire.payload.device)
+        cid = wire.chain_id.reshape(-1).to(torch.int64)
+        cid = cid.clamp(0, len(sel.chains) - 1)
+        hdr_bits = hcb[cid].sum(dtype=torch.int32).to(torch.float32)
+        static_bits = n_pages * (8 + 32) + checksum_bits + table_bits
+        words = wire.payload_len.sum(dtype=torch.int32)
+        return (C.transmitted_bits(words, static_bits) + hdr_bits) / 8.0
+    static_bits = checksum_bits + n_pages * sum(
+        st.header_content_bits(cap) for st in wire.stages)
+    static_bits += n_pages * sum(st.header_content_bits()
+                                 for st in wire.pred)
+    static_bits += table_bits
+    if wire.stages and wire.stages[-1].transmits_len:
+        static_bits += n_pages * 32            # the transmitted lengths
+        words = wire.payload_len.sum(dtype=torch.int32)
+        return C.transmitted_bits(words, static_bits) / 8.0
+    bits = static_bits + 32 * wire.payload.numel()
+    return bits // 8 if bits % 8 == 0 else bits / 8.0
+
+
 def wire_bytes(wire, *, pipe=None, n: int | None = None):
     """Transmitted bytes of one wire object, the single accounting accessor:
 
@@ -74,7 +116,9 @@ def wire_bytes(wire, *, pipe=None, n: int | None = None):
         `SelectedWire` with its `Selector` and `n`: the chain's own
         accounting (`wire_bytes`);
       * a shard carrying its own pipe and n (`CompressedShard`): the same;
-      * a NamedTuple, list or tuple of wires: the sum of its items;
+      * a `PackedKV`: the per-page accounting (`_kv_wire_bytes`);
+      * a NamedTuple (`models.serve.PackedCache`), list or tuple of wires:
+        the sum of its items;
       * a tensor: its full width (numel * element size).
 
     A Python int for static chains; a 0-d float32 tensor when a
@@ -91,7 +135,7 @@ def wire_bytes(wire, *, pipe=None, n: int | None = None):
     if isinstance(getattr(wire, "enc", None), (Encoded, SelectedWire)):
         return wire.pipe.wire_bytes(wire.enc, wire.n if n is None else n)
     if hasattr(wire, "eb2") and hasattr(wire, "payload"):
-        raise not_ported("the PackedKV wire accounting", _KV_ITEM)
+        return _kv_wire_bytes(wire)
     if hasattr(wire, "_fields") or isinstance(wire, (list, tuple)):
         total = 0
         for field in wire:

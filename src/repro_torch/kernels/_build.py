@@ -51,7 +51,7 @@ _SIGNATURES = {
                                  _P, _P, _P],
     "repro_dense_dequantize_abs": [_P, _P, _P, _P, _F, _P, _LL, _P],
     "repro_dense_dequantize_rel": [_P, _P, _P, _P, _F, _P, _LL, _P],
-    "repro_kv_decode_attention": [_P] * 14 + [_I] * 8 + [_F, _P],
+    "repro_kv_decode_attention": [_P] * 16 + [_I] * 8 + [_F, _P],
     "repro_kv_decode_occupancy": [_I, _I, _P, _P],
 }
 

@@ -560,13 +560,17 @@ kv_split_kernel(const float* __restrict__ q, const int* __restrict__ lengths,
 // combine the splits of (b, g) that hold pages into out[b, g, h, :].  The
 // max over the splits is a block reduction; each group sums every
 // MERGE_GROUPS-th split with independent loads, and the groups' sums are
-// added at the end.
+// added at the end.  When m_out is not null, the merged softmax state
+// goes there too: m_out[b, g, h] the largest scaled score and l_out[b, g,
+// h] the sum of exp(score - m) (NEG_BIG and 0 where no page is read), so
+// a caller can merge this part with another.
 constexpr int MERGE_GROUPS = 4;
 
 __global__ void __launch_bounds__(MERGE_GROUPS * KD)
 kv_merge_kernel(const int* __restrict__ lengths,
                 const float* __restrict__ ws_m, const float* __restrict__ ws_l,
                 const float* __restrict__ ws_acc, float* __restrict__ out,
+                float* __restrict__ m_out, float* __restrict__ l_out,
                 int G, int hg, int S, int pps, int nsplit) {
   __shared__ float red_m[MERGE_GROUPS * KD / 32];
   __shared__ float red_a[MERGE_GROUPS][KD], red_l[MERGE_GROUPS][KD];
@@ -604,6 +608,10 @@ kv_merge_kernel(const int* __restrict__ lengths,
       l += red_l[k][d];
     }
     out[((size_t)bg * hg + h) * KD + d] = a / l;
+    if (m_out != nullptr && d == 0) {
+      m_out[(size_t)bg * hg + h] = m;
+      l_out[(size_t)bg * hg + h] = l;
+    }
   }
 }
 
@@ -653,7 +661,8 @@ cudaError_t occupancy(int smem, int* blocks) {
 // Launches the split kernel and then the merge on `stream`, does not
 // synchronise, allocates nothing, and returns cudaGetLastError() after the
 // launches (0 = ok).  ws_m and ws_l hold B G nsplit hg floats and ws_acc
-// B G nsplit hg D, with nsplit = ceil(S / page / pps); the wrapper
+// B G nsplit hg D, with nsplit = ceil(S / page / pps); m_out and l_out are
+// null or hold B G hg floats each (the merged softmax state); the wrapper
 // (kernels/kv_attention.py) allocates them and checks shapes, types and
 // contiguity; here D = page = 128, 1 <= hg <= 16, 0 <= cap <= 64 and
 // pps >= 1 are checked again.
@@ -663,10 +672,11 @@ extern "C" int repro_kv_decode_attention(
     const float* keb2, const int* kidx, const float* kval,
     const int8_t* vbins, const float* veb2, const int* vidx,
     const float* vval, float* out, float* ws_m, float* ws_l, float* ws_acc,
-    int B, int G, int hg, int S, int D, int page, int cap, int pps,
-    float scale, void* stream) {
+    float* m_out, float* l_out, int B, int G, int hg, int S, int D,
+    int page, int cap, int pps, float scale, void* stream) {
   if (D != KD || page != KP || hg < 1 || hg > MAX_HG || S % KP != 0 ||
-      cap < 0 || cap > MAX_CAP || pps < 1)
+      cap < 0 || cap > MAX_CAP || pps < 1 ||
+      (m_out == nullptr) != (l_out == nullptr))
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || G <= 0) return 0;
   const int nsplit = (S / KP + pps - 1) / pps;
@@ -688,7 +698,8 @@ extern "C" int repro_kv_decode_attention(
     if (err != cudaSuccess) return (int)err;
   }
   kv_merge_kernel<<<dim3(B * G, hg), MERGE_GROUPS * KD, 0, st>>>(
-      lengths, ws_m, ws_l, ws_acc, out, G, hg, S, pps, nsplit);
+      lengths, ws_m, ws_l, ws_acc, out, m_out, l_out, G, hg, S, pps,
+      nsplit);
   return (int)cudaGetLastError();
 }
 

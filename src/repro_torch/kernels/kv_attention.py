@@ -10,7 +10,12 @@ each block streams its run of int8 pages into shared memory, runs the
 online softmax in float32 page by page with the pages' exact outlier
 values as corrections, and writes a partial (m, l, acc); a merge kernel
 combines the partials.  Only pages that hold a token < lengths[b] are
-read.  The plain version splits and merges the same way.
+read.  The plain version splits and merges the same way.  With
+`return_stats=True` the merge also gives the merged softmax state, m (the
+largest scaled score) and l (the sum of exp(score - m)) per (b, g, head),
+so that a caller can merge this part of the history with another
+(`models.serve` merges it with the open page's); with length 0 they are
+-1e30 and 0.
 
 Semantics beside the reference's (ROADMAP C-port-3): pages wholly past the
 length are not read, so a non-finite V value there does not reach the
@@ -128,14 +133,16 @@ def kv_occupancy(hg: int, cap: int = CAP) -> tuple[int, int]:
 # --------------------------------------------------------- plain version --
 
 def _kv_decode_attention_plain(q, kq: QuantizedKV, vq: QuantizedKV, lengths,
-                               page: int = PAGE, pages_per_split=None):
+                               page: int = PAGE, pages_per_split=None,
+                               return_stats: bool = False):
     """The kernel's arithmetic in torch ops over the dequantized cache.  The
     pages of each (b, g) are cut into splits of `pages_per_split` (the
     kernel's default when None); each split runs the online softmax in
     float32 page by page from (m, l, acc) = (-1e30, 0, 0), pages past
     ceil(lengths / page) skipped (their update is discarded); the splits
     are merged as the kernel merges them: m = max m_i, w_i = exp(m_i - m),
-    out = sum w_i acc_i / sum w_i l_i."""
+    out = sum w_i acc_i / sum w_i l_i; return_stats adds (m, sum w_i l_i),
+    float32 [B, G, Hg] each."""
     b, g, hg, d = q.shape
     n_all = kq.bins.shape[2] // page
     pps = _resolve_pages_per_split(q, n_all, pages_per_split)
@@ -168,8 +175,13 @@ def _kv_decode_attention_plain(q, kq: QuantizedKV, vq: QuantizedKV, lengths,
         l_ = torch.where(live, l_ * alpha + pexp.sum(-1, keepdim=True), l_)
         acc = torch.where(live, acc * alpha + torch.matmul(pexp, vp), acc)
         m = torch.where(live, m_new, m)
-    w = torch.exp(m - m.amax(dim=2, keepdim=True))
-    return (acc * w).sum(2) / (l_ * w).sum(2)
+    m_all = m.amax(dim=2, keepdim=True)
+    w = torch.exp(m - m_all)
+    l_all = (l_ * w).sum(2)
+    out = (acc * w).sum(2) / l_all
+    if return_stats:
+        return out, m_all[:, :, 0, :, 0], l_all[..., 0]
+    return out
 
 
 # --------------------------------------------------------------- wrapper --
@@ -177,9 +189,11 @@ def _kv_decode_attention_plain(q, kq: QuantizedKV, vq: QuantizedKV, lengths,
 def kv_decode_attention(q: torch.Tensor, kq: QuantizedKV, vq: QuantizedKV,
                         lengths: torch.Tensor, *, page: int = PAGE,
                         cap: int = CAP,
-                        pages_per_split: int | None = None) -> torch.Tensor:
+                        pages_per_split: int | None = None,
+                        return_stats: bool = False):
     """q: float32 [B, G, Hg, D]; kq, vq: QuantizedKV with bins [B, G, S, D];
-    lengths: int32 [B].  Returns float32 [B, G, Hg, D].  The CUDA kernel
+    lengths: int32 [B].  Returns float32 [B, G, Hg, D], and with
+    return_stats also the merged (m, l), float32 [B, G, Hg] each.  The CUDA kernel
     takes D = page = 128, Hg <= 16 and cap <= 64, and raises otherwise.
     `pages_per_split` (default: `default_pages_per_split` of the shapes and
     the SM count) sets the pages each split block takes; the result does
@@ -189,7 +203,8 @@ def kv_decode_attention(q: torch.Tensor, kq: QuantizedKV, vq: QuantizedKV,
     pps = _resolve_pages_per_split(q, n_all, pages_per_split)
     if q.device.type == "cpu":
         return _kv_decode_attention_plain(q, kq, vq, lengths, page=page,
-                                          pages_per_split=pps)
+                                          pages_per_split=pps,
+                                          return_stats=return_stats)
     b, g, hg, d = q.shape
     if (d != HEAD_DIM or page != HEAD_DIM or not 1 <= hg <= MAX_HG
             or cap > MAX_CAP):
@@ -204,8 +219,12 @@ def kv_decode_attention(q: torch.Tensor, kq: QuantizedKV, vq: QuantizedKV,
     nsplit = -(-n_all // pps)
     parts = b * g * nsplit * hg
     ws = torch.empty(parts * (2 + d), dtype=torch.float32, device=q.device)
+    stats = (torch.empty((2, b, g, hg), dtype=torch.float32, device=q.device)
+             if return_stats else None)
     _launch(LAUNCHES, "_kv_decode_attention", "repro_kv_decode_attention",
             q.device, *(t.data_ptr() for t in ops), out.data_ptr(),
             ws.data_ptr(), ws[parts:].data_ptr(), ws[2 * parts:].data_ptr(),
+            stats[0].data_ptr() if return_stats else None,
+            stats[1].data_ptr() if return_stats else None,
             b, g, hg, kq.bins.shape[2], d, page, cap, pps, softmax_scale(d))
-    return out
+    return (out, stats[0], stats[1]) if return_stats else out

@@ -1,0 +1,42 @@
+"""Family dispatcher: ArchConfig -> parameter specs, weights, caches and
+the decode step (counterpart of `repro.models.model`, serving half, dense
+and vlm families).  The other families raise, naming their ROADMAP item;
+`loss`/`prefill`/`input_specs` wait for `transformer.forward` (ROADMAP
+A13)."""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..configs.base import ArchConfig
+from . import serve, transformer
+from .params import count_params, materialize
+
+
+class ModelBundle(NamedTuple):
+    cfg: ArchConfig
+    specs: dict
+
+    def init(self, generator: torch.Generator, device="cuda") -> dict:
+        """The port's own weights on `device`, drawn from `generator` (a
+        generator on that device)."""
+        return materialize(self.specs, generator, device)
+
+    def n_params(self) -> int:
+        return count_params(self.specs)
+
+    def make_cache(self, batch: int, seq: int, quantized: bool = False, *,
+                   device="cuda"):
+        if quantized:
+            return serve.make_quant_cache(self.cfg, batch, seq,
+                                          device=device)
+        return serve.make_raw_cache(self.cfg, batch, seq, device=device)
+
+    def serve_step(self, params, cache, tokens, pos, mesh=None, kv_cfg=None):
+        return serve.serve_step(self.cfg, params, cache, tokens, pos, mesh,
+                                kv_cfg)
+
+
+def build(cfg: ArchConfig) -> ModelBundle:
+    return ModelBundle(cfg, transformer.param_specs(cfg))

@@ -1,0 +1,300 @@
+"""Decode-step (serving) paths over a KV cache: raw bfloat16, or quantized
+with a guaranteed error bound (counterpart of `repro.models.serve`, the
+dense and vlm families).
+
+Quantized cache layout per layer (`compression.kv`):
+    bins   int8 [L, B, G, S, hd]       4x smaller than bf16 K+V
+    eb2    f32  [L, B, G, nP]          per-page pow2 step
+    out_idx/out_val [L, B, G, nP, cap] exact outliers (bit-exact restore)
+    hot    bf16 [L, B, page, G, hd]    write buffer of the open page
+When the open page fills ((pos + 1) % page == 0) it is quantized within
+the step.  `pos` is a host int (the reference's scalar), so the page close
+is a host branch and needs no device sync.
+
+Attention over the quantized cache has two parts, merged by their softmax
+states as the reference merges them: the closed pages through the
+flash-decode kernel over the int8 pages (`kernels.kv_attention`, B12, with
+its (m, l) output; its plain version on the CPU), and the open hot page
+through `_partial_attn` in torch ops.  The reference dequantizes the
+history to bfloat16 and attends to it with XLA; every bins * eb2 product
+of a normal page is exact in bfloat16 (|bin| <= 127, eb2 a power of two)
+and the outliers are bfloat16 values, so B12 attends to the same values.
+Where the history is empty (pos < page) the kernel is not called and the
+merge takes the hot part alone, with the reference's arithmetic.
+
+Caches are updated in place: `serve_step` returns the cache it was given
+(the reference returns a new one).
+
+Prefill -> decode hand-off: `pack_cache` turns a QuantCache into the
+`PackedCache` wire (closed pages as per-page `PackedKV`, the open hot page
+raw), `transfer_cache` moves it between ranks of a `core.axis` with
+`Transport.send_pages`, and `unpack_cache` restores the decode layout bit
+for bit.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..compression import kv as KVC
+from ..configs.base import ArchConfig
+from ..core.config import QuantizerConfig
+from ..core.pipeline import not_ported, resolve_device
+from ..core.transport import TRANSPORT, Transport
+from ..kernels import kv_attention as KA
+from . import layers as L
+from .transformer import DTYPE, _ffn_block
+
+PAGE = KVC.PAGE
+CAP = KVC.CAP
+
+
+class RawCache(NamedTuple):
+    k: torch.Tensor            # [L, B, S, G, hd]
+    v: torch.Tensor
+
+
+class QuantCache(NamedTuple):
+    k: KVC.QuantizedKV         # bins [L, B, G, S, hd], ...
+    v: KVC.QuantizedKV
+    hot_k: torch.Tensor        # [L, B, page, G, hd]
+    hot_v: torch.Tensor
+
+
+class PackedCache(NamedTuple):
+    """The prefill -> decode transfer wire of a QuantCache: closed pages as
+    per-page `PackedKV` wires, the open hot page raw (it is not quantized
+    yet).  `core.transport.wire_bytes` accounts it field by field."""
+    k: KVC.PackedKV
+    v: KVC.PackedKV
+    hot_k: torch.Tensor
+    hot_v: torch.Tensor
+
+
+def make_raw_cache(cfg: ArchConfig, batch: int, seq: int, n_layers=None, *,
+                   device="cuda") -> RawCache:
+    dev = resolve_device(device)
+    l_ = cfg.n_layers if n_layers is None else n_layers
+    shape = (l_, batch, seq, cfg.n_kv_heads, cfg.head_dim)
+    return RawCache(torch.zeros(shape, dtype=DTYPE, device=dev),
+                    torch.zeros(shape, dtype=DTYPE, device=dev))
+
+
+def make_quant_cache(cfg: ArchConfig, batch: int, seq: int, n_layers=None,
+                     *, device="cuda") -> QuantCache:
+    dev = resolve_device(device)
+    l_ = cfg.n_layers if n_layers is None else n_layers
+    g, hd = cfg.n_kv_heads, cfg.head_dim
+    np_ = seq // PAGE
+
+    def one():
+        return KVC.QuantizedKV(
+            bins=torch.zeros((l_, batch, g, seq, hd), dtype=torch.int8,
+                             device=dev),
+            eb2=torch.zeros((l_, batch, g, np_), device=dev),
+            out_idx=torch.full((l_, batch, g, np_, CAP), -1,
+                               dtype=torch.int32, device=dev),
+            out_val=torch.zeros((l_, batch, g, np_, CAP), device=dev),
+            overflow=torch.zeros((l_, batch, g, np_), dtype=torch.bool,
+                                 device=dev))
+
+    hot = (l_, batch, PAGE, g, hd)
+    return QuantCache(one(), one(), torch.zeros(hot, dtype=DTYPE, device=dev),
+                      torch.zeros(hot, dtype=DTYPE, device=dev))
+
+
+def pack_cache(cache: QuantCache, *, stages=(),
+               integrity: bool = False) -> PackedCache:
+    """QuantCache -> transfer wire.  `stages` is a per-page chain in the
+    two-domain grammar ("zero", "zero|narrow", "kvdelta|zero|narrow", a
+    `configs.registry.KV_PAGE_CHAINS` value), or "auto" / "auto:SET" for a
+    per-page choice; `integrity=True` gives both planes their checksum."""
+    return PackedCache(
+        KVC.pack_kv(cache.k, page=PAGE, stages=stages, integrity=integrity),
+        KVC.pack_kv(cache.v, page=PAGE, stages=stages, integrity=integrity),
+        cache.hot_k, cache.hot_v)
+
+
+def unpack_cache(wire: PackedCache, *, verify: bool = False) -> QuantCache:
+    """Exact inverse of pack_cache: the int8 decode layout (verify=True
+    re-checks each plane's checksum)."""
+    return QuantCache(KVC.unpack_kv(wire.k, page=PAGE, verify=verify),
+                      KVC.unpack_kv(wire.v, page=PAGE, verify=verify),
+                      wire.hot_k, wire.hot_v)
+
+
+def transfer_cache(cache: QuantCache, src: int, dst: int, axis, *,
+                   stages=(), transport: Transport | None = None):
+    """Move a serving cache from rank `src` (prefill) to rank `dst`
+    (decode) of `axis` (every rank calls it with a cache of the same
+    shape).  Pages cross only as PackedKV wires through
+    `Transport.send_pages`; rank `dst` returns the bit-identical
+    QuantCache, the other ranks zeros (ppermute semantics)."""
+    tp = TRANSPORT if transport is None else transport
+    return unpack_cache(tp.send_pages(pack_cache(cache, stages=stages),
+                                      src, dst, axis))
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in ("dense", "vlm"):
+        item = {"hybrid": "ROADMAP A13 (mamba/hybrid serve)",
+                "moe": "ROADMAP A13 (moe)",
+                "ssm": "ROADMAP A13 (xlstm)",
+                "encdec": "ROADMAP A13 (encdec)"}.get(cfg.family,
+                                                      "ROADMAP A13")
+        raise not_ported(f"serving the {cfg.family} family", item)
+
+
+def _project_token(cfg: ArchConfig, p: dict, x: torch.Tensor, pos: int):
+    """x: [B, 1, D] -> q [B, 1, H, hd], k/v [B, 1, G, hd], rope at pos."""
+    b = x.shape[0]
+    h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hx = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q = (hx @ p["wq"]).reshape(b, 1, h, hd)
+    kv = (hx @ p["wkv"]).reshape(b, 1, 2, g, hd)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    cos, sin = L.rope_tables(positions,
+                             hd if cfg.rope == "full" else hd // 2)
+    return (L.apply_rope(q, cos, sin, cfg.rope),
+            L.apply_rope(k, cos, sin, cfg.rope), v)
+
+
+def _attn_decode_raw(cfg: ArchConfig, p: dict, x, kc, vc, pos: int):
+    """kc/vc: [B, S, G, hd], one layer's cache, written in place."""
+    b = x.shape[0]
+    q, k, v = _project_token(cfg, p, x, pos)
+    kc[:, pos] = k[:, 0].to(kc.dtype)
+    vc[:, pos] = v[:, 0].to(vc.dtype)
+    lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    o = L.decode_attention(q, kc, vc, lengths)
+    return x + o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
+
+
+def _quantize_page(qkv: KVC.QuantizedKV, hot: torch.Tensor, page_idx: int,
+                   kv_cfg: QuantizerConfig) -> KVC.QuantizedKV:
+    """Quantize the filled hot page [B, page, G, hd] into history page
+    `page_idx` of qkv (written in place; qkv is returned)."""
+    b, page, g, hd = hot.shape
+    x = hot.permute(0, 2, 1, 3).to(torch.float32)          # [B, G, P, hd]
+    q = KVC.quantize_kv(x, kv_cfg, page=page, cap=CAP)
+    qkv.bins[:, :, page_idx * page:(page_idx + 1) * page] = q.bins
+    qkv.eb2[:, :, page_idx] = q.eb2[..., 0]
+    qkv.out_idx[:, :, page_idx] = q.out_idx[:, :, 0]
+    qkv.out_val[:, :, page_idx] = q.out_val[:, :, 0]
+    qkv.overflow[:, :, page_idx] = q.overflow[..., 0]
+    return qkv
+
+
+def _partial_attn(q, kc, vc, lengths):
+    """Un-normalized attention piece for a two-part merge.  q [B, 1, H, hd];
+    kc/vc [B, T, G, hd]; returns (acc / l [B, H, hd], l [B, H], m [B, H])."""
+    b, _, h, hd = q.shape
+    t, g = kc.shape[1], kc.shape[2]
+    qg = q.reshape(b, g, h // g, hd)
+    scores = torch.einsum("bgqd,bsgd->bgqs", qg.to(torch.float32),
+                          kc.to(torch.float32)) / (hd ** 0.5)
+    valid = torch.arange(t, device=q.device)[None, :] < lengths[:, None]
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full((), L.NEG_BIG, device=q.device))
+    m = scores.amax(-1)                                   # [B, G, gs]
+    p = torch.exp(scores - m[..., None])
+    l_ = p.sum(-1)
+    acc = torch.einsum("bgqs,bsgd->bgqd", p, vc.to(torch.float32))
+    o = acc / torch.clamp(l_, min=1e-30)[..., None]
+    return o.reshape(b, h, hd), l_.reshape(b, h), m.reshape(b, h)
+
+
+def _attn_history(cfg: ArchConfig, q, qk, qv, page_start: int):
+    """The closed pages' part, (o [B, H, hd], l [B, H], m [B, H]), through
+    B12 with lengths = page_start (the kernel on the card, its plain
+    version on the CPU)."""
+    b, _, h, hd = q.shape
+    g = cfg.n_kv_heads
+    qg = q.to(torch.float32).reshape(b, g, h // g, hd)
+    lengths = torch.full((b,), page_start, dtype=torch.int32,
+                         device=q.device)
+    o, m, l_ = KA.kv_decode_attention(qg, qk, qv, lengths, page=PAGE,
+                                      cap=CAP, return_stats=True)
+    return o.reshape(b, h, hd), l_.reshape(b, h), m.reshape(b, h)
+
+
+def _attn_decode_quant(cfg: ArchConfig, p: dict, x, qk, qv, hot_k, hot_v,
+                       pos: int, kv_cfg: QuantizerConfig):
+    """One layer's attention over the quantized cache (written in place):
+    the token goes into the hot page, the closed pages (B12) and the hot
+    page are merged, and the page is quantized when it fills."""
+    b = x.shape[0]
+    q, k, v = _project_token(cfg, p, x, pos)
+    in_page = pos % PAGE
+    hot_k[:, in_page] = k[:, 0].to(hot_k.dtype)
+    hot_v[:, in_page] = v[:, 0].to(hot_v.dtype)
+    page_start = pos - in_page
+    hot_len = torch.full((b,), in_page + 1, dtype=torch.int32,
+                         device=x.device)
+    o_hot, l_hot, m_hot = _partial_attn(q, hot_k, hot_v, hot_len)
+    if page_start > 0:
+        o_hist, l_hist, m_hist = _attn_history(cfg, q, qk, qv, page_start)
+        m = torch.maximum(m_hist, m_hot)
+        w1 = l_hist * torch.exp(m_hist - m)
+    else:
+        # empty history: the reference's weight l exp(NEG_BIG - m) is 0,
+        # so the merge reduces to (o_hot w2) / w2
+        o_hist = torch.zeros_like(o_hot)
+        m, w1 = m_hot, torch.zeros_like(l_hot)
+    w2 = l_hot * torch.exp(m_hot - m)
+    o = (o_hist * w1[..., None] + o_hot * w2[..., None]) / (
+        w1 + w2)[..., None]
+    o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
+    if (pos + 1) % PAGE == 0:                          # close the page
+        _quantize_page(qk, hot_k, pos // PAGE, kv_cfg)
+        _quantize_page(qv, hot_v, pos // PAGE, kv_cfg)
+        hot_k.zero_()
+        hot_v.zero_()
+    return x + o @ p["wo"]
+
+
+def _layer(tree: dict, i: int) -> dict:
+    return {k: v[i] for k, v in tree.items()}
+
+
+def _qkv_layer(qkv: KVC.QuantizedKV, i: int) -> KVC.QuantizedKV:
+    return KVC.QuantizedKV(*(t[i] for t in qkv))
+
+
+def serve_step(cfg: ArchConfig, params: dict, cache, tokens, pos: int,
+               mesh=None, kv_cfg: QuantizerConfig | None = None):
+    """One decode step.  tokens: int [B, 1]; pos: a host int (aligned
+    batch).  Returns (logits float32 [B, V_padded], cache), the cache
+    updated in place.  `mesh` is accepted for the reference's signature
+    and must be None (one card)."""
+    _check_family(cfg)
+    if mesh is not None:
+        raise ValueError("the port serves on one card: mesh must be None")
+    pos = int(pos)
+    x = params["emb"][tokens].to(DTYPE)
+    lay = params["layers"]
+    if isinstance(cache, QuantCache):
+        if kv_cfg is None:
+            raise ValueError("a quantized cache needs kv_cfg")
+        if cache.k.bins.shape[3] <= pos:
+            raise ValueError(f"pos {pos} is past the cache's "
+                             f"{cache.k.bins.shape[3]} tokens")
+        for i in range(cfg.n_layers):
+            lp = _layer(lay, i)
+            x = _attn_decode_quant(cfg, lp, x, _qkv_layer(cache.k, i),
+                                   _qkv_layer(cache.v, i), cache.hot_k[i],
+                                   cache.hot_v[i], pos, kv_cfg)
+            x = _ffn_block(cfg, lp, x)
+    else:
+        if cache.k.shape[2] <= pos:
+            raise ValueError(f"pos {pos} is past the cache's "
+                             f"{cache.k.shape[2]} tokens")
+        for i in range(cfg.n_layers):
+            lp = _layer(lay, i)
+            x = _attn_decode_raw(cfg, lp, x, cache.k[i], cache.v[i], pos)
+            x = _ffn_block(cfg, lp, x)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x @ params["emb"].T.to(DTYPE))[:, 0].to(torch.float32)
+    return logits, cache

@@ -128,7 +128,7 @@ class FaultPlan:
         def walk(node, path):
             if torch.is_tensor(node):
                 leaves.append((path, node))
-            elif isinstance(node, tuple):
+            elif isinstance(node, tuple) or hasattr(node, "map_planes"):
                 for i, v in enumerate(node):
                     walk(v, path + (i,))
 
@@ -150,9 +150,11 @@ class FaultPlan:
             if not path:
                 return new
             items = list(node)
-            items[path[0]] = rebuild(node[path[0]], path[1:])
-            return (type(node)(*items) if hasattr(node, "_fields")
-                    else tuple(items))
+            items[path[0]] = rebuild(items[path[0]], path[1:])
+            if hasattr(node, "_fields"):      # NamedTuples and PackedKV
+                return node._replace(
+                    **{node._fields[path[0]]: items[path[0]]})
+            return tuple(items)
 
         return rebuild(hop, path)
 
@@ -181,7 +183,7 @@ class FaultPlan:
 
     def _header_plane(self, wire):
         """First non-empty header plane (a selector wire's flat `header`),
-        else the outlier count."""
+        else the outlier count (`eb2` on a `PackedKV`)."""
         planes = getattr(wire, "headers", None)
         if planes is None:
             h = getattr(wire, "header", None)
@@ -189,7 +191,8 @@ class FaultPlan:
         for p in planes:
             if p is not None and p.numel():
                 return p
-        return wire.n_outliers
+        fallback = getattr(wire, "n_outliers", None)
+        return wire.eb2 if fallback is None else fallback
 
     def _header_bitflip(self, wire):
         r = self.rng()

@@ -742,3 +742,156 @@ def test_selector_candidates_on_card(chain):
     assert torch.equal(y.cpu().view(torch.int32),
                        sel.decode(wc, n=n, device="cpu").view(torch.int32))
     assert float(sel.wire_bits(w, n)) == float(sel.wire_bits(wc, n))
+
+
+# ---------------------------- serving: B12's (m, l), the KV wire, engine --
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [[0, 128, 256, 511], [0, 0, 1, 384],
+                                     [127, 129, 255, 512]])
+def test_kv_attention_stats_match_plain_version_on_card(lengths):
+    """B12's merged softmax state (m, l) beside its output, against the
+    plain version's, within rtol = atol = 2e-5: at length 0 (no page read:
+    m = -1e30, l = 0, the output NaN), at a page that has just closed (128,
+    256, 384) and inside a page."""
+    _need_card()
+    from repro_torch.kernels import kv_attention as TA
+    q, kq, vq = _kv_case(4, 2, 512, 6)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    out, m, l_ = TA.kv_decode_attention(q, kq, vq, lens, return_stats=True)
+    w_out, w_m, w_l = TA._kv_decode_attention_plain(q, kq, vq, lens,
+                                                    return_stats=True)
+    torch.cuda.synchronize()
+    assert m.shape == l_.shape == (4, 2, 6)
+    torch.testing.assert_close(m, w_m, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(l_, w_l, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(out, w_out, rtol=2e-5, atol=2e-5,
+                               equal_nan=True)
+    empty = lens == 0
+    assert bool((m[empty] == -1e30).all()) and bool((l_[empty] == 0).all())
+    assert bool(torch.isnan(out[empty]).all())
+    assert bool(torch.isfinite(out[~empty]).all())
+    plain = TA.kv_decode_attention(q, kq, vq, lens)
+    assert torch.equal(torch.nan_to_num(plain), torch.nan_to_num(out))
+
+
+def _kv_wire_case():
+    """A small quantized cache [2, 2, 512, 128] on the card: normal pages,
+    a correlated page (kvdelta wins it), an all-zero (unwritten) page and
+    a page with more outliers than slots."""
+    from repro_torch.compression import kv as TKV
+    x = (RNG.standard_normal((2, 2, 512, 128)) * 0.7).astype(np.float32)
+    x[0, 0, 128:256] = np.cumsum(
+        RNG.standard_normal((128, 128)) * 0.01, 0) + 1.0
+    x[1, :, 384:] = 0.0
+    x[0, 1, 256:266, :] = np.inf
+    return TKV.quantize_kv(torch.from_numpy(x).cuda(),
+                           TKV.kv_quantizer_config())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", ["kv-page", "kv-page-narrow",
+                                    "kv-page-pred", "auto"])
+def test_pack_kv_pages_on_card_match_cpu(stages):
+    """pack_kv / unpack_kv on the card (the chunk select B6 over every
+    page's chunks, the expand B7 on unpack) bit-equal to the CPU path, and
+    the round trip exact."""
+    _need_card()
+    from repro_torch.compression import kv as TKV
+    from repro_torch.configs.registry import get_kv_chain
+    from repro_torch.kernels import lossless as TL
+    qkv = _kv_wire_case()
+    spec = get_kv_chain(stages)
+    before = dict(TL.LAUNCHES)
+    p = TKV.pack_kv(qkv, stages=spec, integrity=True)
+    back = TKV.unpack_kv(p, verify=True)
+    torch.cuda.synchronize()
+    assert TL.LAUNCHES["_lc_select"] > before["_lc_select"]
+    assert TL.LAUNCHES["_lc_expand"] > before["_lc_expand"]
+    cpu = TKV.pack_kv(TKV.QuantizedKV(*(t.cpu() for t in qkv)), stages=spec,
+                      integrity=True)
+    for name, a, b in zip(p._fields, p, cpu):
+        if a is None:
+            assert b is None, name
+        elif isinstance(a, tuple):
+            assert all(torch.equal(u.cpu(), w) for u, w in zip(a, b)), name
+        else:
+            assert torch.equal(a.cpu(), b), name
+    for a, b in zip(back, qkv):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, b.view(torch.int32)
+                           if b.is_floating_point() else b)
+
+
+def _engine_cfg():
+    """internlm2-20b's attention heads (48 query heads over 8 KV heads of
+    128) at a narrower residual width and two layers."""
+    from repro_torch.configs.base import ArchConfig as TArch
+    return TArch(name="internlm2-20b-heads", family="dense", n_layers=2,
+                 d_model=1024, n_heads=48, n_kv_heads=8, d_ff=2048,
+                 vocab=4096, head_dim=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slots", [2, 4])
+def test_engine_slots_bit_identical_to_batch1_on_card(n_slots):
+    """Each slot's logits through prefill, insert, a page close and
+    evict -> insert equal, bit for bit, those of the batch-1 serve_step
+    path run alone."""
+    _need_card()
+    from repro_torch.configs.registry import get_kv_chain
+    from repro_torch.models import build as tbuild
+    from repro_torch.models import engine as TE
+    from repro_torch.models import serve as TS
+    cfg = _engine_cfg()
+    params = tbuild(cfg).init(torch.Generator(device="cuda").manual_seed(7))
+    eng = TE.DecodeEngine(cfg, params, n_slots=n_slots, seq=256,
+                          stages=get_kv_chain("kv-page"))
+    prompts = [RNG.integers(0, cfg.vocab, 120 + 3 * i) for i in
+               range(n_slots)]
+    for i, pr in enumerate(prompts):
+        assert eng.insert(eng.allocate(), eng.prefill(pr), request=i)
+    rows = [[] for _ in range(n_slots)]
+    for step in range(12):
+        logits, _ = eng.generate_step()
+        for s in range(n_slots):
+            rows[s].append(logits[s].clone())
+        if step == 5:
+            eng.insert(0, eng.evict(0), request=0)
+    for s, pr in enumerate(prompts):
+        cache = TS.make_quant_cache(cfg, 1, 256)
+        tok = None
+        for i, t in enumerate(pr):
+            logits, cache = eng.step_one(
+                cache, torch.tensor([[int(t)]], device="cuda"), i)
+        tok = torch.argmax(logits, -1).to(torch.int32).reshape(1, 1)
+        for step in range(12):
+            logits, cache = eng.step_one(cache, tok, len(pr) + step)
+            assert torch.equal(logits[0].view(torch.int32),
+                               rows[s][step].view(torch.int32)), (s, step)
+            tok = torch.argmax(logits, -1).to(torch.int32).reshape(1, 1)
+
+
+@pytest.mark.cuda
+def test_serve_step_raises_for_head_dim_80_on_card():
+    """stablelm-3b's head dim 80 is not one the B12 kernel takes: the
+    quantized step raises on the card once the history holds a page (it
+    never runs the plain version there)."""
+    _need_card()
+    from repro_torch.configs.registry import get
+    from repro_torch.models import build as tbuild
+    from repro_torch.models import serve as TS
+    from repro_torch.compression import kv as TKV
+    cfg = get("stablelm-3b")
+    import dataclasses
+    cfg = dataclasses.replace(cfg, n_layers=1, d_model=640, n_heads=8,
+                              n_kv_heads=8, d_ff=256, vocab=256)
+    assert cfg.head_dim == 80
+    params = tbuild(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    cache = TS.make_quant_cache(cfg, 1, 256)
+    kv_cfg = TKV.kv_quantizer_config()
+    tok = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    for pos in range(128):
+        _, cache = TS.serve_step(cfg, params, cache, tok, pos, None, kv_cfg)
+    with pytest.raises(NotImplementedError):
+        TS.serve_step(cfg, params, cache, tok, 128, None, kv_cfg)

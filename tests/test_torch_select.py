@@ -295,8 +295,7 @@ def test_selector_grammar_and_validation():
     assert TS.parse_chain("abs:1e-3|pack:8|zero").spec() == \
         "abs:0.001|pack:8|zero"
     assert TS.is_auto_spec("auto:grad-wire") and not TS.is_auto_spec("abs")
-    with pytest.raises(KeyError, match="A12"):
-        TS.get_selector("kv-page")
+    assert TS.get_selector("kv-page") is TS.get_kv_selector("kv-page")
     with pytest.raises(ValueError, match="not an auto spec"):
         TS.parse_selector("abs:1|pack:8")
     base = TS.parse_pipeline("abs:1e-3|pack:16|shuffle|narrow")
