@@ -123,6 +123,31 @@ median of 5), B12's and the GEMMs' device time a step (`torch.profiler`),
 the step's bytes bound, launches a step (96 of B12), peak memory.  The
 weights are freed before the `grads` phase.
 
+A `moe` phase drives the MoE family and head dim 80:
+olmoe-1b-7b at full width and depth (16 layers, 64 experts, top-8,
+6.82G parameters made on the card from the seed): (a) 8 requests for
+256 steps at seq 512 through `serve_step`, quantized and raw, with the
+checks of serve (a) (every closed page within its bound, quantized
+logits within 0.15 of the raw ones' max, B12 with (m, l) within 2e-5 of
+its plain version on layer 0's real queries, no plain call), the step
+time, a profiled step by kernel kind (B12, GEMMs, the dispatch's
+indexing), the bound with every expert read once and with the experts
+the steps routed to, and the (token, k) pairs dropped past the capacity;
+(b) the engine as in serve (b) (no aligned rows), then `stream_prefill`
+of a 300-token prompt from rank 0 to rank 1 of a 2-thread axis, its
+cache and 8 steps on it bit-identical to the source's, its wire ledger;
+(c) serve (c)'s long context on olmoe; (d) `ModelBundle.prefill` over
+32,768 tokens (time, peak memory, pairs dropped), a 256-token prefill's
+last logits against 256 raw-cache decode steps within 0.15 with every
+pair kept (the reference's capacity drops pairs that a batch-1 decode
+step keeps; that gap is printed beside it), and `flash_attention` on
+layer 0's real q, k, v at 4,096 tokens within 2^-8 |o| + 2^-8 max|v|
+of a float32 softmax attention; (e) qwen3-moe-235b-a22b at full width,
+4 of its 94 layers (128 experts, B12 at Hg = 16), 136 steps with the
+checks of (a); (f) stablelm-3b at full width and depth (B12 at D = 80),
+136 steps with the same checks.  Each model's weights are freed before
+the next.
+
 A `grads` phase drives the compressed gradient all-reduce
 (`compression.grads.compressed_mean_tree` -> `compress_shard` ->
 `core.transport.Transport.reduce_sum`) over the gradients of one
@@ -148,7 +173,8 @@ step, and on w1 the times of one compress_shard and one decode (and for
 `auto` its stats pass and every candidate's own wire bytes).
 
 Output: the card's name and power limit, one JSON line per chain, one
-JSON line per phase (dense, audit, code sweep, kv, serve a/b/c, grads),
+JSON line per phase (dense, audit, code sweep, kv, serve a/b/c, moe
+a-f, grads),
 one JSON line
 {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.  On stderr: the build log and a summary of
@@ -346,18 +372,19 @@ def bound_of(name: str, n: int, bits: int, hist=None):
                       OPS_PER_ELEM[name] * n)
 
 
-def kv_work(lengths, b: int, hg: int, s: int = KV_S):
+def kv_work(lengths, b: int, hg: int, s: int = KV_S, g: int = KV_G,
+            d: int = KV_D):
     """(bytes, operations) of B12 on this run's lengths: the pages it reads
     (those holding a token < lengths[b]) with their int8 K and V tiles, eb2
     and cap (idx, val) slots, q and the output once, the lengths; per token
     read, 4*Hg*D for the scores and p v, 2*D dequantize muls, Hg exps."""
     pages = int((torch.div(lengths.long().clamp(min=0) + KV_PAGE - 1,
                            KV_PAGE, rounding_mode="floor")
-                 .clamp(max=s // KV_PAGE)).sum()) * KV_G
-    per_page = 2 * (KV_PAGE * KV_D + 4 + KV_CAP * 8)
-    n_bytes = pages * per_page + 2 * 4 * b * KV_G * hg * KV_D + 4 * b
+                 .clamp(max=s // KV_PAGE)).sum()) * g
+    per_page = 2 * (KV_PAGE * d + 4 + KV_CAP * 8)
+    n_bytes = pages * per_page + 2 * 4 * b * g * hg * d + 4 * b
     tokens = pages * KV_PAGE
-    return n_bytes, tokens * (4 * hg * KV_D + 2 * KV_D + hg)
+    return n_bytes, tokens * (4 * hg * d + 2 * d + hg)
 
 
 def max_abs_err(a, b) -> float:
@@ -2117,13 +2144,15 @@ def serve_steps(step, cache, toks, pos0: int):
     return out, [a.elapsed_time(b) for a, b in evs]
 
 
-def step_bytes(params, lengths, b: int, hg: int, s: int, n_layers: int):
-    """Least bytes of one decode step: every weight read once, every layer's
-    closed pages that hold a token < lengths (`kv_work`), the hot pages."""
+def step_bytes(params, lengths, b: int, hg: int, s: int, n_layers: int,
+               g: int = KV_G, d: int = KV_D):
+    """Least bytes of one decode step: every weight read once (every expert
+    of a MoE layer too, as its step reads them), every layer's closed pages
+    that hold a token < lengths (`kv_work`)."""
     w = sum(t.numel() * t.element_size() for t in
             (params["emb"], params["final_norm"],
              *params["layers"].values()))
-    kv = n_layers * kv_work(lengths, b, hg, s)[0]
+    kv = n_layers * kv_work(lengths, b, hg, s, g, d)[0]
     return w + kv
 
 
@@ -2185,7 +2214,7 @@ def b12_row(label, qs, kq, vq, lengths, s: int, launches_: int) -> dict:
     per_call, dev_ms = device_kernels(kern)
     del kd, vd
     plain_ms = time_ms(plain, reps=3, warm=1)
-    n_bytes, ops = kv_work(lengths, b, q.shape[2], s)
+    n_bytes, ops = kv_work(lengths, b, q.shape[2], s, q.shape[1], q.shape[3])
     bound_ms, bound_by = bound_from(n_bytes, ops)
     return {"name": name, "route": "cuda", "source": CSRC + KERNELS[name][0],
             "replaces": KERNELS[name][1], "chain": f"serve-{label}",
@@ -2368,7 +2397,8 @@ def serve_aligned(cfg, params, seed: int) -> tuple:
             v for k, v in dev_a.items() if k.startswith("kv_")) or None,
         "kernels_per_step": kernels_a,
         "step_bound_ms": bound_from(step_bytes(
-            params, lens, b, hg, SERVE_SEQ, cfg.n_layers),
+            params, lens, b, hg, SERVE_SEQ, cfg.n_layers, cfg.n_kv_heads,
+            cfg.head_dim),
             2 * sum(t.numel() for t in params["layers"].values()) * b)[0],
         "pages_closed": pages["pages"], "bound_violations":
             pages["violations"], "overflow_pages": pages["overflow"],
@@ -2391,11 +2421,13 @@ def serve_aligned(cfg, params, seed: int) -> tuple:
     return line, rows
 
 
-def serve_engine(cfg, params, seed: int) -> dict:
+def serve_engine(cfg, params, seed: int, batched_rows=SERVE_BATCHED_ROWS,
+                 phase: str = "serve") -> dict:
     """(b): DecodeEngine with 2 slots over 3 requests (one evict -> insert);
     each request's tokens and logits against the sequential batch-1
-    serve_step path; then whether one aligned batched step of 2 rows keeps
-    the batch-1 bits (the evidence for the engine's design)."""
+    serve_step path; then whether one aligned batched step of n rows, for
+    n in `batched_rows`, keeps the batch-1 bits (the evidence for the
+    engine's design)."""
     from repro_torch.compression import kv as KV
     from repro_torch.configs.registry import get_kv_chain
     from repro_torch.models import engine as E
@@ -2446,12 +2478,12 @@ def serve_engine(cfg, params, seed: int) -> dict:
             logits, cache = eng.step_one(cache, tok, p.shape[0] + k)
             want.append(logits[0])
         same &= all(planes_equal(a, b) for a, b in zip(got[r], want))
-    check(same, "serve: an engine slot's logits differ from batch-1")
+    check(same, f"{phase}: an engine slot's logits differ from batch-1")
     # aligned steps of n rows against n batch-1 steps: does one batched
     # step keep the batch-1 bits?
     kv_cfg = KV.kv_quantizer_config()
     batched = {}
-    for n in SERVE_BATCHED_ROWS:
+    for n in batched_rows:
         toks = torch.randint(0, cfg.vocab, (SERVE_BATCHED_STEPS, n, 1),
                              generator=gen, device=DEV, dtype=torch.int32)
         cb = S.make_quant_cache(cfg, n, SERVE_SEQ, device=DEV)
@@ -2475,7 +2507,7 @@ def serve_engine(cfg, params, seed: int) -> dict:
                       "first_differing_logit": first}
         del cb, c1
     st = eng.stats()
-    return {"phase": "serve", "part": "b", "slots": 2,
+    return {"phase": phase, "part": "b", "arch": cfg.name, "slots": 2,
             "prompts": list(SERVE_PROMPTS), "new_tokens": SERVE_NEW,
             "engine_s": engine_s, "generate_steps": steps,
             "slots_bit_identical_to_batch1": same,
@@ -2485,7 +2517,8 @@ def serve_engine(cfg, params, seed: int) -> dict:
             "audit_checks": st["audit_checks"]}
 
 
-def serve_long(cfg, params, seed: int) -> tuple:
+def serve_long(cfg, params, seed: int, phase: str = "serve",
+               label: str = "c") -> tuple:
     """(c): LONG_B requests at LONG_SEQ with every layer's closed pages from
     quantize_kv of seeded K, V = N(0,1)*0.7 and a hot page of LONG_POS %
     page tokens; LONG_STEPS steps from LONG_POS.  Returns (line, row)."""
@@ -2522,10 +2555,10 @@ def serve_long(cfg, params, seed: int) -> tuple:
     logits, ms = serve_steps(qstep, cache, toks[:LONG_STEPS], LONG_POS)
     counts = launches()
     finite = all(bool(torch.isfinite(t).all()) for t in logits)
-    check(finite, "serve (c): a logit is not finite")
+    check(finite, f"{phase} (c): a logit is not finite")
     per_step = counts[b12] / LONG_STEPS      # calls: split + merge each
     check(per_step == cfg.n_layers,
-          f"serve (c): {per_step} B12 calls per step")
+          f"{phase} (c): {per_step} B12 calls per step")
     pos = [LONG_POS + LONG_STEPS]
 
     def one():
@@ -2541,16 +2574,16 @@ def serve_long(cfg, params, seed: int) -> tuple:
     lens = torch.full((LONG_B,), LONG_POS - in_page, dtype=torch.int32,
                       device=DEV)
     n_bytes = step_bytes(params, lens, LONG_B, cfg.group_size, LONG_SEQ,
-                         cfg.n_layers)
+                         cfg.n_layers, cfg.n_kv_heads, cfg.head_dim)
     ops = 2 * sum(t.numel() for t in params["layers"].values()) * LONG_B
     bound_ms = max(n_bytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
     # B12 alone on layer 0's cache at these lengths
     qs = layer0_queries(cfg, params, toks[-1], pos[0], gen)
-    row = b12_row("c", qs, KV.QuantizedKV(*(t[0] for t in cache.k)),
+    row = b12_row(label, qs, KV.QuantizedKV(*(t[0] for t in cache.k)),
                   KV.QuantizedKV(*(t[0] for t in cache.v)), lens, LONG_SEQ,
                   counts[b12])
     step_ms = statistics.median(ms)
-    line = {"phase": "serve", "part": "c", "batch": LONG_B,
+    line = {"phase": phase, "part": "c", "arch": cfg.name, "batch": LONG_B,
             "seq": LONG_SEQ, "pos": LONG_POS, "steps": LONG_STEPS,
             "fill_s": fill_s, "step_ms": step_ms, "step_ms_all": ms,
             "step_bound_ms": bound_ms, "step_bytes": n_bytes,
@@ -2599,6 +2632,401 @@ def serve_phase(seed: int) -> list:
     del params
     torch.cuda.empty_cache()
     return rows + [row_c]
+
+
+MOE_ARCH = "olmoe-1b-7b"
+MOE_WIDE_ARCH, MOE_WIDE_LAYERS = "qwen3-moe-235b-a22b", 4
+D80_ARCH = "stablelm-3b"
+MOE_STEPS, MOE_SHORT_STEPS = 256, 136   # past two page closes; past one
+STREAM_PROMPT, STREAM_MORE = 300, 8
+PREFILL_LONG, PREFILL_CHECK, FLASH_S = 32_768, 256, 4096
+# flash_attention against a float32 softmax: p rounded to bfloat16 moves
+# the output by at most 2^-9 max|v| of its row, the bfloat16 output
+# rounding by 2^-9 |o|; the limit is twice each
+FLASH_RTOL, FLASH_VTOL = 2.0 ** -8, 2.0 ** -8
+
+
+@contextlib.contextmanager
+def moe_dispatch_counts():
+    """Wrap `models.moe.dispatch_slots` for the block: per call, the
+    (token, k) pairs dropped past the capacity and the distinct experts
+    chosen, summed on the card (a few small kernels a call, no sync).
+    Yields a dict read after the block: calls, pairs, and the 0-d tensors
+    dropped and experts (None without a call)."""
+    from repro_torch.models import moe as M
+    real = M.dispatch_slots
+    acc = {"calls": 0, "pairs": 0, "dropped": None, "experts": None}
+
+    def wrapped(gate_idx, n_experts, cap):
+        pos, keep, slot = real(gate_idx, n_experts, cap)
+        dropped = (~keep).sum()
+        used = torch.nn.functional.one_hot(
+            gate_idx.reshape(-1), n_experts).amax(0).sum()
+        for key, v in (("dropped", dropped), ("experts", used)):
+            acc[key] = v if acc[key] is None else acc[key] + v
+        acc["calls"] += 1
+        acc["pairs"] += keep.numel()
+        return pos, keep, slot
+
+    M.dispatch_slots = wrapped
+    try:
+        yield acc
+    finally:
+        M.dispatch_slots = real
+
+
+def dispatch_summary(acc: dict, per: int, unit: str = "step") -> dict:
+    """The dropped pairs and the distinct experts of `moe_dispatch_counts`,
+    in total and per `unit` (`per` of them: steps, or a prefill's
+    layers)."""
+    if not acc["calls"]:
+        return {"dispatch_calls": 0}
+    dropped = int(acc["dropped"])
+    return {"dispatch_calls": acc["calls"], "pairs": acc["pairs"],
+            "pairs_dropped": dropped, f"pairs_dropped_per_{unit}": dropped / per,
+            "dropped_share": dropped / acc["pairs"],
+            "experts_used_per_call": int(acc["experts"]) / acc["calls"]}
+
+
+def expert_bytes(params) -> int:
+    """Bytes of the expert weights (w1, w3, w2 of the MoE layers)."""
+    lay = params["layers"]
+    if "router" not in lay:
+        return 0
+    return sum(lay[k].numel() * lay[k].element_size()
+               for k in ("w1", "w3", "w2"))
+
+
+def device_groups(dev_ms: dict) -> dict:
+    """A step's device ms by kind: B12, the GEMMs, the MoE dispatch's
+    scatter and gather (indexing kernels), the rest."""
+    out = {"b12": 0.0, "gemm": 0.0, "dispatch_index": 0.0, "other": 0.0}
+    for k, v in dev_ms.items():
+        if k.startswith("kv_"):
+            out["b12"] += v
+        elif re.search(r"gemm|gemv|nvjet|sm90|cutlass|splitK", k, re.I):
+            out["gemm"] += v
+        elif re.search(r"index|scatter|gather", k, re.I):
+            out["dispatch_index"] += v
+        else:
+            out["other"] += v
+    return out
+
+
+def aligned_run(cfg, params, seed: int, steps: int, label: str) -> tuple:
+    """SERVE_B requests of seeded tokens for `steps` steps at SERVE_SEQ
+    through serve_step with the quantized cache and with the raw one: the
+    checks of serve (a) (every closed page within its bound, quantized
+    logits within SERVE_QUANT_TOL of the raw ones' max, B12 with (m, l)
+    within KV_TOL of its plain version on layer 0's real queries, no plain
+    call), the step times, a profiled step by kernel kind, the bound with
+    every expert read once and with the experts the steps routed to, and
+    the pairs dropped.  Returns (line, B12 row)."""
+    from repro_torch.compression import kv as KV
+    from repro_torch.models import serve as S
+    kv_cfg = KV.kv_quantizer_config()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 30)
+    toks = torch.randint(0, cfg.vocab, (steps + 1, SERVE_B, 1),
+                         generator=gen, device=DEV, dtype=torch.int32)
+    qcache = S.make_quant_cache(cfg, SERVE_B, SERVE_SEQ, device=DEV)
+    rcache = S.make_raw_cache(cfg, SERVE_B, SERVE_SEQ, device=DEV)
+
+    def qstep(c, t, pos):
+        return S.serve_step(cfg, params, c, t, pos, None, kv_cfg)
+
+    def rstep(c, t, pos):
+        return S.serve_step(cfg, params, c, t, pos, None, None)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with closed_pages() as kept, plain_calls(SERVE_PLAIN_FNS) as plain, \
+            moe_dispatch_counts() as moe:
+        q_logits, q_ms = serve_steps(qstep, qcache, toks[:steps], 0)
+        counts = launches()
+    r_logits, r_ms = serve_steps(rstep, rcache, toks[:steps], 0)
+    pages = page_bound_tally(kept)
+    del kept
+    b12 = "_kv_decode_attention"
+    closes = steps // KV_PAGE
+    check(counts[b12] == cfg.n_layers * (steps - KV_PAGE),
+          f"moe ({label}): {counts[b12]} B12 calls, want "
+          f"{cfg.n_layers * (steps - KV_PAGE)}")
+    check(pages["pages"] == 2 * closes * cfg.n_layers * SERVE_B
+          * cfg.n_kv_heads, f"moe ({label}): {pages['pages']} pages closed")
+    check(pages["violations"] == 0,
+          f"moe ({label}): {pages['violations']} values outside their "
+          f"page bound")
+    check(plain["calls"] == 0, f"moe ({label}): {plain['calls']} plain calls")
+    rel = [float((lq - lr).abs().max() / lr.abs().max())
+           for lq, lr in zip(q_logits, r_logits)]
+    finite = all(bool(torch.isfinite(t).all()) for t in q_logits + r_logits)
+    check(finite, f"moe ({label}): a logit is not finite")
+    check(max(rel) < SERVE_QUANT_TOL,
+          f"moe ({label}): quantized logits {max(rel)} of max|raw| from the "
+          f"raw ones")
+    del r_logits, rcache
+    pos = [steps]
+
+    def one():
+        qstep(qcache, toks[-1], pos[0])
+        pos[0] += 1
+
+    traced = {}
+    kernels, dev = device_kernels(one, reps=2, per_kernel=traced)
+    qs = layer0_queries(cfg, params, toks[-1], pos[0], gen)
+    kq0 = KV.QuantizedKV(*(t[0] for t in qcache.k))
+    vq0 = KV.QuantizedKV(*(t[0] for t in qcache.v))
+    lens = torch.full((SERVE_B,), pos[0] - pos[0] % KV_PAGE,
+                      dtype=torch.int32, device=DEV)
+    row = b12_row(label, qs, kq0, vq0, lens, SERVE_SEQ, counts[b12])
+    n_bytes = step_bytes(params, lens, SERVE_B, cfg.group_size, SERVE_SEQ,
+                         cfg.n_layers, cfg.n_kv_heads, cfg.head_dim)
+    ops = 2 * sum(t.numel() for t in params["layers"].values()) * SERVE_B
+    disp = dispatch_summary(moe, steps)
+    eb = expert_bytes(params)
+    routed = n_bytes - eb + (eb * disp["experts_used_per_call"]
+                             / cfg.moe_experts if eb else 0)
+    hist_ms = statistics.median(q_ms[KV_PAGE:])
+    line = {"phase": "moe", "part": label[-1], "arch": cfg.name,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "kv_heads": cfg.n_kv_heads, "hg": cfg.group_size,
+            "head_dim": cfg.head_dim, "experts": cfg.moe_experts,
+            "top_k": cfg.moe_top_k, "batch": SERVE_B, "seq": SERVE_SEQ,
+            "steps": steps,
+            "step_ms_no_history": statistics.median(q_ms[:KV_PAGE]),
+            "step_ms_with_history": hist_ms,
+            "step_ms_page_close": [q_ms[KV_PAGE * (i + 1) - 1]
+                                   for i in range(closes)],
+            "raw_step_ms": statistics.median(r_ms[KV_PAGE:]),
+            "step_bytes": n_bytes,
+            "step_bound_ms": bound_from(n_bytes, ops)[0],
+            "step_bound_routed_ms": routed / HBM_BYTES_PER_S * 1e3,
+            "share": bound_from(n_bytes, ops)[0] / hist_ms,
+            "device_ms_per_step": sum(dev.values()) or None,
+            "device_ms_by_kind": device_groups(dev),
+            "device_ms_top_kernels": dict(sorted(
+                dev.items(), key=lambda kv: -kv[1])[:8]),
+            "kernels_per_step": kernels,
+            "b12_kernel_launches_per_step_traced": sum(
+                v for k, v in traced.items() if k.startswith("kv_")) or None,
+            "pages_closed": pages["pages"],
+            "bound_violations": pages["violations"],
+            "overflow_pages": pages["overflow"],
+            "quant_vs_raw_max": max(rel), "quant_vs_raw_last": rel[-1],
+            "tolerance": SERVE_QUANT_TOL, "b12_calls": counts[b12],
+            "b12_max_abs_err": row["max_abs_err"],
+            "b12_tolerance_used": row["tolerance_used"],
+            "plain_calls": plain["calls"], **disp,
+            "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+    del qcache
+    return line, row
+
+
+def moe_stream(cfg, params, seed: int) -> dict:
+    """(b), second half: stream_prefill of a STREAM_PROMPT-token prompt from
+    rank 0 to rank 1 of a 2-thread axis on the card; the assembled cache
+    bit-identical to the source cache (the batch-1 serve_step chain) and
+    STREAM_MORE steps on it bit-equal to as many on the source."""
+    from repro_torch.compression import kv as KV
+    from repro_torch.configs.registry import get_kv_chain
+    from repro_torch.core.axis import run_threads
+    from repro_torch.models import engine as E
+    from repro_torch.models import serve as S
+    kv_cfg = KV.kv_quantizer_config()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 31)
+    prompt = torch.randint(0, cfg.vocab, (STREAM_PROMPT,), generator=gen,
+                           device=DEV, dtype=torch.int32)
+    stages = get_kv_chain("kv-page")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = run_threads(2, lambda ax: E.stream_prefill(
+        cfg, params, prompt, seq=SERVE_SEQ, axis=ax, stages=stages))[1]
+    torch.cuda.synchronize()
+    stream_s = time.time() - t0
+    src = S.make_quant_cache(cfg, 1, SERVE_SEQ, device=DEV)
+    for i in range(STREAM_PROMPT):
+        logits, src = S.serve_step(cfg, params, src, prompt[i].reshape(1, 1),
+                                   i, None, kv_cfg)
+    check(caches_equal(got.cache, src),
+          "moe (b): the streamed cache differs from the source")
+    check(planes_equal(got.logits, logits),
+          "moe (b): the streamed logits differ from the source's")
+    a, b, tok, same = E._clone_cache(got.cache), src, got.next_token, True
+    for i in range(STREAM_MORE):
+        la, a = S.serve_step(cfg, params, a, tok, STREAM_PROMPT + i, None,
+                             kv_cfg)
+        lb, b = S.serve_step(cfg, params, b, tok, STREAM_PROMPT + i, None,
+                             kv_cfg)
+        same &= planes_equal(la, lb)
+        tok = torch.argmax(la, -1).to(torch.int32).reshape(1, 1)
+    check(same, "moe (b): steps on the streamed cache differ")
+    st = got.stats
+    raw = 2 * cfg.n_layers * SERVE_SEQ * cfg.n_kv_heads * cfg.head_dim * 2
+    return {"prompt": STREAM_PROMPT, "stream_s": stream_s,
+            "pages_streamed": st["pages_streamed"], "sends": st["sends"],
+            "wire_bytes": st["wire_bytes"], "ledger": st["ledger"],
+            "raw_slot_bytes": raw, "cache_bit_identical": True,
+            "steps_after_bit_equal": same}
+
+
+def moe_prefill(cfg, params, seed: int) -> dict:
+    """(d): ModelBundle.prefill at B = 1 over PREFILL_LONG tokens (time,
+    peak memory, pairs dropped); a PREFILL_CHECK-token prefill against as
+    many raw-cache serve_steps, with the reference's capacity and with a
+    capacity that drops nothing; flash_attention on layer 0's real q, k, v
+    at FLASH_S tokens against a float32 softmax attention."""
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models import serve as S
+    bundle = build(cfg)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 32)
+    toks = torch.randint(0, cfg.vocab, (1, PREFILL_LONG), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with moe_dispatch_counts() as moe:
+        a.record()
+        last = bundle.prefill(params, {"tokens": toks})
+        b.record()
+        b.synchronize()
+    ms = a.elapsed_time(b)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(last.shape == (1, cfg.padded_vocab) and last.dtype == torch.float32
+          and bool(torch.isfinite(last).all()),
+          "moe (d): the 32K prefill's logits")
+    disp = dispatch_summary(moe, cfg.n_layers, "layer")
+    # 256-token prefill against 256 raw-cache decode steps
+    short = toks[:, :PREFILL_CHECK]
+    with moe_dispatch_counts() as moe_short:
+        last_ref_cap = bundle.prefill(params, {"tokens": short})
+    real_cap = M.capacity
+    M.capacity = lambda n, e, k, f=1.0: n * k     # every pair kept
+    try:
+        with moe_dispatch_counts() as moe_all:
+            last_all = bundle.prefill(params, {"tokens": short})
+    finally:
+        M.capacity = real_cap
+    rc = S.make_raw_cache(cfg, 1, PREFILL_CHECK, device=DEV)
+    for i in range(PREFILL_CHECK):
+        lr, rc = S.serve_step(cfg, params, rc, short[:, i:i + 1], i)
+    del rc
+    gap_cap = float((last_ref_cap - lr).abs().max() / lr.abs().max())
+    gap_all = float((last_all - lr).abs().max() / lr.abs().max())
+    check(int(moe_all["dropped"]) == 0, "moe (d): a pair dropped")
+    check(gap_all < SERVE_QUANT_TOL,
+          f"moe (d): prefill's last logits {gap_all} of max|decode| from "
+          f"the decode steps'")
+    # flash_attention on layer 0's real q, k, v
+    with first_call_args(L, "flash_attention") as qkv:
+        bundle.prefill(params, {"tokens": toks[:, :FLASH_S]})
+    q, k, v = qkv[0][:3]
+    got = L.flash_attention(q, k, v).float()
+    hd = q.shape[-1]
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    sc = torch.matmul(qf, kf.transpose(-1, -2)) / hd ** 0.5
+    causal = torch.ones((FLASH_S, FLASH_S), dtype=torch.bool,
+                        device=DEV).tril()
+    sc = torch.where(causal, sc, torch.full((), -float("inf"), device=DEV))
+    want = torch.matmul(torch.softmax(sc, -1), vf).permute(0, 2, 1, 3)
+    del sc, causal
+    vmax = vf.abs().amax(dim=(0, 2, 3))[None, None, :, None]  # per head
+    limit = FLASH_RTOL * want.abs() + FLASH_VTOL * vmax
+    used = float(((got - want).abs() / limit).max())
+    flash_err = float((got - want).abs().max())
+    check(used <= 1.0, f"moe (d): flash_attention {flash_err} from float32 "
+                       f"attention ({used} of its limit)")
+    return {"phase": "moe", "part": "d", "arch": cfg.name, "batch": 1,
+            "tokens": PREFILL_LONG, "prefill_ms": ms,
+            "tokens_per_s": PREFILL_LONG / ms * 1e3,
+            "peak_device_GB": peak, "weights_GB": base_gb, **disp,
+            "check_tokens": PREFILL_CHECK,
+            "prefill_vs_decode_all_kept": gap_all,
+            "prefill_vs_decode_reference_capacity": gap_cap,
+            "check_pairs_dropped_reference_capacity":
+                int(moe_short["dropped"]),
+            "check_pairs": moe_short["pairs"],
+            "tolerance": SERVE_QUANT_TOL,
+            "flash_tokens": FLASH_S, "flash_max_abs_err": flash_err,
+            "flash_tolerance": f"{FLASH_RTOL}*|o| + {FLASH_VTOL}*max|v|",
+            "flash_tolerance_used": used}
+
+
+def moe_phase(seed: int) -> list:
+    """The MoE family and head dim 80 on the card: olmoe-1b-7b at full width
+    and depth, (a) the aligned batch, (b) the engine and stream_prefill,
+    (c) the long context, (d) prefill; (e) qwen3-moe-235b-a22b at full
+    width, MOE_WIDE_LAYERS of its layers; (f) stablelm-3b at full width and
+    depth (B12 at D = 80).  Frees each model's weights before the next.
+    Returns the kernel rows."""
+    import dataclasses
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels import lossless as LC
+    from repro_torch.models import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+
+    def load(cfg, offset):
+        bundle = build(cfg)
+        t0 = time.time()
+        params = bundle.init(
+            torch.Generator(device=DEV).manual_seed(seed + offset),
+            device=DEV)
+        torch.cuda.synchronize()
+        check(bundle.n_params() == sum(
+            t.numel() for t in (params["emb"], params["final_norm"],
+                                *params["layers"].values())),
+            f"moe: {cfg.name} parameter count")
+        return params, {"n_params": bundle.n_params(),
+                        "weights_GB": torch.cuda.memory_allocated() / 1e9,
+                        "init_s": time.time() - t0}
+
+    cfg = get(MOE_ARCH)
+    params, info = load(cfg, 33)
+    line, row = aligned_run(cfg, params, seed, MOE_STEPS, "moe-a")
+    print(json.dumps({**line, **info}), flush=True)
+    rows.append(row)
+    reset_launches()
+    with first_call_args(LC, "lc_select") as sel_args, \
+            first_call_args(LC, "lc_expand") as exp_args:
+        line_b = serve_engine(cfg, params, seed, batched_rows=(),
+                              phase="moe")
+        lc_counts = launches()
+    line_b["stream"] = moe_stream(cfg, params, seed)
+    print(json.dumps(line_b), flush=True)
+    rows += lc_rows(sel_args[0][:2], exp_args[0][:3], lc_counts)
+    line_c, row_c = serve_long(cfg, params, seed, phase="moe",
+                               label="moe-c")
+    eb = expert_bytes(params)
+    line_c["expert_bytes"] = eb
+    line_c["step_bound_active_ms"] = (
+        line_c["step_bytes"] - eb + eb * min(
+            1.0, LONG_B * cfg.moe_top_k / cfg.moe_experts)) \
+        / HBM_BYTES_PER_S * 1e3
+    print(json.dumps(line_c), flush=True)
+    rows.append(row_c)
+    print(json.dumps(moe_prefill(cfg, params, seed)), flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+    for name, layers, label, offset in (
+            (MOE_WIDE_ARCH, MOE_WIDE_LAYERS, "moe-e", 34),
+            (D80_ARCH, None, "moe-f", 35)):
+        cfg = get(name)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        params, info = load(cfg, offset)
+        line, row = aligned_run(cfg, params, seed, MOE_SHORT_STEPS, label)
+        line.update(info, full_layers=get(name).n_layers)
+        print(json.dumps(line), flush=True)
+        rows.append(row)
+        del params
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main(argv=None) -> int:
@@ -2663,6 +3091,7 @@ def main(argv=None) -> int:
                       shape=(g * s // KV_PAGE, KV_PAGE, d))
     del k_row0
     rows += serve_phase(args.seed)
+    rows += moe_phase(args.seed)
     rows += grads_phase(args.seed)
     check(set(KERNELS) <= {r["name"] for r in rows},
           "a kernel has no main-path row")

@@ -11,7 +11,8 @@ checksums, `core.audit`, and its fault harness `runtime.guard`),
 `repro_torch.compression.kv` with `repro_torch.kernels.kv_attention` (the
 int8 quantized KV cache, its packed wire and its flash-decode attention),
 `repro_torch.compression.grads` (the compressed gradient all-reduce over
-`core.transport`), and `repro_torch.models` (the dense and vlm decode
-step over a raw or quantized cache, and the `DecodeEngine`).  Every
+`core.transport`), and `repro_torch.models` (the dense, vlm and MoE
+families' decode step over a raw or quantized cache, their forward pass
+and prefill, the `DecodeEngine` and `stream_prefill`).  Every
 kernel is hand-written CUDA C++ in `kernels/csrc/`.
 """

@@ -8,9 +8,16 @@
 // a pow2 step eb2 per page of P tokens, and per page up to `cap` exact
 // outlier values at flat in-page indices (-1 = empty slot).  The output is
 // softmax(q k^T / sqrt(D), masked to tokens < lengths[b]) v, in float32.
+// The kernels are templates over D (and Hg); D = 128 (internlm2, olmoe,
+// qwen3-moe) and D = 80 (stablelm-3b) are instantiated, the page is 128
+// tokens for both.  At D = 80 a tile row is 80 bytes (five 16-byte
+// chunks, stored unswizzled), QK^T takes 5 k-steps of 16 channels, p v
+// 5 m-tiles of 16 channels (warps of channel group 3 sit it out, those of
+// group 2 half), and the merge has 80 threads a group.
 //
-// Bound.  Per page the work reads 2 P D = 32 KB of bins and does ~4 Hg P D
-// operations: ~12 flop/byte at Hg = 6, near the card's float32 ridge, so on
+// Bound.  Per page the work reads 2 P D bytes of bins (32 KB at D = 128)
+// and does ~4 Hg P D operations: ~12 flop/byte at Hg = 6, near the card's
+// float32 ridge, so on
 // CUDA cores the arithmetic (with its int8 conversions, shared-memory
 // operands and softmax) costs more than the bytes.  The dots go to the
 // tensor cores instead, and the bytes set the bound.
@@ -72,9 +79,7 @@
 
 namespace {
 
-constexpr int KD = 128;                 // head dim D
 constexpr int KP = 128;                 // page P (tokens)
-constexpr int TILE = KP * KD;           // bytes of one int8 tile
 constexpr int MAX_HG = 16;
 constexpr int MAX_CAP = 64;
 constexpr int NT = 256;                 // threads of a split block
@@ -144,12 +149,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Where 16-byte chunk c of row r of a tile lands: K rows XOR by (r & 7) (a
-// thread reads 32 bytes of one row; 8 rows in a phase), V rows by
-// 2 ((r >> 2) & 3) (a thread reads one word of 4 consecutive rows).
-__device__ __forceinline__ int k_chunk(int r, int c) { return c ^ (r & 7); }
+// Bytes of one int8 tile (a page of K or of V) at head dim D.
+template <int D>
+__host__ __device__ constexpr int tile_bytes() {
+  return KP * D;
+}
+
+// Where 16-byte chunk c of row r of a tile lands.  At D = 128: K rows XOR
+// by (r & 7) (a thread reads 32 bytes of one row; 8 rows in a phase), V
+// rows by 2 ((r >> 2) & 3) (a thread reads one word of 4 consecutive
+// rows).  At D = 80 (five chunks a row) in place: the score reads, one
+// word at channel 20 c4 + 4 s of rows g, are conflict-free as they lie.
+template <int D>
+__device__ __forceinline__ int k_chunk(int r, int c) {
+  return D == 128 ? c ^ (r & 7) : c;
+}
+template <int D>
 __device__ __forceinline__ int v_chunk(int r, int c) {
-  return c ^ (2 * ((r >> 2) & 3));
+  return D == 128 ? c ^ (2 * ((r >> 2) & 3)) : c;
 }
 
 // Bytes of one stage's side data: eb2 of K and V, then K idx, K val,
@@ -162,9 +179,9 @@ __host__ __device__ constexpr int padded_heads(int hg) {
   return (hg + 7) / 8 * 8;
 }
 
-__host__ __device__ inline int split_smem(int hg, int cap) {
+__host__ __device__ inline int split_smem(int d, int hg, int cap) {
   const int hgp = padded_heads(hg);
-  return STAGES * (2 * TILE + side_bytes(cap)) +
+  return STAGES * (2 * KP * d + side_bytes(cap)) +
          hgp * PS_STRIDE * 4 + 3 * hgp * P3_STRIDE * 2 + hgp * 4;
 }
 
@@ -177,26 +194,32 @@ struct Cache {
 
 // Bit i of the result: slot 32 k + i (< cap) of idx holds an in-page
 // index (one ballot of the warp).
+template <int D>
 __device__ __forceinline__ unsigned live_slots(const int* idx, int cap,
                                                int k) {
   const int e = 32 * k + threadIdx.x % 32;
   const int v = e < cap ? idx[e] : -1;
-  return __ballot_sync(0xFFFFFFFFu, v >= 0 && v < TILE);
+  return __ballot_sync(0xFFFFFFFFu, v >= 0 && v < tile_bytes<D>());
 }
 
 // Issue the copies of global page `page` into stage buffer `tile`/`side`.
+template <int D>
 __device__ __forceinline__ void load_page(const Cache& k, const Cache& v,
                                           size_t page, int cap, int8_t* tile,
                                           char* side) {
+  constexpr int TILE = tile_bytes<D>();
+  constexpr int CHUNKS = TILE / 16, CPR = D / 16;  // chunks a tile, a row
   const int tid = threadIdx.x;
   const int8_t* ksrc = k.bins + page * TILE;
   const int8_t* vsrc = v.bins + page * TILE;
 #pragma unroll
-  for (int r = 0; r < TILE / 16 / NT; ++r) {
+  for (int r = 0; r < (CHUNKS + NT - 1) / NT; ++r) {
     int j = r * NT + tid;                   // 16-byte chunk of the tile
-    int row = j >> 3, c = j & 7;
-    cp_async16(tile + row * KD + 16 * k_chunk(row, c), ksrc + 16 * j);
-    cp_async16(tile + TILE + row * KD + 16 * v_chunk(row, c), vsrc + 16 * j);
+    if (CHUNKS % NT != 0 && j >= CHUNKS) break;
+    int row = j / CPR, c = j % CPR;
+    cp_async16(tile + row * D + 16 * k_chunk<D>(row, c), ksrc + 16 * j);
+    cp_async16(tile + TILE + row * D + 16 * v_chunk<D>(row, c),
+               vsrc + 16 * j);
   }
   for (int e = tid; e < 2 + 4 * cap; e += NT) {
     const void* src;
@@ -215,22 +238,26 @@ __device__ __forceinline__ void load_page(const Cache& k, const Cache& v,
 
 // One block of 8 warps per run of pages of one (b, g).  Fragment layouts
 // are those of mma.m16n8k16 (g = lane / 4, c = lane % 4).  Scores: S^T =
-// K q^T, M = tokens (warp w: m-tile w), N = heads, K = channels, with the
-// channel of k-index 2c + {0, 1} + 8 {0, 1} at step s being
-// 32 c + 4 s + 2 {0, 1} + {0, 1}: a thread reads 4 consecutive bytes of a
-// row per step.  p v: O^T = V^T p^T, M = channels (warp w: channels
-// 32 (w % 4) .. + 31; row g of m-tile j is channel 32 (w % 4) + 4g + 2j,
-// row g + 8 the next), N = heads, K = tokens (warp w: tokens 64 (w / 4) ..
-// + 63; the token of k-index 2c + {0,1} + 8 {0,1} at step s is
-// 16 s + 4 c + 2 {0,1} + {0,1}).  The two token halves are added at the
-// end of the split.  Each bf16 part of q and p has its own accumulator, so
-// the mma chains are a third as deep.
-template <int HG>
+// K q^T, M = tokens (warp w: m-tile w), N = heads, K = channels in D / 16
+// steps, with the channel of k-index 2c + {0, 1} + 8 {0, 1} at step s
+// being (D / 4) c + 4 s + 2 {0, 1} + {0, 1}: a thread reads 4 consecutive
+// bytes of a row per step.  p v: O^T = V^T p^T, M = channels (warp w:
+// channels 32 (w % 4) .. + 31, those below D; row g of m-tile j is channel
+// 32 (w % 4) + 4g + 2j, row g + 8 the next), N = heads, K = tokens (warp
+// w: tokens 64 (w / 4) .. + 63; the token of k-index 2c + {0,1} +
+// 8 {0,1} at step s is 16 s + 4 c + 2 {0,1} + {0,1}).  The two token
+// halves are added at the end of the split.  Each bf16 part of q and p
+// has its own accumulator, so the mma chains are a third as deep.
+template <int D, int HG>
 __global__ void __launch_bounds__(NT, padded_heads(HG) <= 8 ? 2 : 1)
 kv_split_kernel(const float* __restrict__ q, const int* __restrict__ lengths,
                 Cache kc, Cache vc, float* __restrict__ ws_m,
                 float* __restrict__ ws_l, float* __restrict__ ws_acc, int G,
                 int S, int cap, int pps, float scale) {
+  static_assert(D % 16 == 0 && D <= 128, "D: a multiple of 16, at most 128");
+  constexpr int TILE = tile_bytes<D>();
+  constexpr int KS = D / 16;                       // k-steps of QK^T
+  constexpr int CPT = D / 4;                       // channels of a c4 lane
   constexpr int HGP = padded_heads(HG);
   constexpr int NTL = HGP / 8;                     // n-tiles of heads
   constexpr int HPW = (HG + NWARP - 1) / NWARP;    // softmax heads per warp
@@ -255,12 +282,13 @@ kv_split_kernel(const float* __restrict__ q, const int* __restrict__ lengths,
   if (p0 >= n_used) return;                 // the merge reads no such split
   const int np = min(p0 + pps, n_used) - p0;
   const size_t page0 = (size_t)bg * n_pages_all + p0;
-  const float* qg = q + (size_t)bg * HG * KD;
+  const float* qg = q + (size_t)bg * HG * D;
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < np)
-      load_page(kc, vc, page0 + s, cap, tiles + s * 2 * TILE, sides + s * sb);
+      load_page<D>(kc, vc, page0 + s, cap, tiles + s * 2 * TILE,
+                   sides + s * sb);
     cp_async_commit();
   }
   // padded heads: p = 0 and alpha = 1 throughout
@@ -268,15 +296,15 @@ kv_split_kernel(const float* __restrict__ q, const int* __restrict__ lengths,
   for (int i = tid; i < HGP; i += NT) a_s[i] = 1.0f;
 
   // q^T as B fragments, three bf16 parts: head 8 n + g, channels
-  // 32 c4 + 4 s + {0, 1} (b0) and + {2, 3} (b1)
-  uint32_t qf[NTL][8][3][2];
+  // CPT c4 + 4 s + {0, 1} (b0) and + {2, 3} (b1)
+  uint32_t qf[NTL][KS][3][2];
 #pragma unroll
   for (int n = 0; n < NTL; ++n) {
     const int h = 8 * n + g;
 #pragma unroll
-    for (int s = 0; s < 8; ++s) {
+    for (int s = 0; s < KS; ++s) {
       float4 v = h < HG ? *reinterpret_cast<const float4*>(
-                              qg + h * KD + 32 * c4 + 4 * s)
+                              qg + h * D + CPT * c4 + 4 * s)
                         : make_float4(0.f, 0.f, 0.f, 0.f);
       float x0[3], x1[3], x2[3], x3[3];
       split3(v.x, x0);
@@ -311,7 +339,7 @@ kv_split_kernel(const float* __restrict__ q, const int* __restrict__ lengths,
     {
       int nxt = i + STAGES - 1;
       if (nxt < np)
-        load_page(kc, vc, page0 + nxt, cap,
+        load_page<D>(kc, vc, page0 + nxt, cap,
                   tiles + (nxt % STAGES) * 2 * TILE,
                   sides + (nxt % STAGES) * sb);
       cp_async_commit();
@@ -331,13 +359,27 @@ kv_split_kernel(const float* __restrict__ q, const int* __restrict__ lengths,
     // tokens 16 warp .. 16 warp + 15 -> ps
     {
       const int r0 = 16 * warp + g, r1 = r0 + 8;
-      uint4 w[2][2];                        // rows r0, r1: 32 bytes each
+      uint32_t kw[2][KS];                   // rows r0, r1: a word a step
+      if constexpr (D == 128) {             // 32 bytes a row, two chunks
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        w[0][h] = *reinterpret_cast<const uint4*>(
-            kt + r0 * KD + 16 * k_chunk(r0, 2 * c4 + h));
-        w[1][h] = *reinterpret_cast<const uint4*>(
-            kt + r1 * KD + 16 * k_chunk(r1, 2 * c4 + h));
+        for (int h = 0; h < 2; ++h) {
+          const uint4 w0 = *reinterpret_cast<const uint4*>(
+              kt + r0 * D + 16 * k_chunk<D>(r0, 2 * c4 + h));
+          const uint4 w1 = *reinterpret_cast<const uint4*>(
+              kt + r1 * D + 16 * k_chunk<D>(r1, 2 * c4 + h));
+          kw[0][4 * h] = w0.x, kw[0][4 * h + 1] = w0.y;
+          kw[0][4 * h + 2] = w0.z, kw[0][4 * h + 3] = w0.w;
+          kw[1][4 * h] = w1.x, kw[1][4 * h + 1] = w1.y;
+          kw[1][4 * h + 2] = w1.z, kw[1][4 * h + 3] = w1.w;
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < KS; ++s) {
+          kw[0][s] = *reinterpret_cast<const uint32_t*>(
+              kt + r0 * D + CPT * c4 + 4 * s);
+          kw[1][s] = *reinterpret_cast<const uint32_t*>(
+              kt + r1 * D + CPT * c4 + 4 * s);
+        }
       }
       float sc[3][NTL][4];
 #pragma unroll
@@ -347,13 +389,11 @@ kv_split_kernel(const float* __restrict__ q, const int* __restrict__ lengths,
 #pragma unroll
           for (int e = 0; e < 4; ++e) sc[part][n][e] = 0.0f;
 #pragma unroll
-      for (int s = 0; s < 8; ++s) {
+      for (int s = 0; s < KS; ++s) {
         uint32_t a[4];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const uint4& x = w[r][s / 4];
-          uint32_t word = ((s % 4) == 0 ? x.x : (s % 4) == 1 ? x.y
-                           : (s % 4) == 2 ? x.z : x.w) ^ 0x80808080u;
+          const uint32_t word = kw[r][s] ^ 0x80808080u;
           a[r] = pack_bf16(byte_to_float(word, 0), byte_to_float(word, 1));
           a[r + 2] = pack_bf16(byte_to_float(word, 2), byte_to_float(word, 3));
         }
@@ -393,12 +433,12 @@ kv_split_kernel(const float* __restrict__ q, const int* __restrict__ lengths,
         for (int j = 0; j < KP / 32; ++j)
           sc[j] = ps[h * PS_STRIDE + j * 32 + lane];
         for (int w = 0; 32 * w < cap; ++w)  // K outliers of this lane's tokens
-          for (unsigned live = live_slots(kidx, cap, w); live;
+          for (unsigned live = live_slots<D>(kidx, cap, w); live;
                live &= live - 1) {
             const int e = 32 * w + __ffs(live) - 1;
-            const int idx = kidx[e], t = idx / KD;
+            const int idx = kidx[e], t = idx / D;
             if (t % 32 == lane && tok0 + t < len) {
-              const float add = qg[h * KD + idx % KD] * kval[e] * scale;
+              const float add = qg[h * D + idx % D] * kval[e] * scale;
 #pragma unroll
               for (int j = 0; j < KP / 32; ++j)
                 if (j == t / 32) sc[j] += add;
@@ -436,9 +476,9 @@ kv_split_kernel(const float* __restrict__ q, const int* __restrict__ lengths,
     }
     __syncthreads();
 
-    // acc = acc alpha + eb2 (p bins) + p val: channels 32 cw .. + 31,
-    // tokens 64 tw .. + 63
-    {
+    // acc = acc alpha + eb2 (p bins) + p val: channels 32 cw .. + 31 (those
+    // below D), tokens 64 tw .. + 63
+    if (32 * cw < D) {
       float pv[3][2][NTL][4];
 #pragma unroll
       for (int part = 0; part < 3; ++part)
@@ -448,8 +488,10 @@ kv_split_kernel(const float* __restrict__ q, const int* __restrict__ lengths,
           for (int n = 0; n < NTL; ++n)
 #pragma unroll
             for (int e = 0; e < 4; ++e) pv[part][j][n][e] = 0.0f;
-      // this lane's word in rows 16 s + 4 c4 + u: the same column for all
-      const int8_t* vcol = vt + 16 * v_chunk(4 * c4, 2 * cw + g / 4) +
+      // this lane's word in rows 16 s + 4 c4 + u: the same column for all;
+      // a lane past D reads bins of 0
+      const bool vok = D % 32 == 0 || 32 * cw + 4 * g < D;
+      const int8_t* vcol = vt + 16 * v_chunk<D>(4 * c4, 2 * cw + g / 4) +
                            4 * (g % 4);
 #pragma unroll
       for (int s = 4 * tw; s < 4 * tw + 4; ++s) {
@@ -457,8 +499,9 @@ kv_split_kernel(const float* __restrict__ q, const int* __restrict__ lengths,
         uint32_t w[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          w[u] = *reinterpret_cast<const uint32_t*>(vcol + (t + u) * KD) ^
-                 0x80808080u;
+          w[u] = vok ? *reinterpret_cast<const uint32_t*>(vcol + (t + u) * D) ^
+                           0x80808080u
+                     : 0x80808080u;
         uint32_t a[2][4];
 #pragma unroll
         for (int j = 0; j < 2; ++j) {       // m-tile j: bytes 2j (row g), 2j+1
@@ -494,11 +537,11 @@ kv_split_kernel(const float* __restrict__ q, const int* __restrict__ lengths,
           }
       }
       for (int w = 0; 32 * w < cap; ++w)     // V outliers in this lane's slice
-        for (unsigned live = live_slots(vidx, cap, w); live;
+        for (unsigned live = live_slots<D>(vidx, cap, w); live;
              live &= live - 1) {
         const int e = 32 * w + __ffs(live) - 1;
         const int idx = vidx[e];
-        const int d = idx % KD, t = idx / KD;
+        const int d = idx % D, t = idx / D;
         if (d / 32 == cw && t / 64 == tw && (d / 4) % 8 == g) {
           const float val = vval[e];
           const int j = (d / 2) % 2, hi = d % 2;
@@ -550,13 +593,13 @@ kv_split_kernel(const float* __restrict__ q, const int* __restrict__ lengths,
         for (int e = 0; e < 4; ++e) {
           const int h = 8 * n + 2 * c4 + e % 2;
           const int d = 32 * cw + 4 * g + 2 * j + e / 2;
-          if (h < HG)
-            ws_acc[(slot * HG + h) * KD + d] =
+          if (h < HG && d < D)
+            ws_acc[(slot * HG + h) * D + d] =
                 acc[j][n][e] + mine[(j * NTL + n) * 4 + e];
         }
 }
 
-// Block (bg, h) of MERGE_GROUPS x 128 threads, thread = (group, channel):
+// Block (bg, h) of MERGE_GROUPS x D threads, thread = (group, channel):
 // combine the splits of (b, g) that hold pages into out[b, g, h, :].  The
 // max over the splits is a block reduction; each group sums every
 // MERGE_GROUPS-th split with independent loads, and the groups' sums are
@@ -566,22 +609,23 @@ kv_split_kernel(const float* __restrict__ q, const int* __restrict__ lengths,
 // a caller can merge this part with another.
 constexpr int MERGE_GROUPS = 4;
 
-__global__ void __launch_bounds__(MERGE_GROUPS * KD)
+template <int D>
+__global__ void __launch_bounds__(MERGE_GROUPS * D)
 kv_merge_kernel(const int* __restrict__ lengths,
                 const float* __restrict__ ws_m, const float* __restrict__ ws_l,
                 const float* __restrict__ ws_acc, float* __restrict__ out,
                 float* __restrict__ m_out, float* __restrict__ l_out,
                 int G, int hg, int S, int pps, int nsplit) {
-  __shared__ float red_m[MERGE_GROUPS * KD / 32];
-  __shared__ float red_a[MERGE_GROUPS][KD], red_l[MERGE_GROUPS][KD];
+  __shared__ float red_m[MERGE_GROUPS * D / 32];
+  __shared__ float red_a[MERGE_GROUPS][D], red_l[MERGE_GROUPS][D];
   const int bg = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, d = tid % KD, grp = tid / KD;
+  const int tid = threadIdx.x, d = tid % D, grp = tid / D;
   const int len = lengths[bg / G];
   const int n_used = len <= 0 ? 0 : min(S / KP, (len + KP - 1) / KP);
   const int n_split = (n_used + pps - 1) / pps;
   const size_t base = (size_t)bg * nsplit;
   float m = NEG_BIG;
-  for (int i = tid; i < n_split; i += MERGE_GROUPS * KD)
+  for (int i = tid; i < n_split; i += MERGE_GROUPS * D)
     m = max_nan2(ws_m[(base + i) * hg + h], m);
 #pragma unroll
   for (int o = 16; o > 0; o /= 2)
@@ -589,14 +633,14 @@ kv_merge_kernel(const int* __restrict__ lengths,
   if (tid % 32 == 0) red_m[tid / 32] = m;
   __syncthreads();
 #pragma unroll
-  for (int w = 0; w < MERGE_GROUPS * KD / 32; ++w) m = max_nan2(red_m[w], m);
+  for (int w = 0; w < MERGE_GROUPS * D / 32; ++w) m = max_nan2(red_m[w], m);
   float l = 0.0f, a = 0.0f;
 #pragma unroll 4
   for (int i = grp; i < n_split; i += MERGE_GROUPS) {
     const size_t s = (base + i) * hg + h;
     const float w = expf(ws_m[s] - m);
     l += ws_l[s] * w;
-    a += ws_acc[s * KD + d] * w;
+    a += ws_acc[s * D + d] * w;
   }
   red_a[grp][d] = a;
   red_l[grp][d] = l;
@@ -607,7 +651,7 @@ kv_merge_kernel(const int* __restrict__ lengths,
       a += red_a[k][d];
       l += red_l[k][d];
     }
-    out[((size_t)bg * hg + h) * KD + d] = a / l;
+    out[((size_t)bg * hg + h) * D + d] = a / l;
     if (m_out != nullptr && d == 0) {
       m_out[(size_t)bg * hg + h] = m;
       l_out[(size_t)bg * hg + h] = l;
@@ -617,7 +661,7 @@ kv_merge_kernel(const int* __restrict__ lengths,
 
 // Raise the split kernel's dynamic shared memory limit to smem bytes on
 // the current device, once per (device, size).
-template <int HG>
+template <int D, int HG>
 cudaError_t allow_smem(int smem) {
   constexpr int MAX_DEV = 64;
   static int set[MAX_DEV] = {};
@@ -626,34 +670,52 @@ cudaError_t allow_smem(int smem) {
   if (err != cudaSuccess) return err;
   if (dev < MAX_DEV && set[dev] >= smem) return cudaSuccess;
   err = cudaFuncSetAttribute(
-      kv_split_kernel<HG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kv_split_kernel<D, HG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err == cudaSuccess && dev < MAX_DEV) set[dev] = smem;
   return err;
 }
 
-template <int HG>
+template <int D, int HG>
 cudaError_t launch_split(dim3 grid, int smem, cudaStream_t stream,
                          const float* q, const int* lengths, Cache k, Cache v,
                          float* ws_m, float* ws_l, float* ws_acc, int G, int S,
                          int cap, int pps, float scale) {
-  cudaError_t err = allow_smem<HG>(smem);
+  cudaError_t err = allow_smem<D, HG>(smem);
   if (err != cudaSuccess) return err;
-  kv_split_kernel<HG><<<grid, NT, smem, stream>>>(
+  kv_split_kernel<D, HG><<<grid, NT, smem, stream>>>(
       q, lengths, k, v, ws_m, ws_l, ws_acc, G, S, cap, pps, scale);
   return cudaGetLastError();
-}
-
-template <int HG>
-cudaError_t occupancy(int smem, int* blocks) {
-  cudaError_t err = allow_smem<HG>(smem);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, kv_split_kernel<HG>, NT, smem);
 }
 
 #define KV_HG_CASES(X) \
   X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) \
   X(14) X(15) X(16)
+
+template <int D, int HG>
+cudaError_t occupancy(int smem, int* blocks) {
+  cudaError_t err = allow_smem<D, HG>(smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kv_split_kernel<D, HG>, NT, smem);
+}
+
+// Launch the split kernel at (d, hg), both checked by the caller.
+template <int D>
+cudaError_t split_for(int hg, dim3 grid, int smem, cudaStream_t st,
+                      const float* q, const int* lengths, Cache k, Cache v,
+                      float* ws_m, float* ws_l, float* ws_acc, int G, int S,
+                      int cap, int pps, float scale) {
+  switch (hg) {
+#define KV_CASE(H)                                                   \
+  case H:                                                            \
+    return launch_split<D, H>(grid, smem, st, q, lengths, k, v, ws_m, \
+                              ws_l, ws_acc, G, S, cap, pps, scale);
+    KV_HG_CASES(KV_CASE)
+#undef KV_CASE
+  }
+  return cudaErrorInvalidValue;
+}
 
 }  // namespace
 
@@ -664,8 +726,8 @@ cudaError_t occupancy(int smem, int* blocks) {
 // B G nsplit hg D, with nsplit = ceil(S / page / pps); m_out and l_out are
 // null or hold B G hg floats each (the merged softmax state); the wrapper
 // (kernels/kv_attention.py) allocates them and checks shapes, types and
-// contiguity; here D = page = 128, 1 <= hg <= 16, 0 <= cap <= 64 and
-// pps >= 1 are checked again.
+// contiguity; here D in {80, 128}, page = 128, 1 <= hg <= 16,
+// 0 <= cap <= 64 and pps >= 1 are checked again.
 
 extern "C" int repro_kv_decode_attention(
     const float* q, const int* lengths, const int8_t* kbins,
@@ -674,8 +736,8 @@ extern "C" int repro_kv_decode_attention(
     const float* vval, float* out, float* ws_m, float* ws_l, float* ws_acc,
     float* m_out, float* l_out, int B, int G, int hg, int S, int D,
     int page, int cap, int pps, float scale, void* stream) {
-  if (D != KD || page != KP || hg < 1 || hg > MAX_HG || S % KP != 0 ||
-      cap < 0 || cap > MAX_CAP || pps < 1 ||
+  if ((D != 80 && D != 128) || page != KP || hg < 1 || hg > MAX_HG ||
+      S % KP != 0 || cap < 0 || cap > MAX_CAP || pps < 1 ||
       (m_out == nullptr) != (l_out == nullptr))
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || G <= 0) return 0;
@@ -684,37 +746,37 @@ extern "C" int repro_kv_decode_attention(
   cudaError_t err = cudaSuccess;
   if (nsplit > 0) {
     const dim3 grid(B * G, nsplit);
-    const int smem = split_smem(hg, cap);
+    const int smem = split_smem(D, hg, cap);
     const Cache k{kbins, keb2, kidx, kval}, v{vbins, veb2, vidx, vval};
-    switch (hg) {
-#define KV_CASE(H)                                                      \
-  case H:                                                               \
-    err = launch_split<H>(grid, smem, st, q, lengths, k, v, ws_m, ws_l, \
-                          ws_acc, G, S, cap, pps, scale);               \
-    break;
-      KV_HG_CASES(KV_CASE)
-#undef KV_CASE
-    }
+    err = D == 128 ? split_for<128>(hg, grid, smem, st, q, lengths, k, v,
+                                    ws_m, ws_l, ws_acc, G, S, cap, pps, scale)
+                   : split_for<80>(hg, grid, smem, st, q, lengths, k, v,
+                                   ws_m, ws_l, ws_acc, G, S, cap, pps, scale);
     if (err != cudaSuccess) return (int)err;
   }
-  kv_merge_kernel<<<dim3(B * G, hg), MERGE_GROUPS * KD, 0, st>>>(
-      lengths, ws_m, ws_l, ws_acc, out, m_out, l_out, G, hg, S, pps,
-      nsplit);
+  if (D == 128)
+    kv_merge_kernel<128><<<dim3(B * G, hg), MERGE_GROUPS * 128, 0, st>>>(
+        lengths, ws_m, ws_l, ws_acc, out, m_out, l_out, G, hg, S, pps,
+        nsplit);
+  else
+    kv_merge_kernel<80><<<dim3(B * G, hg), MERGE_GROUPS * 80, 0, st>>>(
+        lengths, ws_m, ws_l, ws_acc, out, m_out, l_out, G, hg, S, pps,
+        nsplit);
   return (int)cudaGetLastError();
 }
 
-// The split kernel's dynamic shared memory and how many of its blocks one
-// SM holds at (hg, cap); 0 = ok, else a CUDA error code.
+// The D = 128 split kernel's dynamic shared memory and how many of its
+// blocks one SM holds at (hg, cap); 0 = ok, else a CUDA error code.
 extern "C" int repro_kv_decode_occupancy(int hg, int cap, int* smem_bytes,
                                          int* blocks_per_sm) {
   if (hg < 1 || hg > MAX_HG || cap < 0 || cap > MAX_CAP)
     return (int)cudaErrorInvalidValue;
-  *smem_bytes = split_smem(hg, cap);
+  *smem_bytes = split_smem(128, hg, cap);
   cudaError_t err = cudaSuccess;
   switch (hg) {
-#define KV_CASE(H) \
-  case H:          \
-    err = occupancy<H>(*smem_bytes, blocks_per_sm); \
+#define KV_CASE(H)                                      \
+  case H:                                               \
+    err = occupancy<128, H>(*smem_bytes, blocks_per_sm); \
     break;
     KV_HG_CASES(KV_CASE)
 #undef KV_CASE

@@ -44,7 +44,8 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 NEG_BIG = -1e30
 MAX_HG = 16          # query heads per KV head the kernel takes
 MAX_CAP = 64         # outlier slots per page the kernel takes
-HEAD_DIM = 128       # the kernel's D (and its page, PAGE)
+HEAD_DIMS = (80, 128)  # the kernel's instances of D (stablelm-3b; the rest)
+KERNEL_PAGE = 128    # the kernel's page (tokens)
 H100_SMS = 132       # the split's SM count where no card is asked
 MAX_PAGES_PER_SPLIT = 16
 
@@ -118,8 +119,9 @@ def _resolve_pages_per_split(q, n_pages: int, pages_per_split) -> int:
 
 
 def kv_occupancy(hg: int, cap: int = CAP) -> tuple[int, int]:
-    """(dynamic shared memory bytes, blocks per SM) of the split kernel at
-    (hg, cap), as the CUDA runtime reports them on the current card."""
+    """(dynamic shared memory bytes, blocks per SM) of the D = 128 split
+    kernel at (hg, cap), as the CUDA runtime reports them on the current
+    card."""
     import ctypes
     from . import _build
     lib = _build.load()
@@ -193,8 +195,9 @@ def kv_decode_attention(q: torch.Tensor, kq: QuantizedKV, vq: QuantizedKV,
                         return_stats: bool = False):
     """q: float32 [B, G, Hg, D]; kq, vq: QuantizedKV with bins [B, G, S, D];
     lengths: int32 [B].  Returns float32 [B, G, Hg, D], and with
-    return_stats also the merged (m, l), float32 [B, G, Hg] each.  The CUDA kernel
-    takes D = page = 128, Hg <= 16 and cap <= 64, and raises otherwise.
+    return_stats also the merged (m, l), float32 [B, G, Hg] each.  The CUDA
+    kernel takes D in {80, 128}, page = 128, Hg <= 16 and cap <= 64, and
+    raises otherwise.
     `pages_per_split` (default: `default_pages_per_split` of the shapes and
     the SM count) sets the pages each split block takes; the result does
     not depend on it beyond the order of the sums.  Makes no host sync."""
@@ -206,12 +209,12 @@ def kv_decode_attention(q: torch.Tensor, kq: QuantizedKV, vq: QuantizedKV,
                                           pages_per_split=pps,
                                           return_stats=return_stats)
     b, g, hg, d = q.shape
-    if (d != HEAD_DIM or page != HEAD_DIM or not 1 <= hg <= MAX_HG
+    if (d not in HEAD_DIMS or page != KERNEL_PAGE or not 1 <= hg <= MAX_HG
             or cap > MAX_CAP):
         raise NotImplementedError(
-            f"the CUDA kernel takes D = page = {HEAD_DIM}, 1 <= Hg <= "
-            f"{MAX_HG} and cap <= {MAX_CAP}, got D={d}, page={page}, "
-            f"Hg={hg}, cap={cap}")
+            f"the CUDA kernel takes D in {HEAD_DIMS}, page = {KERNEL_PAGE}, "
+            f"1 <= Hg <= {MAX_HG} and cap <= {MAX_CAP}, got D={d}, "
+            f"page={page}, Hg={hg}, cap={cap}")
     ops = [t.contiguous() for t in (q, lengths, *kq[:4], *vq[:4])]
     if any(t.data_ptr() % 16 for t in (ops[2], ops[6])):
         raise ValueError("the bins planes must be 16-byte aligned")

@@ -18,7 +18,15 @@ and `generate_step` runs the live slots' batch-1 `serve_step`s in turn, so
 each slot's logits are bit-identical to the single-request path at the
 same position (the reference vmaps the batch-1 step over a slot axis).  One aligned
 step over 4 slots is not bit-identical to their 4 batch-1 steps on the
-card, so the batched step waits (ROADMAP A14), as does `stream_prefill`.
+card, so the batched step waits (ROADMAP A14).  A batch-1 step also keeps
+a MoE layer from dropping: one token has K distinct experts and one slot
+in each.
+
+Streaming migration (`stream_prefill`): the prefill rank packs each KV
+page the moment it closes and hands it to `Transport.send_pages` as a
+single-page `PageWire`; the open hot page and the last logits follow in
+one raw `TailWire`; the decode rank assembles the slot cache from the
+received wires, bit-identical to the source.
 """
 from __future__ import annotations
 
@@ -35,6 +43,33 @@ from ..core.config import QuantizerConfig
 from ..core.pipeline import resolve_device
 from ..core.transport import TRANSPORT, Transport
 from . import serve as S
+
+
+class PageWire(NamedTuple):
+    """One closed page on the wire: the K and V `PackedKV` of a single
+    page, the unit of streaming migration."""
+    k: KVC.PackedKV
+    v: KVC.PackedKV
+
+
+class TailWire(NamedTuple):
+    """The end of a prefill: the open hot page (raw: it is not quantized
+    yet) and the last prompt position's logits, from which the decode rank
+    picks the first generated token."""
+    hot_k: torch.Tensor
+    hot_v: torch.Tensor
+    logits: torch.Tensor
+
+
+class StreamedPrefill(NamedTuple):
+    """`stream_prefill`'s result: the batch-1 cache assembled from the
+    per-page wires (`DecodeEngine.insert_cache` takes it), the first
+    token, the last logits, the insert position and the transfer ledger."""
+    cache: S.QuantCache
+    next_token: torch.Tensor          # int32 [1, 1]
+    logits: torch.Tensor              # f32 [1, V]
+    pos: int
+    stats: dict
 
 
 class PrefillResult(NamedTuple):
@@ -268,9 +303,11 @@ class DecodeEngine:
 
     def run(self, prompts, max_new_tokens: int, *, prefill_fn=None):
         """Reference continuous-batching loop: admit pending requests as
-        slots free, step every live slot, release finished ones.  Returns
-        {request index: [generated token ids]}, `max_new_tokens` each,
-        greedy."""
+        slots free, step every live slot, release finished ones.
+        `prefill_fn(prompt)` returns a `PrefillResult` (the default,
+        `self.prefill`) or a `StreamedPrefill` (pages already migrated).
+        Returns {request index: [generated token ids]}, `max_new_tokens`
+        each, greedy."""
         prefill_fn = self.prefill if prefill_fn is None else prefill_fn
         pending = collections.deque(enumerate(list(prompts)))
         out = {rid: [] for rid, _ in pending}
@@ -282,7 +319,14 @@ class DecodeEngine:
                     break
                 rid, prompt = pending.popleft()
                 pre = prefill_fn(prompt)
-                self.insert(slot, pre, request=rid)
+                if isinstance(pre, StreamedPrefill):
+                    self.insert_cache(slot, pre.cache,
+                                      next_token=pre.next_token,
+                                      pos=pre.pos, request=rid)
+                    self._stats["wire_bytes"] += pre.stats["wire_bytes"]
+                    self._stats["sends"] += pre.stats["sends"]
+                else:
+                    self.insert(slot, pre, request=rid)
                 out[rid].append(int(pre.next_token.reshape(())))
                 budget[rid] = max_new_tokens - 1
                 if budget[rid] <= 0:
@@ -299,3 +343,77 @@ class DecodeEngine:
                 if budget[rid] <= 0 or self._pos[slot] >= self.seq:
                     self.release(slot)
         return out
+
+
+# --------------------------------------------------- streaming migration ---
+
+def stream_prefill(cfg: ArchConfig, params: dict, prompt, *, seq: int, axis,
+                   src: int = 0, dst: int = 1,
+                   kv_cfg: QuantizerConfig | None = None, stages="zero",
+                   transport: Transport | None = None) -> StreamedPrefill:
+    """Prefill on rank `src` of `axis` (a `core.axis` axis: threads on one
+    card, or `DistAxis`), shipping each KV page to rank `dst` the moment it
+    closes.  Every rank calls it with the same prompt (only `src` computes
+    on it; the others pass wires of the same shapes, as `transfer_cache`
+    takes a cache of the same shape on every rank).
+
+    Every closed page crosses as a single-page `PageWire` (two `PackedKV`s
+    in the per-page chain `stages`) through `Transport.send_pages`; the
+    open hot page and the last position's logits follow in one raw
+    `TailWire`.  Rank `dst` returns the cache assembled from the received
+    wires, bit-identical to the source cache; the other ranks return zeros
+    in its place (ppermute semantics).  `stats["ledger"]` lists
+    (kind, page index, bytes) per wire, accounted by
+    `Transport.bytes_moved` on the wire the rank sent or received."""
+    tp = TRANSPORT if transport is None else transport
+    kv_cfg = KVC.kv_quantizer_config() if kv_cfg is None else kv_cfg
+    dev = params["emb"].device
+    if not torch.is_tensor(prompt):
+        prompt = torch.from_numpy(np.asarray(prompt, dtype=np.int32))
+    prompt = prompt.to(device=dev, dtype=torch.int32).reshape(-1)
+    m = int(prompt.shape[0])
+    if not 0 < m < seq:
+        raise ValueError(f"prompt of {m} tokens for seq={seq}")
+    if seq % S.PAGE:
+        raise ValueError(f"seq={seq} is not a multiple of {S.PAGE}")
+    S._check_family(cfg)
+    me = axis.rank
+
+    def page_wire(cache, p):
+        return PageWire(*(KVC.pack_kv(KVC.slice_pages(q, p, page=S.PAGE),
+                                      page=S.PAGE, stages=stages)
+                          for q in (cache.k, cache.v)))
+
+    def send(wire):
+        got = tp.send_pages(wire, src, dst, axis)
+        return got, float(tp.bytes_moved(wire if me == src else got,
+                                         op="send_pages"))
+
+    cache = S.make_quant_cache(cfg, 1, seq, device=dev)
+    recv = S.make_quant_cache(cfg, 1, seq, device=dev)
+    k, v = recv.k, recv.v
+    ledger = []
+    logits = torch.zeros((1, cfg.padded_vocab), device=dev)
+    for i in range(m):
+        if me == src:
+            logits, cache = S.serve_step(cfg, params, cache,
+                                         prompt[i].reshape(1, 1), i, None,
+                                         kv_cfg)
+        if (i + 1) % S.PAGE == 0:
+            p = i // S.PAGE
+            # the other ranks send the same shapes from an empty page
+            got, moved = send(page_wire(cache, p))
+            ledger.append(("PageWire", p, moved))
+            if me == dst:
+                k = KVC.paste_pages(k, KVC.unpack_kv(got.k, page=S.PAGE), p,
+                                    page=S.PAGE)
+                v = KVC.paste_pages(v, KVC.unpack_kv(got.v, page=S.PAGE), p,
+                                    page=S.PAGE)
+    tail, moved = send(TailWire(cache.hot_k, cache.hot_v, logits))
+    ledger.append(("TailWire", m // S.PAGE, moved))
+    assembled = S.QuantCache(k, v, tail.hot_k, tail.hot_v)
+    nxt = torch.argmax(tail.logits, -1).to(torch.int32).reshape(1, 1)
+    stats = dict(wire_bytes=sum(b for *_, b in ledger), sends=len(ledger),
+                 pages_streamed=len(ledger) - 1, ledger=ledger,
+                 prefill_tokens=m)
+    return StreamedPrefill(assembled, nxt, tail.logits, m, stats)

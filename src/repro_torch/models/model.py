@@ -1,8 +1,8 @@
-"""Family dispatcher: ArchConfig -> parameter specs, weights, caches and
-the decode step (counterpart of `repro.models.model`, serving half, dense
-and vlm families).  The other families raise, naming their ROADMAP item;
-`loss`/`prefill`/`input_specs` wait for `transformer.forward` (ROADMAP
-A13)."""
+"""Family dispatcher: ArchConfig -> parameter specs, weights, caches, the
+forward pass's prefill and the decode step (counterpart of
+`repro.models.model`, for the dense, vlm and MoE families).  The other
+families raise, naming their ROADMAP item; `loss` and `input_specs` wait
+for the training and dry-run slices (ROADMAP A15/A16)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -36,6 +36,14 @@ class ModelBundle(NamedTuple):
     def serve_step(self, params, cache, tokens, pos, mesh=None, kv_cfg=None):
         return serve.serve_step(self.cfg, params, cache, tokens, pos, mesh,
                                 kv_cfg)
+
+    def prefill(self, params, batch: dict, mesh=None) -> torch.Tensor:
+        """The forward pass without a loss (the prefill_32k program):
+        batch["tokens"] int [B, S] -> the last position's logits, float32
+        [B, V_padded]."""
+        logits, _ = transformer.forward(self.cfg, params, batch["tokens"],
+                                        mesh, remat=False)
+        return logits[:, -1].to(torch.float32)
 
 
 def build(cfg: ArchConfig) -> ModelBundle:

@@ -1,6 +1,9 @@
 """Decode-step (serving) paths over a KV cache: raw bfloat16, or quantized
 with a guaranteed error bound (counterpart of `repro.models.serve`, the
-dense and vlm families).
+dense, vlm and MoE families).  A MoE layer's FFN is the reference's
+`moe_ffn_local` over the step's B tokens (capacity max(1, int(K B / E))
+slots per expert, so an aligned batch can drop (token, k) pairs, as the
+reference's step does).
 
 Quantized cache layout per layer (`compression.kv`):
     bins   int8 [L, B, G, S, hd]       4x smaller than bf16 K+V
@@ -137,9 +140,8 @@ def transfer_cache(cache: QuantCache, src: int, dst: int, axis, *,
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         item = {"hybrid": "ROADMAP A13 (mamba/hybrid serve)",
-                "moe": "ROADMAP A13 (moe)",
                 "ssm": "ROADMAP A13 (xlstm)",
                 "encdec": "ROADMAP A13 (encdec)"}.get(cfg.family,
                                                       "ROADMAP A13")
@@ -286,7 +288,7 @@ def serve_step(cfg: ArchConfig, params: dict, cache, tokens, pos: int,
             x = _attn_decode_quant(cfg, lp, x, _qkv_layer(cache.k, i),
                                    _qkv_layer(cache.v, i), cache.hot_k[i],
                                    cache.hot_v[i], pos, kv_cfg)
-            x = _ffn_block(cfg, lp, x)
+            x, _ = _ffn_block(cfg, lp, x)
     else:
         if cache.k.shape[2] <= pos:
             raise ValueError(f"pos {pos} is past the cache's "
@@ -294,7 +296,7 @@ def serve_step(cfg: ArchConfig, params: dict, cache, tokens, pos: int,
         for i in range(cfg.n_layers):
             lp = _layer(lay, i)
             x = _attn_decode_raw(cfg, lp, x, cache.k[i], cache.v[i], pos)
-            x = _ffn_block(cfg, lp, x)
+            x, _ = _ffn_block(cfg, lp, x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["emb"].T.to(DTYPE))[:, 0].to(torch.float32)
     return logits, cache

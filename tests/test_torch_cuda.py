@@ -356,32 +356,33 @@ def test_dense_kernels_match_plain_versions_on_card(eb, n, offset):
 
 # ------------------------- the flash-decode attention (kv_attention.cu) --
 
-def _kv_case(b, g, s, hg):
+def _kv_case(b, g, s, hg, d=128):
     from repro_torch.compression import kv as TKV
-    k = (RNG.standard_normal((b, g, s, 128)) * 0.7).astype(np.float32)
-    v = (RNG.standard_normal((b, g, s, 128)) * 0.7).astype(np.float32)
+    k = (RNG.standard_normal((b, g, s, d)) * 0.7).astype(np.float32)
+    v = (RNG.standard_normal((b, g, s, d)) * 0.7).astype(np.float32)
     k[:, :, 0, :32] *= 80.0
     v[:, :, 0, :32] *= 80.0
     cfg = TKV.kv_quantizer_config()
     kq = TKV.quantize_kv(torch.from_numpy(k).cuda(), cfg)
     vq = TKV.quantize_kv(torch.from_numpy(v).cuda(), cfg)
-    q = torch.from_numpy(RNG.standard_normal((b, g, hg, 128))
+    q = torch.from_numpy(RNG.standard_normal((b, g, hg, d))
                          .astype(np.float32)).cuda()
     return q, kq, vq
 
 
-def _fill_page_outliers(qkv, page=1):
-    """qkv with cap exact outlier values on page `page` of (0, 0): their
+def _fill_page_outliers(qkv, page=1, b=0, g=0):
+    """qkv with cap exact outlier values on page `page` of (b, g): their
     bins zeroed and the slots filled in ascending order, as the encoder
     would leave them (the default bound makes no finite outliers)."""
     cap = qkv.out_idx.shape[-1]
-    idx = np.sort(RNG.choice(128 * 128, cap, replace=False))
+    d = qkv.bins.shape[-1]
+    idx = np.sort(RNG.choice(128 * d, cap, replace=False))
     val = RNG.uniform(-300.0, 300.0, cap).astype(np.float32)
     bins = qkv.bins.clone()
-    bins[0, 0, page * 128 + idx // 128, idx % 128] = 0
+    bins[b, g, page * 128 + idx // d, idx % d] = 0
     out_idx, out_val = qkv.out_idx.clone(), qkv.out_val.clone()
-    out_idx[0, 0, page] = torch.from_numpy(idx.astype(np.int32))
-    out_val[0, 0, page] = torch.from_numpy(val)
+    out_idx[b, g, page] = torch.from_numpy(idx.astype(np.int32))
+    out_val[b, g, page] = torch.from_numpy(val)
     return qkv._replace(bins=bins, out_idx=out_idx, out_val=out_val)
 
 
@@ -873,25 +874,146 @@ def test_engine_slots_bit_identical_to_batch1_on_card(n_slots):
 
 
 @pytest.mark.cuda
-def test_serve_step_raises_for_head_dim_80_on_card():
-    """stablelm-3b's head dim 80 is not one the B12 kernel takes: the
-    quantized step raises on the card once the history holds a page (it
-    never runs the plain version there)."""
+@pytest.mark.parametrize("hg", [1, 2, 16])
+def test_kv_attention_head_dim_80_matches_plain_version_on_card(hg):
+    """B12's D = 80 instance (stablelm-3b's head dim) within rtol = atol =
+    2e-5 of its plain version, with its (m, l): ragged lengths (0, inside
+    a page, on a page edge, past a split edge, S), a full page of exact
+    outliers in K and V on two rows, and splits of 1 and 3 pages."""
     _need_card()
+    from repro_torch.kernels import kv_attention as TA
+    s = 1024
+    q, kq, vq = _kv_case(4, 3, s, hg, d=80)
+    for b, g, page in ((0, 0, 1), (2, 1, 6)):
+        kq = _fill_page_outliers(kq, page=page, b=b, g=g)
+        vq = _fill_page_outliers(vq, page=page, b=b, g=g)
+    lengths = torch.tensor([300, 0, 768 + 1, s], dtype=torch.int32,
+                           device="cuda")
+    for pps in (None, 1, 3):
+        before = TA.LAUNCHES["_kv_decode_attention"]
+        got = TA.kv_decode_attention(q, kq, vq, lengths, pages_per_split=pps,
+                                     return_stats=True)
+        want = TA._kv_decode_attention_plain(q, kq, vq, lengths,
+                                             pages_per_split=pps,
+                                             return_stats=True)
+        torch.cuda.synchronize()
+        assert TA.LAUNCHES["_kv_decode_attention"] == before + 1
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, rtol=2e-5, atol=2e-5,
+                                       equal_nan=True)
+        assert bool(torch.isnan(got[0][1]).all())
+        assert bool(torch.isfinite(got[0][[0, 2, 3]]).all())
+
+
+# --------------------------------------------- the MoE family (moe.py) --
+
+@pytest.mark.cuda
+def test_route_on_card_matches_cpu():
+    """`moe._route_logits` on the card against the CPU on the same
+    bfloat16-valued logits (olmoe's 64 experts, top 8): the expert
+    choices, capacity positions, drops and slots equal, the gates within
+    4 float32 ulps; ties go to the lower index on the card too."""
+    _need_card()
+    from repro_torch.models import moe as TM
+    x = torch.from_numpy(RNG.standard_normal((512, 64)).astype(np.float32))
+    logits = x.to(torch.bfloat16).to(torch.float32)
+    logits[0, :] = torch.arange(64, dtype=torch.float32) % 5   # ties
+    cpu = TM._route_logits(logits, 8)
+    card = TM._route_logits(logits.cuda(), 8)
+    assert torch.equal(card[1].cpu(), cpu[1])
+    torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=2.0 ** -21,
+                               atol=0)
+    torch.testing.assert_close(card[2].cpu(), cpu[2], rtol=1e-6, atol=0)
+    cap = TM.capacity(512, 64, 8)
+    for a, b in zip(TM.dispatch_slots(card[1], 64, cap),
+                    TM.dispatch_slots(cpu[1], 64, cap)):
+        assert torch.equal(a.cpu(), b)
+    tie = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0, 0.0]], device="cuda")
+    assert TM._route_logits(tie, 3)[1].tolist() == [[1, 2, 4]]
+
+
+@pytest.mark.cuda
+def test_two_layer_olmoe_steps_on_card_match_cpu():
+    """Two olmoe-1b-7b layers at full width (64 experts of 2048 x 1024):
+    130 quantized decode steps of 2 requests (a page closes in step 127,
+    B12 on the card from step 128) within 2e-2 of the CPU's max |logit|
+    at every step, with the card's expert choices forced into the CPU run
+    (their router products round differently); where the CPU's own choice
+    differs it is a near tie: the weakest forced expert's probability and
+    the weakest own one's are within a factor 1 - 2^-4."""
+    _need_card()
+    import dataclasses
+    from repro_torch.compression import kv as TKV
     from repro_torch.configs.registry import get
     from repro_torch.models import build as tbuild
+    from repro_torch.models import moe as TM
     from repro_torch.models import serve as TS
-    from repro_torch.compression import kv as TKV
-    cfg = get("stablelm-3b")
-    import dataclasses
-    cfg = dataclasses.replace(cfg, n_layers=1, d_model=640, n_heads=8,
-                              n_kv_heads=8, d_ff=256, vocab=256)
-    assert cfg.head_dim == 80
-    params = tbuild(cfg).init(torch.Generator(device="cuda").manual_seed(0))
-    cache = TS.make_quant_cache(cfg, 1, 256)
+    cfg = dataclasses.replace(get("olmoe-1b-7b"), n_layers=2)
+    params = tbuild(cfg).init(torch.Generator(device="cuda").manual_seed(9))
+    cpu = {"emb": params["emb"].cpu(), "final_norm":
+           params["final_norm"].cpu(),
+           "layers": {k: v.cpu() for k, v in params["layers"].items()}}
     kv_cfg = TKV.kv_quantizer_config()
-    tok = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
-    for pos in range(128):
-        _, cache = TS.serve_step(cfg, params, cache, tok, pos, None, kv_cfg)
-    with pytest.raises(NotImplementedError):
-        TS.serve_step(cfg, params, cache, tok, 128, None, kv_cfg)
+    cc = TS.make_quant_cache(cfg, 2, 256)
+    hc = TS.make_quant_cache(cfg, 2, 256, device="cpu")
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab, (130, 2, 1)))
+    real, card_choices = TM._top_k_experts, []
+    own = {"tokens": 0, "differ": 0, "tie": 1.0}
+
+    def record(probs, k):
+        idx = real(probs, k)
+        card_choices.append(idx.cpu())
+        return idx
+
+    def forced(probs, k):
+        idx, want = real(probs, k), card_choices.pop(0)
+        differ = (idx != want).any(-1)
+        own["tokens"] += idx.shape[0]
+        own["differ"] += int(differ.sum())
+        if bool(differ.any()):
+            ratio = (probs.gather(1, want).amin(-1)
+                     / probs.gather(1, idx).amin(-1))[differ]
+            own["tie"] = min(own["tie"],
+                             float(torch.minimum(ratio, 1 / ratio).min()))
+        return want
+
+    rel = []
+    try:
+        for i in range(130):
+            TM._top_k_experts = record
+            lc, cc = TS.serve_step(cfg, params, cc, toks[i].cuda(), i, None,
+                                   kv_cfg)
+            TM._top_k_experts = forced
+            lh, hc = TS.serve_step(cfg, cpu, hc, toks[i], i, None, kv_cfg)
+            rel.append(float((lc.cpu() - lh).abs().max() / lh.abs().max()))
+    finally:
+        TM._top_k_experts = real
+    assert max(rel) < 2e-2, (max(rel), int(np.argmax(rel)))
+    assert own["tie"] >= 1.0 - 2.0 ** -4, own
+
+
+@pytest.mark.cuda
+def test_moe_decode_step_makes_no_host_sync_on_card():
+    """A quantized MoE decode step with a closed page (routing, the
+    capacity dispatch, B12) on the card makes no host sync."""
+    _need_card()
+    from repro_torch.compression import kv as TKV
+    from repro_torch.configs.base import ArchConfig as TArch
+    from repro_torch.models import build as tbuild
+    from repro_torch.models import serve as TS
+    cfg = TArch(name="moe-sync", family="moe", n_layers=2, d_model=256,
+                n_heads=4, n_kv_heads=2, d_ff=128, vocab=512, head_dim=128,
+                moe_experts=16, moe_top_k=4)
+    params = tbuild(cfg).init(torch.Generator(device="cuda").manual_seed(3))
+    cache = TS.make_quant_cache(cfg, 4, 256)
+    kv_cfg = TKV.kv_quantizer_config()
+    tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    for pos in range(130):
+        TS.serve_step(cfg, params, cache, tok, pos, None, kv_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = TS.serve_step(cfg, params, cache, tok, 130, None, kv_cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(logits).all())

@@ -99,14 +99,39 @@ def test_port_init_draws_its_own_weights():
     assert bool((p1["final_norm"] == 1).all())
 
 
-@pytest.mark.parametrize("family", ["moe", "hybrid", "ssm", "encdec"])
+@pytest.mark.parametrize("family", ["hybrid", "ssm", "encdec"])
 def test_other_families_raise(family):
-    name = {"moe": "olmoe-1b-7b", "hybrid": "jamba-1.5-large-398b",
-            "ssm": "xlstm-350m", "encdec": "whisper-base"}[family]
+    name = {"hybrid": "jamba-1.5-large-398b", "ssm": "xlstm-350m",
+            "encdec": "whisper-base"}[family]
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         t_build(TR.get(name).reduced())
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         TS._check_family(TR.get(name))
+
+
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "qwen3-moe-235b-a22b"])
+def test_moe_family_serves_and_prefills_on_the_cpu(name):
+    """The MoE family through the bundle on the CPU (the port's own
+    weights): 130 quantized decode steps past a page close and the raw
+    cache's, and prefill, all finite and of the reference's shapes; the
+    quantized logits within 0.15 of the raw ones' max."""
+    tc = TR.get(name).reduced()
+    bundle = t_build(tc)
+    params = bundle.init(torch.Generator().manual_seed(5), device="cpu")
+    toks = torch.from_numpy(RNG.integers(0, tc.vocab, (130, 2, 1)))
+    qc = bundle.make_cache(2, 256, quantized=True, device="cpu")
+    rc = bundle.make_cache(2, 256, device="cpu")
+    kv_cfg = TKV.kv_quantizer_config()
+    for i in range(130):
+        lq, qc = bundle.serve_step(params, qc, toks[i], i, None, kv_cfg)
+        lr, rc = bundle.serve_step(params, rc, toks[i], i)
+    assert lq.shape == (2, tc.padded_vocab) and lq.dtype == torch.float32
+    assert bool(torch.isfinite(lq).all() & torch.isfinite(lr).all())
+    assert float((lq - lr).abs().max() / lr.abs().max()) < 0.15
+    assert bool(qc.k.eb2[:, :, :, 0].gt(0).all())
+    last = bundle.prefill(params, {"tokens": toks[:40, :, 0].T.contiguous()})
+    assert last.shape == (2, tc.padded_vocab) and last.dtype == torch.float32
+    assert bool(torch.isfinite(last).all())
 
 
 def test_entry_points_run_on_the_card_unless_asked():
