@@ -172,9 +172,36 @@ the chain ids `auto` chose, max |residual|/eb, peak memory, launches per
 step, and on w1 the times of one compress_shard and one decode (and for
 `auto` its stats pass and every candidate's own wire bytes).
 
+A `train` phase trains internlm2-20b at full width (d_model 6144, 48
+heads over 8 KV heads of 128, d_ff 16384, vocab 92,544) on 2 of its 48
+layers: 1.35G parameters made on the card from the seed, batch 8 x 512
+from `data.pipeline.TokenPipeline`, AdamW at lr 1e-3 with a warmup of 2
+for 6 steps.  (a) 6 steps of `launch.train.make_train_step`, then 6 each
+of `make_train_step_compressed` with 2 pods as threads holding one state
+(`shared_state=True`), eb = 2**-5 * rms, `grad-wire-8` and
+`grad-wire-16-narrow`, every run from the same weights and batches.
+Steps 1 and 6 are held leaf by leaf as the pods finish each: every pod's
+mean bit-equal to the plain decode-and-sum of the wires the pods sent,
+every residual within eb; every step has `plain_calls` 0 and a finite
+loss.  Each line has the losses, the step time split into forward +
+backward, compressed mean and optimizer (CUDA events, medians over the
+steps not held), the step's bound (6 N tokens over the dense bf16 rate,
+or the state read and written once over the HBM rate), bytes a step
+against a float32 all-reduce, each leaf's branch, max |residual|/eb,
+launches a step, a profiled step's kernels, busy time and B8/B6/B7/B2
+device ms, and the peak memory; the full-precision line also the lossy
+coder (`core.serializer`, ABS 1e-6) on layer 0's wq master.  (b) The
+loop (`runtime.train_loop.run`, checkpoint_every=2) on the reduced
+configuration: the shared-state step stopped by SIGTERM at step 3,
+resumed by `resume_or_init` and run to 6, bit-identical to 6 straight
+steps of the replica step with a raw checkpoint (its step-2 checkpoint
+too) and within eb on every restored value with a lossy one;
+each step also encodes a residual with verify=True and `AuditCounters`
+must fold 6 reports with 0 violations.
+
 Output: the card's name and power limit, one JSON line per chain, one
 JSON line per phase (dense, audit, code sweep, kv, serve a/b/c, moe
-a-f, grads),
+a-f, grads, train),
 one JSON line
 {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.  On stderr: the build log and a summary of
@@ -186,6 +213,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import re
 import statistics
@@ -1542,9 +1570,9 @@ def plain_mean(shards, g_in, branch: str):
     lossless branch the inputs summed in rank order, over p."""
     p, n = len(shards), shards[0].n
     if branch == "lossless":
-        total = g_in[0].reshape(-1)
+        total = g_in[0].reshape(-1).float()
         for g in g_in[1:]:
-            total = total + g.reshape(-1)
+            total = total + g.reshape(-1).float()
         return total / p
     total = torch.zeros(n, device=DEV)
     for s in shards:
@@ -1631,7 +1659,8 @@ def grad_step(cfg, g, r, tp=None):
                                               ax, tp, device=DEV)))
         b.record()
         b.synchronize()
-    wires = [dict(zip(g[k], w)) for k, w in enumerate(sent)]
+    # compressed_mean_tree encodes the leaves in sorted key order
+    wires = [dict(zip(sorted(g[k]), w)) for k, w in enumerate(sent)]
     return ([o[0] for o in out], [o[1] for o in out], wires,
             a.elapsed_time(b))
 
@@ -1650,66 +1679,73 @@ def grad_bytes_moved(shards, branch: str) -> float:
     return float((p - 1) * sum(float(s.nbytes()) for s in shards))
 
 
-def grad_check_step(label, g_in, means, resids, wires) -> dict:
-    """Hold one step's results, leaf by leaf, on the wires the pods sent:
-    every pod's mean bit-equal to the plain result, every residual within
-    eb in float64 (0 on the lossless branch), each selector wire
+def grad_facts() -> dict:
+    return {"branch": {}, "chain_ids": {}, "bytes_moved": 0.0,
+            "f32_bytes": 0, "max_resid_over_eb": 0.0,
+            "wire_bytes_max_rel_err": 0.0}
+
+
+def grad_check_leaf(label, name, ins, shards, means, resids, facts) -> None:
+    """Hold one leaf of one step on the wires the pods sent: every pod's
+    mean (float32, flat) bit-equal to the plain result, every residual
+    within eb in float64 (0 on the lossless branch), each selector wire
     bit-equal to its chosen chain's own wire, and `wire_bytes` equal to
-    the measured transmitted bytes.  Returns the leaf facts (branch,
-    chain ids, bytes moved, max |residual|/eb, the largest wire_bytes
-    error)."""
+    the measured transmitted bytes.  Adds the leaf's facts (branch, chain
+    ids, bytes moved, max |residual|/eb, the largest wire_bytes error) to
+    `facts`."""
     from repro_torch.core.select import Selector
     from repro_torch.core.transport import TRANSPORT
-    facts = {"branch": {}, "chain_ids": {}, "bytes_moved": 0.0,
-             "f32_bytes": 0, "max_resid_over_eb": 0.0,
-             "wire_bytes_max_rel_err": 0.0}
-    for name, shape in GRAD_LEAVES:
-        ins = [g[name] for g in g_in]
-        shards = [w[name] for w in wires]
-        n = shards[0].n
-        branch = grad_branch(shards, TRANSPORT)
-        facts["branch"][name] = branch
-        want = plain_mean(shards, ins, branch)
-        for r, m in enumerate(means):
-            check(planes_equal(m[name].reshape(-1), want),
-                  f"grads {label}: pod {r}'s mean of {name} differs from "
-                  f"the plain decode-and-sum")
-        for r, (s, res) in enumerate(zip(shards, resids)):
-            e = res[name].reshape(-1).double().abs()
-            if branch == "lossless":
-                check(not bool(torch.count_nonzero(e)),
-                      f"grads {label}: {name} residual not 0 on the "
-                      "lossless branch")
-                continue
-            eb = float(s.enc.eb)
-            worst = float(e.max())
-            check(worst <= eb, f"grads {label}: pod {r}'s residual of "
-                               f"{name} exceeds eb ({worst} > {eb})")
-            facts["max_resid_over_eb"] = max(facts["max_resid_over_eb"],
-                                             worst / eb)
-            acct = s.nbytes()
-            err = wire_bytes_error(acct, measured_bytes(s.pipe, s.enc, n))
-            tol = 0.0 if isinstance(acct, int) else GRAD_WIRE_TOL
-            check(err <= tol, f"grads {label}: wire_bytes of {name} is off "
-                              f"the measured bytes by {err}")
-            facts["wire_bytes_max_rel_err"] = max(
-                facts["wire_bytes_max_rel_err"], err)
-        if isinstance(shards[0].pipe, Selector):
-            sel = shards[0].pipe
-            ids = [int(s.enc.chain_id) for s in shards]
-            facts["chain_ids"][name] = ids
-            for x, s, i in zip(ins, shards, ids):
-                direct = sel.chains[i].encode(x.reshape(-1), s.enc.eb,
-                                              device=DEV,
-                                              return_quantized=True)[0]
-                check(planes_equal(tuple(sel._view(s.enc, i, n)),
-                                   tuple(direct)),
-                      f"grads {label}: the selector wire of {name} differs "
-                      f"from its chosen chain's ({i}) own wire")
-        facts["bytes_moved"] += grad_bytes_moved(shards, branch)
-        facts["f32_bytes"] += TRANSPORT.bytes_moved(
-            ins[0], op="all_gather", axis_size=GRAD_PODS)
-        del shards, want
+    n = shards[0].n
+    branch = grad_branch(shards, TRANSPORT)
+    facts["branch"][name] = branch
+    want = plain_mean(shards, ins, branch)
+    for r, m in enumerate(means):
+        check(planes_equal(m.reshape(-1), want),
+              f"{label}: pod {r}'s mean of {name} differs from the plain "
+              "decode-and-sum")
+    for r, (s, res) in enumerate(zip(shards, resids)):
+        worst = float(res.abs().max())      # exact in float32; compared
+        if branch == "lossless":            # in float64
+            check(worst == 0.0, f"{label}: {name} residual not 0 on the "
+                                "lossless branch")
+            continue
+        eb = float(s.enc.eb)
+        check(worst <= eb, f"{label}: pod {r}'s residual of {name} exceeds "
+                           f"eb ({worst} > {eb})")
+        facts["max_resid_over_eb"] = max(facts["max_resid_over_eb"],
+                                         worst / eb)
+        acct = s.nbytes()
+        err = wire_bytes_error(acct, measured_bytes(s.pipe, s.enc, n))
+        tol = 0.0 if isinstance(acct, int) else GRAD_WIRE_TOL
+        check(err <= tol, f"{label}: wire_bytes of {name} is off the "
+                          f"measured bytes by {err}")
+        facts["wire_bytes_max_rel_err"] = max(
+            facts["wire_bytes_max_rel_err"], err)
+    if isinstance(shards[0].pipe, Selector):
+        sel = shards[0].pipe
+        ids = [int(s.enc.chain_id) for s in shards]
+        facts["chain_ids"][name] = ids
+        for x, s, i in zip(ins, shards, ids):
+            direct = sel.chains[i].encode(x.reshape(-1).float(), s.enc.eb,
+                                          device=DEV,
+                                          return_quantized=True)[0]
+            check(planes_equal(tuple(sel._view(s.enc, i, n)),
+                               tuple(direct)),
+                  f"{label}: the selector wire of {name} differs from its "
+                  f"chosen chain's ({i}) own wire")
+    facts["bytes_moved"] += grad_bytes_moved(shards, branch)
+    p = len(shards)               # a float32 all-reduce, as
+    facts["f32_bytes"] += p * (p - 1) * 4 * n   # TRANSPORT.bytes_moved counts
+
+
+def grad_check_step(label, g_in, means, resids, wires) -> dict:
+    """Hold one step's results, leaf by leaf (`grad_check_leaf`).  Returns
+    the leaf facts."""
+    facts = grad_facts()
+    for name, _ in GRAD_LEAVES:
+        grad_check_leaf(f"grads {label}", name, [g[name] for g in g_in],
+                        [w[name] for w in wires], [m[name] for m in means],
+                        [r[name] for r in resids], facts)
     return facts
 
 
@@ -1916,18 +1952,24 @@ def grad_pair_phase(seed: int) -> tuple:
     return counts, (bins.to(torch.int32), shards[0].enc.eb, cfg.qcfg())
 
 
-def grad_kernel_rows(pods, counts: dict, per_step: dict, ring_in) -> list:
-    """B1, B2, B6, B7, B8 and B10 on the grads path's own inputs (pod 0's
-    w1, the largest leaf: 100.7M values; the ring pair's bin sum for B10),
-    each held against its plain version and timed.  `launches` counts the
-    phase's counted runs; `launches_per_step` the tree steps' mean."""
+GRAD_ROWS = ("_abs_pack", "_quantize_abs", "_lc_select", "_lc_expand",
+             "_abs_unpack", "_dequantize_abs")
+
+
+def grad_kernel_rows(x, counts: dict, per_step: dict, ring_in=None,
+                     names=GRAD_ROWS, chain: str = "grads") -> list:
+    """The rows `names` of B1, B8, B6, B7, B2 and B10 on the gradient
+    path's own inputs (x: a leaf's float32 gradient, for the grads phase
+    pod 0's w1, 100.7M values; the ring pair's bin sum for B10), each held
+    against its plain version and timed.  `launches` counts the phase's
+    counted runs; `launches_per_step` the tree steps' mean."""
     from repro_torch.compression import grads as G
     from repro_torch.core import codec as C
     from repro_torch.core.select import get_selector
     from repro_torch.kernels import dense as D
     from repro_torch.kernels import lossless as L
     from repro_torch.kernels import pack as K
-    x = pods[0]["w1"].reshape(-1)
+    x = x.reshape(-1)
     n = x.numel()
     cfg = G.GradCompressionConfig(eb_rel=GRAD_EB_REL,
                                   pipeline="abs:1.0|pack:16|narrow")
@@ -1939,10 +1981,6 @@ def grad_kernel_rows(pods, counts: dict, per_step: dict, ring_in) -> list:
     codes = C.unpack_words(shard.enc.headers[0], C.lc_chunk_count(n_words), 2,
                            signed=False)
     padded = C.lc_gather_chunks(shard.enc.payload, codes).reshape(-1)
-    bins, ring_eb, ring_qc = ring_in
-    zeros_i = torch.zeros_like(bins)
-    zeros_b = torch.zeros_like(bins, dtype=torch.bool)
-    ring_eb = ring_eb.reshape(1)
     calls = [
         ("_abs_pack", "selector stats", 16, n, None,
          lambda: K.abs_pack(x, eb, sel_cfg),
@@ -1959,17 +1997,24 @@ def grad_kernel_rows(pods, counts: dict, per_step: dict, ring_in) -> list:
         ("_abs_unpack", "gather decode", 16, n, None,
          lambda: K.abs_unpack(words, eb, n, qc),
          lambda: K._abs_unpack_plain(words, eb, n, qc)),
-        ("_dequantize_abs", "ring", 8, bins.numel(), None,
-         lambda: D.dequantize_abs(bins, zeros_i, zeros_b, ring_qc,
-                                  eb=ring_eb),
-         lambda: D._dequantize_abs_plain(bins, zeros_i, zeros_b, ring_eb,
-                                         ring_qc)),
     ]
+    if ring_in is not None:
+        bins, ring_eb, ring_qc = ring_in
+        zeros_i = torch.zeros_like(bins)
+        zeros_b = torch.zeros_like(bins, dtype=torch.bool)
+        ring_eb = ring_eb.reshape(1)
+        calls.append(("_dequantize_abs", "ring", 8, bins.numel(), None,
+                      lambda: D.dequantize_abs(bins, zeros_i, zeros_b,
+                                               ring_qc, eb=ring_eb),
+                      lambda: D._dequantize_abs_plain(bins, zeros_i, zeros_b,
+                                                      ring_eb, ring_qc)))
     rows = []
     for name, label, bits, size, hist, kern, plain in calls:
+        if name not in names:
+            continue
         check(counts.get(name, 0) > 0,
-              f"grads: {name} not launched on the grads path")
-        row = kernel_row(name, label, "grads", bits, size, hist, kern, plain,
+              f"{chain}: {name} not launched on the {chain} path")
+        row = kernel_row(name, label, chain, bits, size, hist, kern, plain,
                          counts[name])
         row["launches_per_step"] = per_step.get(name, 0)
         rows.append(row)
@@ -1996,7 +2041,7 @@ def grads_phase(seed: int) -> list:
     pair_counts, ring_in = grad_pair_phase(seed)
     for k, v in pair_counts.items():
         counts[k] = counts.get(k, 0) + v
-    rows = grad_kernel_rows(pods, counts, per_step, ring_in)
+    rows = grad_kernel_rows(pods[0]["w1"], counts, per_step, ring_in)
     del pods, ring_in
     return rows
 
@@ -3029,6 +3074,463 @@ def moe_phase(seed: int) -> list:
     return rows
 
 
+# the train phase: internlm2-20b at full width (src/repro/configs/registry.py
+# :22-25) on 2 of its 48 layers (two replicas' AdamW state and the pods'
+# residuals hold ~54 GB at 2 layers; 4 do not fit one card), AdamW as in
+# examples/train_grad_compression.py:40 with a warmup of 2 for 6 steps, the
+# token pipeline of src/repro/data/pipeline.py:40, the full-precision step
+# and the compressed step of src/repro/launch/train.py:37,49 over 2 pods as
+# threads; then the loop and the checkpoint (runtime/train_loop.py:126,
+# checkpoint/manager.py:37) on the reduced configuration
+TRAIN_ARCH = "internlm2-20b"
+TRAIN_LAYERS = 2
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_PODS = 512, 8, 6, 2
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+TRAIN_WIRES = ("grad-wire-8", "grad-wire-16-narrow")
+TRAIN_HELD = (1, TRAIN_STEPS)          # steps held leaf by leaf
+TRAIN_ROWS = ("_quantize_abs", "_lc_select", "_lc_expand", "_abs_unpack")
+TRAIN_TRACE = {"quantize_abs_kernel": "B8", "select_kernel": "B6",
+               "expand_kernel": "B7", "unpack_kernel": "B2"}
+BF16_OPS_PER_S = 989e12                # H100 SXM dense bf16, tensor cores
+LOOP_STEPS, LOOP_SEQ, LOOP_BATCH = 6, 64, 8
+LOSSY_EB = 1e-6
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The leaves' paths in the reference's order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def cuda_mark():
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+@contextlib.contextmanager
+def step_phases():
+    """Wrap the step's compressed mean and its optimizer for the block: the
+    pods enter and leave the mean together (a collective over their axis),
+    and rank 0 records a CUDA event at each border (the optimizer runs on
+    rank 0 alone when the pods share their state), so `marks` holds the
+    stream's positions at the phase borders, in order: (name, event)."""
+    from repro_torch.compression import grads as G
+    from repro_torch.optim import optimizer as O
+    real_cm, real_apply = G.compressed_mean_tree, O.apply
+    local, marks = threading.local(), []
+
+    def border(name, ax=None):
+        if ax is not None:
+            ax.psum(torch.zeros((), device=DEV))
+        if getattr(local, "rank", 0) == 0:
+            marks.append((name, cuda_mark()))
+        if ax is not None:
+            ax.psum(torch.zeros((), device=DEV))
+
+    def cm(grads, residuals, cfg, axis, *a, **kw):
+        local.rank = axis.rank
+        border("mean", axis)
+        out = real_cm(grads, residuals, cfg, axis, *a, **kw)
+        border("mean_end", axis)
+        return out
+
+    def apply(*a, **kw):
+        border("optimizer")
+        out = real_apply(*a, **kw)
+        border("optimizer_end")
+        return out
+
+    G.compressed_mean_tree, O.apply = cm, apply
+    try:
+        yield marks
+    finally:
+        G.compressed_mean_tree, O.apply = real_cm, real_apply
+
+
+def phase_ms(start, end, marks) -> dict:
+    """{phase: ms} of one step from its border events."""
+    ev = dict(marks)
+    first = ev.get("mean", ev["optimizer"])
+    out = {"forward_backward": start.elapsed_time(first),
+           "optimizer": ev["optimizer"].elapsed_time(ev["optimizer_end"]),
+           "step": start.elapsed_time(end)}
+    if "mean" in ev:
+        out["compressed_mean"] = ev["mean"].elapsed_time(ev["mean_end"])
+    return out
+
+
+@contextlib.contextmanager
+def held_leaves(label: str, names: list, facts: dict, keep: dict,
+                plain: dict):
+    """Wrap compress_shard and compressed_mean for the block: as the pods
+    finish each leaf, rank 0 holds it by `grad_check_leaf` on the wires
+    the pods sent, their inputs, means and residuals, while the others
+    wait; nothing is kept after, except pod 0's float32 input of each
+    leaf named in `keep`.  The check's own plain decodes are taken out of
+    the `plain_calls` count `plain` (the other pods wait meanwhile)."""
+    from repro_torch.compression import grads as G
+    real_cs, real_cm = G.compress_shard, G.compressed_mean
+    local, slots = threading.local(), [None] * TRAIN_PODS
+
+    def cs(*a, **kw):
+        out = real_cs(*a, **kw)
+        local.shard = out[0]
+        return out
+
+    def cm(g, cfg, axis, **kw):
+        mean, resid = real_cm(g, cfg, axis, **kw)
+        i = getattr(local, "i", 0)
+        local.i = i + 1
+        slots[axis.rank] = (g, local.shard, mean, resid)
+        axis.psum(torch.zeros((), device=DEV))
+        if axis.rank == 0:
+            ins, shards, means, resids = zip(*slots)
+            counted = plain["calls"]
+            grad_check_leaf(label, names[i], ins, shards, means, resids,
+                            facts)
+            plain["calls"] = counted
+            if names[i] in keep:
+                keep[names[i]] = ins[0].float()
+        axis.psum(torch.zeros((), device=DEV))
+        slots[axis.rank] = local.shard = None
+        return mean, resid
+
+    G.compress_shard, G.compressed_mean = cs, cm
+    try:
+        yield
+    finally:
+        G.compress_shard, G.compressed_mean = real_cs, real_cm
+
+
+def train_bound(n_params: int, pods: int) -> dict:
+    """The least time of a step: 6 N tokens bf16 operations over the
+    card's dense bf16 rate, or the state read and written once over the
+    HBM rate (params bf16 and AdamW's float32 mu, nu and master, 28 N
+    bytes; with pods, each pod's float32 residual, 8 N), the larger."""
+    ops = 6 * n_params * TRAIN_BATCH * TRAIN_SEQ
+    n_bytes = n_params * (28 + (8 * pods if pods > 1 else 0))
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": t_ops, "bytes_ms": t_bytes, "ops": ops,
+            "bytes": n_bytes, "rate": "989 TFLOP/s bf16 dense, 3.35 TB/s"}
+
+
+def train_run(bundle, label: str, spec, fresh, batches, keep: dict):
+    """TRAIN_STEPS steps of one configuration from fresh weights: spec None
+    is `make_train_step` on the whole batch; else the compressed step
+    over TRAIN_PODS pods as threads holding one state (two replicas of
+    the full-width state and the emb leaf's encode on both pods at once
+    do not fit the card: shared_state=True), the residuals pod-stacked;
+    then two more, the second under torch.profiler.  Steps TRAIN_HELD
+    are held leaf by leaf; after every step `plain_calls` is 0 and the
+    loss finite.  Returns (line, launch counts, the final master)."""
+    from repro_torch.compression import grads as G
+    from repro_torch.configs.registry import get_pipeline
+    from repro_torch.core.axis import run_threads
+    from repro_torch.launch import train as TL
+    from repro_torch.optim import optimizer as O
+    ocfg = O.AdamWConfig(**TRAIN_OPT)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pods = 1 if spec is None else TRAIN_PODS
+    params = fresh()
+    state = (params, O.init(params, ocfg))
+    if spec is None:
+        step = TL.make_train_step(bundle, None, ocfg, donate=True)
+
+        def run_step(b):
+            return step(state, b)[1]
+    else:
+        gc = G.GradCompressionConfig(eb_rel=GRAD_EB_REL,
+                                     pipeline=get_pipeline(spec))
+        step = TL.make_train_step_compressed(bundle, None, ocfg, gc,
+                                             donate=True, shared_state=True)
+        state = (*state, TL.init_residuals(params, TRAIN_PODS))
+
+        def run_step(b):
+            outs = run_threads(TRAIN_PODS, lambda ax: step(state, b, ax))
+            check(all(o[0][0] is params for o in outs),
+                  f"train {label}: a pod returned another state")
+            return outs[0][1]
+    names = leaf_names(params)
+    losses, times, counts, held = [], [], {}, []
+    for i in range(TRAIN_STEPS):
+        hold = spec is not None and i + 1 in TRAIN_HELD
+        facts = grad_facts()
+        torch.cuda.synchronize()
+        reset_launches()
+        with plain_calls() as plain, step_phases() as marks, (
+                held_leaves(f"train {label} step {i + 1}", names, facts,
+                            keep if i + 1 == TRAIN_STEPS else {}, plain)
+                if hold else contextlib.nullcontext()):
+            a = cuda_mark()
+            metrics = run_step(batches[i])
+            b = cuda_mark()
+            b.synchronize()
+        for k, v in launches().items():
+            counts[k] = counts.get(k, 0) + v
+        check(plain["calls"] == 0, f"train {label}: the card's path called "
+                                   "a plain quantizer or codec")
+        loss = float(metrics["loss"])
+        check(np.isfinite(loss), f"train {label}: loss {loss} at step {i + 1}")
+        losses.append(loss)
+        times.append(dict(phase_ms(a, b, marks), held=hold))
+        if hold:
+            held.append(facts)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # two more steps: a warm-up and the traced one
+    n_kernels, dev_ms = device_kernels(
+        lambda: run_step(batches[TRAIN_STEPS]), reps=1)
+    traced = {"kernels": n_kernels,
+              "device_busy_ms": sum(dev_ms.values()) or None,
+              "device_ms": {b: dev_ms.get(k, 0.0)
+                            for k, b in TRAIN_TRACE.items()}}
+    free = [t for t in times if not t["held"]]
+    med = {k: statistics.median(t[k] for t in free)
+           for k in free[0] if k != "held"}
+    line = {"phase": "train", "config": label, "spec": None if spec is None
+            else get_pipeline(spec), "model": TRAIN_ARCH,
+            "layers": f"{TRAIN_LAYERS} of 48", "n_params": bundle.n_params(),
+            "pods": pods, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": TRAIN_STEPS, "loss": losses, "step_ms": times,
+            "median_ms": med, **train_bound(bundle.n_params(), pods),
+            "peak_device_GB": peak, "profiled_step": traced,
+            "launches_per_step": {k: counts.get(k, 0) / TRAIN_STEPS for k in (
+                "_quantize_abs", "_lc_select", "_lc_expand", "_abs_unpack",
+                "_dequantize_abs")}}
+    if held:
+        line.update(
+            eb_rel=GRAD_EB_REL, branch=held[-1]["branch"],
+            bytes_moved_per_step=[f["bytes_moved"] for f in held],
+            f32_allreduce_bytes_per_step=held[-1]["f32_bytes"],
+            ratio_vs_f32=[f["f32_bytes"] / f["bytes_moved"] for f in held],
+            max_resid_over_eb=max(f["max_resid_over_eb"] for f in held),
+            held_steps=list(TRAIN_HELD), plain_calls=0)
+    master = state[1].master
+    del state, params, step
+    return line, counts, master
+
+
+def train_serializer(master) -> dict:
+    """The lossy checkpoint's coder (`core.serializer`, ABS at LOSSY_EB) on
+    layer 0's wq float32 master at full width: its ratio on the host's
+    zlib stream and on the device wire, seconds to serialize and to
+    deserialize, and every value within eb."""
+    from repro_torch.core.config import QuantizerConfig
+    from repro_torch.core.serializer import (compression_ratio, deserialize,
+                                             serialize)
+    x = master["layers"]["wq"][0].cpu().numpy().reshape(-1)
+    qc = QuantizerConfig("abs", LOSSY_EB)
+    t0 = time.perf_counter()
+    stream = serialize(x, qc)
+    t1 = time.perf_counter()
+    y, _ = deserialize(stream)
+    t2 = time.perf_counter()
+    err = float(np.abs(x.astype(np.float64) - y).max())
+    check(err <= LOSSY_EB, f"train: the lossy coder's error {err} > eb")
+    return {"values": int(x.size), "eb": LOSSY_EB,
+            "host_ratio": x.nbytes / len(stream),
+            "device_ratio": compression_ratio(x, qc, wire="device",
+                                              device=DEV),
+            "serialize_s": t1 - t0, "deserialize_s": t2 - t1,
+            "max_err": err}
+
+
+def train_loop_check(seed: int) -> dict:
+    """The loop and the checkpoint on the card, on the reduced
+    configuration, with the compressed step over 2 thread pods: LOOP_STEPS
+    steps of the pure replica step in `run` (checkpoint_every=2) against
+    3 steps of the shared-state donating one (the full-width run's), a
+    SIGTERM at step 3 and a resume by `resume_or_init` to LOOP_STEPS:
+    params, OptState and residuals bit-identical with a raw checkpoint,
+    whose step-2 checkpoint is the state after two steps; with a lossy
+    one (ABS at LOSSY_EB) every restored value within eb.  Each step
+    also encodes pod 0's new w1 residual with verify=True, and
+    `AuditCounters` must fold one report a step with 0 violations."""
+    import os
+    import signal
+    import tempfile
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.compression import grads as G
+    from repro_torch.configs.registry import get, get_pipeline
+    from repro_torch.core.axis import run_threads
+    from repro_torch.core.config import QuantizerConfig
+    from repro_torch.core.pipeline import parse_pipeline
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import train as TL
+    from repro_torch.models import build
+    from repro_torch.optim import optimizer as O
+    from repro_torch.runtime.train_loop import (TrainLoopConfig,
+                                                resume_or_init, run)
+    cfg = get(TRAIN_ARCH).reduced()
+    bundle = build(cfg)
+    ocfg = O.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=LOOP_STEPS)
+    gc = G.GradCompressionConfig(eb_rel=GRAD_EB_REL,
+                                 pipeline=get_pipeline("grad-wire-8"))
+    step = TL.make_train_step_compressed(bundle, None, ocfg, gc)
+    batch_fn = TokenPipeline(DataConfig(cfg.vocab, LOOP_SEQ, LOOP_BATCH,
+                                        seed)).batch
+    audited = parse_pipeline(get_pipeline("grad-wire-8"))
+
+    def init_fn(device):
+        if device == "meta":
+            params = bundle.abstract_params()
+        else:
+            params = bundle.init(torch.Generator(device=device).manual_seed(
+                seed + 50), device=device)
+        return (params, O.init(params, ocfg),
+                TL.init_residuals(params, TRAIN_PODS))
+
+    shared = TL.make_train_step_compressed(bundle, None, ocfg, gc,
+                                           donate=True, shared_state=True)
+
+    def step_fn(state, batch, stp=step):
+        outs = run_threads(TRAIN_PODS, lambda ax: stp(state, batch, ax))
+        (new, m), (other, _) = outs[0], outs[1]
+        check(same(new[:2], other[:2]), "train loop: the pods' replicas "
+                                        "differ after a step")
+        w1 = new[2]["layers"]["w1"][0].reshape(-1)
+        _, rep = audited.encode(w1, rms_eb(w1), device=DEV, verify=True)
+        return new, dict(m, audit=rep)
+
+    def shared_fn(state, batch):
+        return step_fn(state, batch, shared)
+
+    def preempt(step_, metrics, dt, straggle):
+        if step_ == 3:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def same(a, b):
+        return all(planes_equal(x, y) for x, y in zip(T.leaves(a),
+                                                      T.leaves(b)))
+    loop = TrainLoopConfig(total_steps=LOOP_STEPS, checkpoint_every=2,
+                           log_every=1)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        seen, states = [], []
+
+        def recorded(state, batch):     # the pure step's states are kept
+            new, m = step_fn(state, batch)
+            states.append(new)
+            return new, m
+        t0 = time.perf_counter()
+        full, last, stopped = run(
+            recorded, init_fn(DEV), batch_fn,
+            CheckpointManager(os.path.join(d, "full")), loop,
+            on_metrics=lambda s, m, dt, st: seen.append(m))
+        out["uninterrupted_s"] = time.perf_counter() - t0
+        out["loss"] = [float(m["loss"]) for m in seen]
+        check(last == LOOP_STEPS and not stopped, "train loop: cut short")
+        audit = seen[-1]["audit_cumulative"]
+        check(audit["audit_reports"] == LOOP_STEPS
+              and audit["audit_violations"] == 0,
+              f"train loop: AuditCounters folded {audit}")
+        out["audit_cumulative"] = audit
+        for tag, lossy in (("raw", None),
+                           ("lossy", QuantizerConfig("abs", LOSSY_EB))):
+            mgr = CheckpointManager(os.path.join(d, tag), lossy=lossy)
+            part, last, stopped = run(shared_fn, init_fn(DEV), batch_fn, mgr,
+                                      loop, on_metrics=preempt)
+            check(stopped and last == 3 and mgr.all_steps() == [2, 3],
+                  f"train loop ({tag}): SIGTERM at step 3 gave step {last}, "
+                  f"checkpoints {mgr.all_steps()}")
+            state, start = resume_or_init(mgr, init_fn, device=DEV)
+            check(start == 3, f"train loop ({tag}): resumed at {start}")
+            if lossy is None:
+                check(same(state, part), "train loop: the restored state "
+                                         "differs from the saved one")
+                # written on the worker thread while step 3 ran
+                two, _ = mgr.restore(init_fn("meta"), step=2, device=DEV)
+                check(same(two, states[1]), "train loop: the step-2 "
+                      "checkpoint is not the state after two steps")
+                out["raw_step2_restore_bit_identical"] = True
+                resumed, last, _ = run(shared_fn, state, batch_fn, mgr, loop,
+                                       start_step=start)
+                check(last == LOOP_STEPS and same(resumed, full),
+                      "train loop: the resumed run is not bit-identical to "
+                      "the uninterrupted one")
+                out["raw_resume_bit_identical"] = True
+                continue
+            worst = 0.0
+            for a, b in zip(T.leaves(part), T.leaves(state)):
+                if a.dtype == torch.float32 and a.numel() > 1024:
+                    worst = max(worst, float((a.double() - b.double()
+                                              ).abs().max()))
+                else:
+                    check(planes_equal(a, b), "train loop: a raw leaf of "
+                                              "the lossy checkpoint moved")
+            check(worst <= LOSSY_EB, f"train loop: a lossy leaf moved {worst}")
+            after = []
+            resumed, _, _ = run(shared_fn, state, batch_fn, mgr, loop,
+                                start_step=start,
+                                on_metrics=lambda s, m, dt, st: after.append(
+                                    float(m["loss"])))
+            out["lossy"] = {"eb": LOSSY_EB, "max_restored_err": worst,
+                            "loss_after_resume": after,
+                            "params_max_abs_diff_at_end": max(
+                                float((a.float() - b.float()).abs().max())
+                                for a, b in zip(T.leaves(full[0]),
+                                                T.leaves(resumed[0])))}
+    return out
+
+
+def train_phase(seed: int) -> list:
+    """(a) internlm2-20b at full width on TRAIN_LAYERS layers: the
+    full-precision step, then the compressed step for each of
+    TRAIN_WIRES, every run from the same weights and batches; the lossy
+    coder on layer 0's wq master; (b) the loop and the checkpoint on the
+    reduced configuration.  Returns the kernel rows of B8, B6, B7 and B2
+    on the train path's w1 gradient."""
+    import dataclasses
+    from repro_torch.configs.registry import get
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import build
+    cfg = dataclasses.replace(get(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    bundle = build(cfg)
+    pipe = TokenPipeline(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed))
+    batches = [{k: torch.from_numpy(v).to(DEV) for k, v in
+                pipe.batch(i).items()} for i in range(TRAIN_STEPS + 1)]
+
+    def fresh():
+        return bundle.init(torch.Generator(device=DEV).manual_seed(seed + 40),
+                           device=DEV)
+
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    line, _, master = train_run(bundle, "full-precision", None, fresh,
+                                batches, {})
+    fp_loss = line["loss"]
+    line["serializer"] = train_serializer(master)
+    del master
+    print(json.dumps(line), flush=True)
+    keep, counts, per_step = {"layers/w1": None}, {}, {}
+    for spec in TRAIN_WIRES:
+        line, run_counts, master = train_run(bundle, spec, spec, fresh,
+                                             batches, keep)
+        del master
+        line["loss_gap_at_last_step"] = line["loss"][-1] - fp_loss[-1]
+        print(json.dumps(line), flush=True)
+        for k, v in run_counts.items():
+            counts[k] = counts.get(k, 0) + v
+            per_step[k] = max(per_step.get(k, 0), v / TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    rows = grad_kernel_rows(keep["layers/w1"], counts, per_step,
+                            names=TRAIN_ROWS, chain="train")
+    del keep
+    loop = train_loop_check(seed)
+    print(json.dumps({"phase": "train", "config": "loop",
+                      "model": f"{TRAIN_ARCH} (reduced)", **loop,
+                      "phase_s": time.time() - t0}), flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=N_DEFAULT,
@@ -3093,6 +3595,7 @@ def main(argv=None) -> int:
     rows += serve_phase(args.seed)
     rows += moe_phase(args.seed)
     rows += grads_phase(args.seed)
+    rows += train_phase(args.seed)
     check(set(KERNELS) <= {r["name"] for r in rows},
           "a kernel has no main-path row")
     print(json.dumps({"kernels": rows}), flush=True)

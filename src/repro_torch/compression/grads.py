@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tree as T
 from ..configs.registry import get_selector_set
 from ..core import codec as C
 from ..core import select as SEL
@@ -202,45 +203,56 @@ def compressed_mean(g, cfg: GradCompressionConfig, axis, *,
     # every pod must take the same branch: agreed by pmax, read once
     any_overflow = bool(axis.pmax(shard.enc.overflow.to(torch.int32)) > 0)
     if any_overflow:
+        # the lossless branch ships everything: no residual
         mean = axis.psum(flat) / p
-    elif integrity == "drop":
-        # the transport's checked gather (never the ring, as the
-        # reference's drop branch): failed shards add 0, the sum
-        # renormalizes by the count that verified
-        total, n_valid = tp._gather_sum_checked(shard.enc, shard.pipe, n,
-                                                axis)
-        mean = total / torch.clamp(n_valid, min=1).to(total.dtype)
-    else:
-        mean = tp.reduce_sum(shard.enc, shard.pipe, n, axis) / p
-    # the residual: what this pod did not ship (outliers went exact; the
-    # lossless branch shipped everything)
-    if any_overflow:
         resid = torch.zeros_like(flat)
     else:
+        # the residual, what this pod did not ship (outliers went exact),
+        # before the reduce, so that the quantized planes are freed before
+        # it decodes every pod's wire
         resid = flat - torch.where(q.outlier.reshape(-1), flat,
                                    q.recon.reshape(-1))
+        del q, flat
+        if integrity == "drop":
+            # the transport's checked gather (never the ring, as the
+            # reference's drop branch): failed shards add 0, the sum
+            # renormalizes by the count that verified
+            total, n_valid = tp._gather_sum_checked(shard.enc, shard.pipe,
+                                                    n, axis)
+            mean = total / torch.clamp(n_valid, min=1).to(total.dtype)
+        else:
+            mean = tp.reduce_sum(shard.enc, shard.pipe, n, axis) / p
     shape = tuple(torch.as_tensor(g).shape)
     return mean.reshape(shape), resid.reshape(shape)
 
 
 def compressed_mean_tree(grads, residuals, cfg: GradCompressionConfig,
                          axis, transport: Transport | None = None, *,
-                         device="cuda"):
-    """Tree version with error feedback: each leaf g + r is
-    compressed-averaged over `axis`.  `grads` and `residuals` are dicts,
-    lists or tuples of tensors of the same structure.  Returns (mean tree,
-    new residual tree)."""
-    def run(g, r):
-        return compressed_mean(g + r.to(g.dtype), cfg, axis,
-                               transport=transport, device=device)
+                         device="cuda", out=None):
+    """Tree version with error feedback: each leaf g + r (a sum in g's
+    dtype, as the reference's) is compressed-averaged over `axis`, leaf by
+    leaf in the reference's order (`repro_torch.tree`), and its mean cast
+    back to g's dtype.  `grads` and `residuals` are trees of tensors of
+    one structure (nested dicts, lists, tuples).  Returns (mean tree, new
+    residual tree).
 
-    if isinstance(grads, dict):
-        out = {k: run(grads[k], residuals[k]) for k in grads}
-        return ({k: m.to(grads[k].dtype) for k, (m, _) in out.items()},
-                {k: r for k, (_, r) in out.items()})
-    out = [run(g, r) for g, r in zip(grads, residuals)]
-    return (type(grads)(m.to(g.dtype) for (m, _), g in zip(out, grads)),
-            type(grads)(r for _, r in out))
+    `out=`: a tree of that structure (float32, e.g. this pod's row of a
+    pod-stacked buffer) that each leaf's new residual is written into as
+    soon as it is computed, so no second residual tree is held; it is the
+    residual tree returned.  It may be `residuals` itself: each leaf is
+    read before it is written."""
+    leaves_g, tdef = T.flatten(grads)
+    leaves_r = T.leaves(residuals)
+    leaves_o = None if out is None else T.leaves(out)
+    out_g, out_r = [], []
+    for i, (g, r) in enumerate(zip(leaves_g, leaves_r)):
+        m, nr = compressed_mean(g + r.to(g.dtype), cfg, axis,
+                                transport=transport, device=device)
+        out_g.append(m.to(g.dtype))
+        if leaves_o is not None:
+            nr = leaves_o[i].copy_(nr)
+        out_r.append(nr)
+    return T.unflatten(tdef, out_g), T.unflatten(tdef, out_r)
 
 
 def wire_bytes(n_elems: int, cfg: GradCompressionConfig) -> int:

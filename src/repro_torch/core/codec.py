@@ -56,13 +56,15 @@ def pack_words(values: torch.Tensor, bin_bits: int) -> torch.Tensor:
     vpw = 32 // bin_bits
     n = values.shape[0]
     n_words = packed_word_count(n, bin_bits)
-    u = values.to(torch.int64) & ((1 << bin_bits) - 1)
-    u = torch.cat([u, u.new_zeros(n_words * vpw - n)])
+    # int32 throughout: a field's bits are its value's low bits (the cast
+    # wraps), and a shift into the top bits wraps as the uint32 shift does
+    u = torch.zeros(n_words * vpw, dtype=torch.int32, device=values.device)
+    u[:n] = values.to(torch.int32) & ((1 << bin_bits) - 1 if vpw > 1 else -1)
     grp = u.reshape(-1, vpw, PACK_LANES)
-    word = grp[:, 0, :]
+    word = grp[:, 0, :].clone()
     for i in range(1, vpw):
-        word = word | (grp[:, i, :] << (i * bin_bits))
-    return to_i32(word.reshape(-1))
+        word |= grp[:, i, :] << (i * bin_bits)
+    return word.reshape(-1)
 
 
 def unpack_words(words: torch.Tensor, n: int, bin_bits: int,

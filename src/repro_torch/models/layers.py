@@ -5,9 +5,10 @@
 
 The reference writes them as global math with sharding constraints at a
 few seams (`ShardCtx`); on one card those constraints are the identity,
-so the port has none.  Its remat (`jax.checkpoint`) changes no value and
-is not ported either: the port's forward pass serves prefill, not
-training.
+so the port has none.  The reference's remat (`jax.checkpoint`) is
+`transformer.forward`'s per-layer `torch.utils.checkpoint` here, which
+changes no value; autograd differentiates `flash_attention` through its
+block loops (the reference's `jax.grad` through its scans).
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
-"""Family dispatcher: ArchConfig -> parameter specs, weights, caches, the
-forward pass's prefill and the decode step (counterpart of
-`repro.models.model`, for the dense, vlm and MoE families).  The other
-families raise, naming their ROADMAP item; `loss` and `input_specs` wait
-for the training and dry-run slices (ROADMAP A15/A16)."""
+"""Family dispatcher: ArchConfig -> parameter specs, weights, the training
+loss, caches, the forward pass's prefill and the decode step (counterpart
+of `repro.models.model`, for the dense, vlm and MoE families).  The other
+families raise, naming their ROADMAP item; `input_specs` waits for the
+dry-run slice (ROADMAP A16)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -10,8 +10,9 @@ from typing import NamedTuple
 import torch
 
 from ..configs.base import ArchConfig
+from ..core.pipeline import not_ported
 from . import serve, transformer
-from .params import count_params, materialize
+from .params import count_params, materialize, tree_map
 
 
 class ModelBundle(NamedTuple):
@@ -23,8 +24,34 @@ class ModelBundle(NamedTuple):
         generator on that device)."""
         return materialize(self.specs, generator, device)
 
+    def abstract_params(self) -> dict:
+        """The weights' shapes and dtypes as tensors on the "meta" device:
+        a template that allocates nothing (the reference's
+        ShapeDtypeStructs)."""
+        return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                              device="meta"), self.specs)
+
     def n_params(self) -> int:
         return count_params(self.specs)
+
+    def loss(self, params, batch: dict, mesh=None, remat: bool = True,
+             moe_data_axes=None):
+        """The training loss ce + 0.01 aux: ce the mean over tokens of the
+        float32 logsumexp of the logits less the label's logit, aux the
+        layers' load-balance loss.  batch: {"tokens", "labels"} int [B,
+        S].  Returns (loss, (ce, aux)), 0-d float32 tensors."""
+        cfg = self.cfg
+        if cfg.family in ("encdec", "ssm"):
+            raise not_ported(f"the {cfg.family} family's loss",
+                             "ROADMAP A13")
+        logits, aux = transformer.forward(cfg, params, batch["tokens"],
+                                          mesh, remat, moe_data_axes)
+        logits = logits.to(torch.float32)
+        labels = batch["labels"].to(torch.int64)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels[..., None])[..., 0]
+        ce = torch.mean(lse - ll)
+        return ce + 0.01 * aux, (ce, aux)
 
     def make_cache(self, batch: int, seq: int, quantized: bool = False, *,
                    device="cuda"):

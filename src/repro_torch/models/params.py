@@ -6,7 +6,8 @@ the reference's logical axis names (the port runs on one card, where they
 name no mesh).  `materialize` draws the port's own weights on the card
 (or on the CPU when the caller asks) from a `torch.Generator` on that
 device; `params_from_numpy` carries the JAX
-package's weights across instead, so both packages can run one model.
+package's weights across instead, so both packages can run one model, and
+`train_state_from_numpy` its whole training state.
 """
 from __future__ import annotations
 
@@ -101,3 +102,17 @@ def params_from_numpy(tree, device="cuda"):
     from ..core.pipeline import resolve_device
     dev = resolve_device(device)
     return tree_map(lambda a: _tensor_from_numpy(a, dev), tree)
+
+
+def train_state_from_numpy(state, device="cuda"):
+    """The JAX package's training state (params, OptState[, residuals]),
+    as numpy or JAX arrays, -> the port's (params, `optim.optimizer.
+    OptState`[, residuals]) on `device`, bit for bit.  The reference's
+    OptState is any object with `step`, `mu`, `nu` and `master`."""
+    from ..optim.optimizer import OptState
+    params, ost, *rest = state
+    carry = lambda t: params_from_numpy(t, device)
+    out = (carry(params),
+           OptState(carry(np.asarray(ost.step, dtype=np.int32)),
+                    carry(ost.mu), carry(ost.nu), carry(ost.master)))
+    return out + tuple(carry(r) for r in rest)

@@ -4,14 +4,17 @@ dense, vlm and MoE families (counterpart of `repro.models.transformer`).
 Per-layer parameters are stacked on a leading layer axis, as in the
 reference, so its parameter tree carries across as it is
 (`params.params_from_numpy`).  The reference scans the stack under
-grouped remat; the port loops over the layers in Python (as `serve_step`
-does), and `remat` is accepted and changes nothing: remat recomputes for
-the backward pass, which waits for the training slice (ROADMAP A15).
-The jamba hybrid is not ported (ROADMAP A13).
+grouped remat (`jax.checkpoint`); the port loops over the layers in
+Python (as `serve_step` does) and, with remat while autograd records,
+wraps each layer in `torch.utils.checkpoint.checkpoint`: the backward
+pass recomputes the layer from its input instead of keeping its
+activations, which changes no value.  The jamba hybrid is not ported
+(ROADMAP A13).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.pipeline import not_ported
@@ -113,12 +116,19 @@ def _ffn_block(cfg: ArchConfig, p: dict, x: torch.Tensor, mesh=None):
     return x + y, 0.0
 
 
+def _layer(cfg: ArchConfig, lp: dict, x: torch.Tensor,
+           positions: torch.Tensor):
+    """One decoder layer: (x after attention and FFN, its aux loss)."""
+    x = _attention(cfg, lp, x, positions)
+    return _ffn_block(cfg, lp, x)
+
+
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, mesh=None,
             remat: bool = True, moe_data_axes=None):
     """tokens: int [B, S] -> (logits bfloat16 [B, S, V_padded], aux float32
     []), the sum of the layers' load-balance losses.  `mesh` must be None
-    (one card); `remat` and `moe_data_axes` are the reference's and change
-    nothing here."""
+    (one card); `remat` checkpoints each layer while autograd records;
+    `moe_data_axes` is the reference's and changes nothing here."""
     if cfg.family not in ("dense", "vlm", "moe"):
         raise not_ported(f"the {cfg.family} family's forward pass",
                          "ROADMAP A13")
@@ -130,8 +140,11 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, mesh=None,
     lay = params["layers"]
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in lay.items()}
-        x = _attention(cfg, lp, x, positions)
-        x, a = _ffn_block(cfg, lp, x)
+        if remat and torch.is_grad_enabled():
+            x, a = checkpoint(_layer, cfg, lp, x, positions,
+                              use_reentrant=False)
+        else:
+            x, a = _layer(cfg, lp, x, positions)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["emb"].T.to(DTYPE), aux
