@@ -199,9 +199,36 @@ too) and within eb on every restored value with a lossy one;
 each step also encodes a residual with verify=True and `AuditCounters`
 must fold 6 reports with 0 violations.
 
+A `sweep` phase (after `dense`) checks the paper's §6 claim on the
+card: all 2^32 float32 bit patterns, 2^28 at a time made on the card
+(arange in int64, cast to int32, viewed as float32), through
+`core.roundtrip_dense` at ABS and REL 1e-3 with 32-bit bins (B8/B9 to
+encode, B10/B11 to decode), every value checked in float64 as
+benchmarks/exhaustive_sweep.py's `verify_slab` checks it (a NaN fails
+every test): 0 violations, zeros (REL) and non-finite values
+bit-identical, no plain quantizer called, one launch of each of B8-B11 a
+slab.  Over the same values it runs the paper's baselines: the
+unprotected ABS decoded by `decode_dense` (its violations reported,
+whatever they are) and the library REL decoded with its own exp2 (0
+violations required; its bins against the bit-trick REL's, and on slab
+0x30000000 its card bins against the CPU's).  Then Table 7 (protected
+against unprotected ABS) and Tables 5-6 (bit-trick against library REL)
+on the 512^3 fields, plain torch ops on both sides, B8/B9 beside them.
+
+A `families` phase (last) drives whisper-base (encdec, frames N(0,1)
+bf16 from the seed) and xlstm-350m (ssm) at full width and depth with
+weights from the seed: 6 AdamW steps at 8 x 448 and 8 x 512 tokens (the
+loss each step, finite and falling; forward + backward and optimizer
+ms; peak GB), a prefill of 8 x 448 and 8 x 2,048 tokens (tokens/s; the
+sLSTM's share), 128 greedy decode steps of 8 requests (step ms beside
+the bytes bound, kernels a step and the busy share from a profiled
+step), 64 teacher-forced decode steps within 2e-2 of `forward`'s max
+|logit| at every position, and a 2-layer cut whose loss, prefill logits
+and 16 decode steps agree with the CPU path.
+
 Output: the card's name and power limit, one JSON line per chain, one
-JSON line per phase (dense, audit, code sweep, kv, serve a/b/c, moe
-a-f, grads, train),
+JSON line per phase (dense, sweep, audit, code sweep, kv, serve a/b/c,
+moe a-f, grads, train, families),
 one JSON line
 {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.  On stderr: the build log and a summary of
@@ -3531,6 +3558,536 @@ def train_phase(seed: int) -> list:
     return rows
 
 
+# ------------------------------------------------------------ the sweep --
+#
+# The paper's §6 claim on the card: every float32 bit pattern through
+# `core.roundtrip_dense` (B8/B9 encode, B10/B11 decode) at ABS and REL
+# 1e-3 with 32-bit bins (benchmarks/exhaustive_sweep.py's defaults), then
+# the paper's two baselines over the same 2**32 values.
+
+SWEEP_SLAB = 1 << 28            # bit patterns per slab (1 GiB of float32)
+SWEEP_EB = 1e-3
+SWEEP_PARITY_SLAB = 3           # 0x30000000..0x3FFFFFFF: |x| in [2^-31, 2)
+SWEEP_EXAMPLES = 8              # violating bit patterns kept per check
+
+
+def int_cast_wraps() -> bool:
+    """Whether the card's int64 -> int32 cast wraps modulo 2**32."""
+    probe = torch.tensor([2 ** 31, 2 ** 32 - 1, 2 ** 31 + 5],
+                         dtype=torch.int64, device=DEV).to(torch.int32)
+    return probe.tolist() == [-2 ** 31, -1, -2 ** 31 + 5]
+
+
+def sweep_patterns(start: int, n: int, wraps: bool) -> torch.Tensor:
+    """The float32 values whose bits are start .. start + n - 1, made on
+    the card: arange in int64, to int32 (2**32 subtracted above 2**31 - 1
+    first where the cast does not wrap), viewed as float32."""
+    i = torch.arange(start, start + n, dtype=torch.int64, device=DEV)
+    if not wraps:
+        i = torch.where(i >= 2 ** 31, i - 2 ** 32, i)
+    return i.to(torch.int32).view(torch.float32)
+
+
+def sweep_bad(x, y, cfg) -> torch.Tensor:
+    """benchmarks/exhaustive_sweep.py's `verify_slab` on the card, in
+    float64, each test written so that a NaN fails it: ABS |x - y| <= eb
+    for every finite x; REL |x - y| / |x| <= eb for every finite non-zero
+    x, and zeros bit-identical; every non-finite value bit-identical (NaN
+    payloads included).  Returns the mask of violations."""
+    xb, yb = x.view(torch.int32), y.view(torch.int32)
+    x64, y64 = x.double(), y.double()
+    err = (x64 - y64).abs()
+    if cfg.mode == "abs":
+        ok = err <= cfg.error_bound
+    else:
+        ok = torch.where(x == 0, xb == yb, err / x64.abs() <= cfg.error_bound)
+    return ~torch.where(torch.isfinite(x), ok, xb == yb)
+
+
+def sweep_tally(tally: dict, key: str, x, y, cfg) -> None:
+    bad = sweep_bad(x, y, cfg)
+    n = int(bad.sum())
+    tally[key] = tally.get(key, 0) + n
+    if n:
+        ex = tally.setdefault(key + "_examples", [])
+        idx = torch.nonzero(bad).reshape(-1)[:SWEEP_EXAMPLES - len(ex)]
+        ex += [f"{b & 0xFFFFFFFF:#010x}" for b in
+               x.view(torch.int32)[idx].tolist()]
+
+
+def sweep_tables(f) -> dict:
+    """The paper's Table 7 (protected vs unprotected ABS) and Tables 5-6
+    (bit-trick vs library REL) on the port, on the dense phase's 512**3
+    fields: plain torch ops on both sides of a pair, CUDA events, median
+    of 25, each side timed twice in the order a, b, b, a; B8/B9's
+    kernel time beside them."""
+    from repro_torch.core import quantizer as q
+    from repro_torch.core.config import QuantizerConfig
+    from repro_torch.kernels import dense as D
+    xa, xr = f["grad"], f["nyx"]
+    acfg = QuantizerConfig(mode="abs", error_bound=float(rms_eb(xa)),
+                           bin_bits=16)
+    rcfg = QuantizerConfig(mode="rel", error_bound=SWEEP_EB, bin_bits=16)
+
+    def pair(a, b):
+        ta1, tb1, tb2, ta2 = time_ms(a), time_ms(b), time_ms(b), time_ms(a)
+        return [ta1, ta2], [tb1, tb2]
+
+    prot, unprot = pair(lambda: q.quantize_abs(xa, acfg),
+                        lambda: q.quantize_abs_unprotected(xa, acfg))
+    trick, lib = pair(lambda: q.quantize_rel(xr, rcfg),
+                      lambda: q.quantize_rel_library(xr, rcfg))
+    qa, qu = q.quantize_abs(xa, acfg), q.quantize_abs_unprotected(xa, acfg)
+    qr, ql = q.quantize_rel(xr, rcfg), q.quantize_rel_library(xr, rcfg)
+    return {
+        "n": xa.numel(),
+        "table7_abs": {"field": "grad", "eb": acfg.error_bound,
+                       "bin_bits": 16, "protected_ms": prot,
+                       "unprotected_ms": unprot,
+                       "b8_kernel_ms": time_ms(lambda: D.quantize_abs(
+                           xa, acfg)),
+                       "outliers_protected": int(qa.outlier.sum()),
+                       "outliers_unprotected": int(qu.outlier.sum())},
+        "table5_6_rel": {"field": "nyx", "eb": SWEEP_EB, "bin_bits": 16,
+                         "bit_trick_ms": trick, "library_ms": lib,
+                         "b9_kernel_ms": time_ms(lambda: D.quantize_rel(
+                             xr, rcfg)),
+                         "outliers_bit_trick": int(qr.outlier.sum()),
+                         "outliers_library": int(ql.outlier.sum()),
+                         "bins_differ": int((qr.bins != ql.bins).sum())}}
+
+
+def sweep_rows(x, acfg, rcfg, counts: dict) -> list:
+    """B8-B11 on one slab of the sweep, held against their plain versions
+    and timed; `launches` is the sweep's count."""
+    from repro_torch.core import quantizer as q
+    from repro_torch.core.bitops import float_to_bits
+    from repro_torch.kernels import dense as D
+    eb = q.full_scalar(acfg.error_bound, torch.float32, DEV).reshape(1)
+    qa, qr = D.quantize_abs(x, acfg), D.quantize_rel(x, rcfg)
+    zero = torch.zeros((), dtype=torch.int32, device=DEV)
+    pa = torch.where(qa.outlier, float_to_bits(x), zero)
+    pr = torch.where(qr.outlier, float_to_bits(x), zero)
+    calls = [
+        ("_quantize_abs", "abs", lambda: tuple(D.quantize_abs(x, acfg)[:3]),
+         lambda: tuple(D._quantize_abs_plain(x, eb, acfg)[:3])),
+        ("_quantize_rel", "rel", lambda: tuple(D.quantize_rel(x, rcfg)),
+         lambda: tuple(D._quantize_rel_plain(x, rcfg))),
+        ("_dequantize_abs", "abs",
+         lambda: D.dequantize_abs(qa.bins, pa, qa.outlier, acfg),
+         lambda: D._dequantize_abs_plain(qa.bins, pa, qa.outlier, eb, acfg)),
+        ("_dequantize_rel", "rel",
+         lambda: D.dequantize_rel(qr.bins, pr, qr.outlier, qr.sign, rcfg),
+         lambda: D._dequantize_rel_plain(qr.bins, pr, qr.outlier, qr.sign,
+                                         rcfg)),
+    ]
+    return [kernel_row(name, label, "sweep", 32, x.numel(), None, kern,
+                       plain, counts[name])
+            for name, label, kern, plain in calls]
+
+
+def sweep_phase(f) -> list:
+    """All 2**32 float32 bit patterns, SWEEP_SLAB at a time, through
+    `core.roundtrip_dense` at ABS and REL 1e-3 (32-bit bins): 0 violations,
+    no plain quantizer called, one B8 (B9) and one B10 (B11) launch a
+    slab.  Over the same values: the unprotected ABS decoded with
+    `decode_dense` (its violations reported, whatever they are) and the
+    library REL decoded with its own exp2 (0 violations required; its bins
+    against the bit-trick REL's, and on one slab its card bins against the
+    CPU's).  Then `sweep_tables`.  Returns B8-B11's kernel rows."""
+    from repro_torch import core as C
+    from repro_torch.core import quantizer as q
+    from repro_torch.kernels import dense as D
+    acfg = C.QuantizerConfig(mode="abs", error_bound=SWEEP_EB, bin_bits=32)
+    rcfg = C.QuantizerConfig(mode="rel", error_bound=SWEEP_EB, bin_bits=32)
+    wraps = int_cast_wraps()
+    n_slabs = (1 << 32) // SWEEP_SLAB
+    tally, secs = {}, {}
+    counts = dict.fromkeys(D.KERNELS, 0)
+    lib = {"bins_differ": 0, "outliers_library": 0, "outliers_bit_trick": 0}
+    zero = torch.zeros((), dtype=torch.int32, device=DEV)
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        fn()
+        torch.cuda.synchronize()
+        secs[key] = secs.get(key, 0.0) + time.time() - t
+
+    def guarded(x, mode, cfg):
+        reset_launches()
+        y = C.roundtrip_dense(x, cfg)
+        for k, v in launches().items():
+            if k in counts:
+                counts[k] += v
+        sweep_tally(tally, mode, x, y, cfg)
+
+    def unprotected(x):
+        qu = q.quantize_abs_unprotected(x, acfg)
+        payload = torch.where(qu.outlier, C.float_to_bits(x), zero)
+        y = C.decode_dense(C.EncodedDense(qu.bins, qu.outlier, payload,
+                                          None, None), acfg)
+        sweep_tally(tally, "abs_unprotected", x, y, acfg)
+
+    def library(x):
+        ql = q.quantize_rel_library(x, rcfg)
+        sweep_tally(tally, "rel_library", x,
+                    torch.where(ql.outlier, x, ql.recon), rcfg)
+        qr = D.quantize_rel(x, rcfg)
+        lib["bins_differ"] += int((ql.bins != qr.bins).sum())
+        lib["outliers_library"] += int(ql.outlier.sum())
+        lib["outliers_bit_trick"] += int(qr.outlier.sum())
+
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_calls() as plain:
+        for s in range(n_slabs):
+            x = sweep_patterns(s * SWEEP_SLAB, SWEEP_SLAB, wraps)
+            timed("abs", lambda: guarded(x, "abs", acfg))
+            timed("rel", lambda: guarded(x, "rel", rcfg))
+            timed("abs_unprotected", lambda: unprotected(x))
+            timed("rel_library", lambda: library(x))
+            del x
+    n_values = n_slabs * SWEEP_SLAB
+    check(n_values == 1 << 32, "sweep: the slabs do not cover 2**32 values")
+    check(plain["calls"] == 0, "sweep: the card's path called a plain "
+                               "quantizer or codec")
+    for k in D.KERNELS:
+        check(counts[k] == n_slabs, f"sweep: {k} launched {counts[k]} "
+                                    f"times for {n_slabs} slabs")
+    for mode in ("abs", "rel", "rel_library"):
+        check(tally.get(mode, 0) == 0, f"sweep: {tally.get(mode)} {mode} "
+              f"violations, e.g. {tally.get(mode + '_examples')}")
+
+    x = sweep_patterns(SWEEP_PARITY_SLAB * SWEEP_SLAB, SWEEP_SLAB, wraps)
+    t = time.time()
+    card = q.quantize_rel_library(x, rcfg)
+    host = q.quantize_rel_library(x.cpu(), rcfg)
+    differ = card.bins.cpu() != host.bins
+    parity = {"slab_start": f"{SWEEP_PARITY_SLAB * SWEEP_SLAB:#010x}",
+              "values": SWEEP_SLAB, "bins_differ": int(differ.sum()),
+              "outliers_differ": int((card.outlier.cpu()
+                                      != host.outlier).sum()),
+              "first": None, "s": time.time() - t}
+    if parity["bins_differ"]:
+        i = int(torch.nonzero(differ)[0])
+        parity["first"] = {
+            "bits": f"{int(x.view(torch.int32)[i]) & 0xFFFFFFFF:#010x}",
+            "card_bin": int(card.bins[i]), "cpu_bin": int(host.bins[i])}
+    rows = sweep_rows(x, acfg, rcfg, counts)
+    del x, card, host, differ
+    line = {"phase": "sweep", "values_per_mode": n_values, "slabs": n_slabs,
+            "slab": SWEEP_SLAB, "eb": SWEEP_EB, "bin_bits": 32,
+            "int64_to_int32_wraps": wraps,
+            "violations": {k: v for k, v in tally.items()
+                           if not k.endswith("_examples")},
+            "violation_examples": {k: v for k, v in tally.items()
+                                   if k.endswith("_examples")},
+            "seconds": secs, "plain_calls": plain["calls"],
+            "launches": counts, "library_rel": lib,
+            "library_rel_card_vs_cpu": parity,
+            "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+    line["violations"].update({k: 0 for k in ("abs", "rel", "abs_unprotected",
+                                              "rel_library")
+                               if k not in line["violations"]})
+    line.update(sweep_tables(f))
+    line["phase_s"] = time.time() - t0
+    print(json.dumps(line), flush=True)
+    return rows
+
+
+# --------------------------------------------------------- the families --
+#
+# whisper-base (encdec) and xlstm-350m (ssm) at full width and depth, with
+# weights and frames from the seed: training, prefill and serving.
+
+FAM_RUNS = {"whisper-base": dict(seq=448, prefill=448),
+            "xlstm-350m": dict(seq=512, prefill=2048)}
+FAM_BATCH, FAM_STEPS, FAM_SERVE = 8, 6, 128
+FAM_PROMPT, FAM_CUT_STEPS, FAM_TOL = 64, 16, 2e-2
+FAM_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=FAM_STEPS)
+
+
+def fam_batch(cfg, tokens, seed: int, dev=None) -> dict:
+    """{"tokens"} on dev (the card by default), and for encdec "frames":
+    N(0, 1) bfloat16 [B, enc_context, D] from the seed (the stubbed
+    frontend's output, `launch.train.stub_frames`)."""
+    from repro_torch.launch.train import stub_frames
+    dev = torch.device(dev or DEV)
+    batch = {"tokens": tokens.to(dev)}
+    if cfg.family == "encdec":
+        batch["frames"] = stub_frames(cfg, tokens.shape[0], seed, dev)
+    return batch
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch import tree as T
+    return sum(t.numel() * t.element_size() for t in T.leaves(tree))
+
+
+def fam_train(bundle, seed: int, seq: int) -> dict:
+    """FAM_STEPS full-precision steps (loss, autograd, AdamW) at FAM_BATCH
+    x seq tokens from `TokenPipeline` (whisper: and its frames): the loss
+    of each step finite and the last below the first; step ms split into
+    forward + backward and optimizer; the bound 6 N tokens over the bf16
+    rate (whisper's encoder weights over its frames) or the state read and
+    written once (28 N bytes)."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import train as TL
+    from repro_torch.optim import optimizer as O
+    cfg = bundle.cfg
+    ocfg = O.AdamWConfig(**FAM_OPT)
+    pipe = TokenPipeline(DataConfig(cfg.vocab, seq, FAM_BATCH, seed))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = bundle.init(torch.Generator(device=DEV).manual_seed(seed + 60),
+                         device=DEV)
+    state = (params, O.init(params, ocfg))
+    step = TL.make_train_step(bundle, None, ocfg, donate=True)
+    losses, times = [], []
+    for i in range(FAM_STEPS):
+        p = pipe.batch(i)
+        b = fam_batch(cfg, torch.from_numpy(p["tokens"]), seed + 100 + i)
+        b["labels"] = torch.from_numpy(p["labels"]).to(DEV)
+        torch.cuda.synchronize()
+        with step_phases() as marks:
+            a = cuda_mark()
+            state, metrics = step(state, b)
+            e = cuda_mark()
+            e.synchronize()
+        loss = float(metrics["loss"])
+        check(np.isfinite(loss), f"families {cfg.name}: loss {loss} at step "
+                                 f"{i + 1}")
+        losses.append(loss)
+        times.append(phase_ms(a, e, marks))
+    check(losses[-1] < losses[0], f"families {cfg.name}: the loss did not "
+                                  f"fall: {losses}")
+    from repro_torch import tree as T
+    n = bundle.n_params()
+    n_enc = sum(t.numel() for t in T.leaves(params.get("enc", {})))
+    pos = sum(params[k].numel() for k in ("enc_pos", "dec_pos")
+              if k in params)
+    ops = 6 * ((n - n_enc - pos) * FAM_BATCH * seq
+               + n_enc * FAM_BATCH * cfg.enc_context)
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    t_bytes = 28 * n / HBM_BYTES_PER_S * 1e3
+    med = {k: statistics.median(t[k] for t in times[1:]) for k in times[0]}
+    out = {"batch": FAM_BATCH, "seq": seq, "steps": FAM_STEPS,
+           "loss": losses, "step_ms": times, "median_ms": med,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "share": max(t_ops, t_bytes) / med["step"],
+           "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+    del state, step
+    return out, params
+
+
+@contextlib.contextmanager
+def slstm_timer():
+    """CUDA events around every sLSTM block while the block runs:
+    yields the list of (start, end) pairs."""
+    from repro_torch.models import xlstm_stack as XS
+    real, marks = XS.slstm_block, []
+
+    def timed(*a, **kw):
+        s = cuda_mark()
+        out = real(*a, **kw)
+        marks.append((s, cuda_mark()))
+        return out
+
+    XS.slstm_block = timed
+    try:
+        yield marks
+    finally:
+        XS.slstm_block = real
+
+
+def fam_prefill(bundle, params, seed: int, n_tok: int) -> dict:
+    """`ModelBundle.prefill` of FAM_BATCH x n_tok tokens (whisper: over its
+    frames): tokens/s, and for the ssm family the sLSTM blocks' share of
+    the time (a true recurrence: n_tok sequential steps a block)."""
+    cfg = bundle.cfg
+    gen = torch.Generator(device=DEV).manual_seed(seed + 70)
+    tokens = torch.randint(0, cfg.vocab, (FAM_BATCH, n_tok), generator=gen,
+                           device=DEV)
+    batch = fam_batch(cfg, tokens, seed + 71)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), slstm_timer() as marks:
+        torch.cuda.synchronize()
+        a = cuda_mark()
+        logits = bundle.prefill(params, batch)
+        e = cuda_mark()
+        e.synchronize()
+    ms = a.elapsed_time(e)
+    check(bool(torch.isfinite(logits).all()), f"families {cfg.name}: "
+                                              "non-finite prefill logits")
+    out = {"batch": FAM_BATCH, "tokens": n_tok, "ms": ms,
+           "tokens_per_s": FAM_BATCH * n_tok / ms * 1e3,
+           "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+    if marks:
+        s_ms = sum(s.elapsed_time(t) for s, t in marks)
+        out.update(slstm_ms=s_ms, slstm_share=s_ms / ms,
+                   slstm_blocks=len(marks))
+    return out
+
+
+def fam_cache(bundle, params, batch: dict, seq: int):
+    """A fresh cache for `batch`'s rows on their device; whisper's cross
+    K/V from the encoder over its frames (`encdec.cross_kv`)."""
+    from repro_torch.models import encdec as E
+    cfg = bundle.cfg
+    cache = bundle.make_cache(batch["tokens"].shape[0], seq,
+                              device=batch["tokens"].device)
+    if cfg.family == "encdec":
+        enc = E.encode(cfg, params, batch["frames"])
+        cache = (cache[0], E.cross_kv(cfg, params, enc))
+    return cache
+
+
+def fam_serve(bundle, params, seed: int) -> dict:
+    """FAM_BATCH requests, FAM_SERVE greedy decode steps from position 0:
+    step ms (CUDA events, median) beside the bound (every weight the step
+    reads once, and the cache or state, at the HBM rate), then one
+    profiled step: kernels a step and the card's busy share."""
+    cfg = bundle.cfg
+    gen = torch.Generator(device=DEV).manual_seed(seed + 80)
+    tok = torch.randint(0, cfg.vocab, (FAM_BATCH, 1), generator=gen,
+                        device=DEV)
+    batch = fam_batch(cfg, tok, seed + 81)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        cache = fam_cache(bundle, params, batch, FAM_SERVE)
+        marks = []
+        for pos in range(FAM_SERVE):
+            a = cuda_mark()
+            logits, cache = bundle.serve_step(params, cache, tok, pos)
+            tok = logits.argmax(-1, keepdim=True)
+            marks.append((a, cuda_mark()))
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(logits).all()),
+              f"families {cfg.name}: non-finite decode logits")
+        steps = [a.elapsed_time(e) for a, e in marks]
+        n_k, dev_ms = device_kernels(
+            lambda: bundle.serve_step(params, cache, tok, FAM_SERVE - 1),
+            reps=3)
+    if cfg.family == "encdec":
+        weights = tree_bytes(params["dec"]) + tree_bytes(
+            {k: params[k] for k in ("emb", "final_norm")})
+        state = tree_bytes(cache[1]) + tree_bytes(cache[0]) // 2
+    else:
+        weights = tree_bytes(params)
+        state = 2 * tree_bytes(cache)                # read and written
+    med = statistics.median(steps[1:])
+    bound = (weights + state) / HBM_BYTES_PER_S * 1e3
+    return {"batch": FAM_BATCH, "steps": FAM_SERVE, "step_ms_median": med,
+            "step_ms_first": steps[0], "bound_ms": bound, "bound_by": "bytes",
+            "share": bound / med, "weight_bytes": weights,
+            "cache_bytes": state,
+            "kernels_per_step": n_k,
+            "device_busy_ms": sum(dev_ms.values()) or None,
+            "busy_share": (sum(dev_ms.values()) / med) if dev_ms else None,
+            "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def fam_teacher_forced(bundle, params, seed: int) -> float:
+    """FAM_PROMPT teacher-forced decode steps against `forward`'s logits at
+    every position: the largest |difference| over the largest |logit| at
+    that position (must be within FAM_TOL)."""
+    cfg = bundle.cfg
+    gen = torch.Generator(device=DEV).manual_seed(seed + 90)
+    tokens = torch.randint(0, cfg.vocab, (FAM_BATCH, FAM_PROMPT),
+                           generator=gen, device=DEV)
+    batch = fam_batch(cfg, tokens, seed + 91)
+    worst = 0.0
+    with torch.no_grad():
+        fwd, _ = bundle._forward(params, batch, None, remat=False)
+        cache = fam_cache(bundle, params, batch, FAM_PROMPT)
+        for pos in range(FAM_PROMPT):
+            got, cache = bundle.serve_step(params, cache,
+                                           tokens[:, pos:pos + 1], pos)
+            want = fwd[:, pos].float()
+            worst = max(worst, float((got - want).abs().max()
+                                     / want.abs().max()))
+    check(worst <= FAM_TOL, f"families {cfg.name}: teacher-forced steps "
+                            f"{worst} of max |logit| from forward")
+    return worst
+
+
+def fam_cut_vs_cpu(name: str, seed: int) -> dict:
+    """A 2-layer cut at full width on the card against the port's CPU path
+    on the same weights: the loss, the prefill logits and FAM_CUT_STEPS
+    decode steps (each within FAM_TOL of the CPU's max |logit|; the loss
+    within 1e-3 of itself + 1e-3)."""
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.configs.registry import get
+    from repro_torch.models import build
+    full = get(name)
+    cfg = dataclasses.replace(full, n_layers=2,
+                              enc_layers=min(full.enc_layers, 2))
+    bundle = build(cfg)
+    params = bundle.init(torch.Generator(device=DEV).manual_seed(seed + 95),
+                         device=DEV)
+    cpu = T.tree_map(lambda t: t.cpu(), params)
+    gen = torch.Generator().manual_seed(seed + 96)
+    tok = torch.randint(0, cfg.vocab, (2, 33), generator=gen)
+    host = fam_batch(cfg, tok[:, :-1], seed + 97, "cpu")
+    host["labels"] = tok[:, 1:]
+    card = {k: v.to(DEV) for k, v in host.items()}
+
+    def rel(a, b):
+        return float((a.cpu().float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    with torch.no_grad():
+        lc, lh = bundle.loss(params, card)[0], bundle.loss(cpu, host)[0]
+        d_loss = abs(float(lc) - float(lh))
+        pre = rel(bundle.prefill(params, card), bundle.prefill(cpu, host))
+        cc = fam_cache(bundle, params, card, FAM_CUT_STEPS)
+        hc = fam_cache(bundle, cpu, host, FAM_CUT_STEPS)
+        steps = []
+        for pos in range(FAM_CUT_STEPS):
+            t = tok[:, pos:pos + 1]
+            oc, cc = bundle.serve_step(params, cc, t.to(DEV), pos)
+            oh, hc = bundle.serve_step(cpu, hc, t, pos)
+            steps.append(rel(oc, oh))
+    check(d_loss <= 1e-3 * abs(float(lh)) + 1e-3,
+          f"families {name}: 2-layer loss {float(lc)} on the card, "
+          f"{float(lh)} on the CPU")
+    check(pre <= FAM_TOL and max(steps) <= FAM_TOL,
+          f"families {name}: 2-layer card vs CPU prefill {pre}, steps "
+          f"{max(steps)}")
+    return {"layers": 2, "loss_card": float(lc), "loss_cpu": float(lh),
+            "prefill_rel": pre, "steps_rel_max": max(steps)}
+
+
+def families_phase(seed: int) -> None:
+    """A13's encdec and ssm families at full width and depth: per model a
+    line with (a) training, (b) prefill, (c) serving, and the checks
+    (teacher-forced steps against forward, a 2-layer cut against the CPU
+    path)."""
+    from repro_torch.configs.registry import get
+    from repro_torch.models import build
+    for name, run in FAM_RUNS.items():
+        t0 = time.time()
+        gc.collect()
+        torch.cuda.empty_cache()
+        bundle = build(get(name))
+        train, params = fam_train(bundle, seed, run["seq"])
+        line = {"phase": "families", "model": name,
+                "n_params": bundle.n_params(), "train": train}
+        line["prefill"] = fam_prefill(bundle, params, seed, run["prefill"])
+        line["serve"] = fam_serve(bundle, params, seed)
+        line["teacher_forced_rel_max"] = fam_teacher_forced(bundle, params,
+                                                            seed)
+        del params
+        torch.cuda.empty_cache()
+        line["cut_vs_cpu"] = fam_cut_vs_cpu(name, seed)
+        line["tolerance"] = FAM_TOL
+        line["phase_s"] = time.time() - t0
+        print(json.dumps(line), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=N_DEFAULT,
@@ -3581,6 +4138,7 @@ def main(argv=None) -> int:
         rows += run_chain(name, get_pipeline(name), f["nyx"], None,
                           shape=nyx_shape)
     rows += dense_phase(f)
+    rows += sweep_phase(f)
     rows += audit_phase(f)
     del f
     code_sweep(args.seed)
@@ -3596,6 +4154,7 @@ def main(argv=None) -> int:
     rows += moe_phase(args.seed)
     rows += grads_phase(args.seed)
     rows += train_phase(args.seed)
+    families_phase(args.seed)
     check(set(KERNELS) <= {r["name"] for r in rows},
           "a kernel has no main-path row")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -78,6 +78,72 @@ class ArchConfig:
             ssm_state=8,
         )
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding included once; the roofline's
+        MODEL_FLOPS = 6 N D term)."""
+        d, hd, f = self.d_model, self.head_dim, self.d_ff
+        attn = d * (self.n_heads * hd) * 2 + d * (2 * self.n_kv_heads * hd)
+        dense_ffn = (3 if self.act == "swiglu" else 2) * d * f
+        if self.family == "moe":
+            moe_ffn = 3 * d * f * self.moe_experts
+            per_layer = attn + moe_ffn + d * self.moe_experts + 2 * d
+            n = self.n_layers * per_layer
+        elif self.family == "hybrid":
+            n = 0
+            for i in range(self.n_layers):
+                is_attn = (i % self.attn_period) == self.attn_period - 1
+                block = attn if is_attn else self._mamba_params()
+                ffn = (3 * d * f * self.moe_experts + d * self.moe_experts
+                       if (i % self.moe_every) == self.moe_every - 1
+                       else dense_ffn)
+                n += block + ffn + 2 * d
+        elif self.family == "ssm":
+            n = self.n_layers * self._xlstm_params()
+        elif self.family == "encdec":
+            dec = self.n_layers * (2 * attn + dense_ffn + 3 * d)
+            enc = self.enc_layers * (attn + dense_ffn + 2 * d)
+            n = dec + enc + (self.enc_context + 32_768) * d  # positions
+        else:                                                 # dense / vlm
+            n = self.n_layers * (attn + dense_ffn + 2 * d)
+        return n + self.vocab * d
+
+    def active_param_count(self) -> int:
+        """MoE: only the top-k experts count toward a step's FLOPs."""
+        if self.moe_experts == 0:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        full = self.param_count()
+        if self.family == "moe":
+            inactive = (self.n_layers * 3 * d * f
+                        * (self.moe_experts - self.moe_top_k))
+        else:                                                 # hybrid
+            n_moe = sum(1 for i in range(self.n_layers)
+                        if (i % self.moe_every) == self.moe_every - 1)
+            inactive = n_moe * 3 * d * f * (self.moe_experts - self.moe_top_k)
+        return full - inactive
+
+    def _mamba_params(self) -> int:
+        """One Mamba block (the reference's models/mamba.py shapes)."""
+        d = self.d_model
+        n = self.ssm_state
+        di = 2 * d
+        return (d * 2 * di            # in_proj
+                + 4 * di              # conv
+                + di * n + di         # a_log, d_skip
+                + di * 2 * n          # bc_proj
+                + di * di + di        # dt_proj, dt_bias
+                + di * d)             # out_proj
+
+    def _xlstm_params(self) -> int:
+        """Per layer: one mLSTM + sLSTM pair (models/xlstm.py's shapes) and
+        its two norms, halved."""
+        d, h = self.d_model, self.n_heads
+        di = 2 * d
+        dh = di // h
+        mlstm = d * 2 * di + di * 3 * di + di * 3 * h + di * d
+        slstm = d * 2 * di + di * 4 * di + h * dh * 4 * dh + di * d
+        return (mlstm + slstm + 2 * d) // 2
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

@@ -81,6 +81,10 @@ def get(name: str) -> ArchConfig:
     return ARCHS[name]
 
 
+def all_archs() -> dict:
+    return dict(ARCHS)
+
+
 PIPELINES = {
     # gradient all-reduce wires (cap = 1/64)
     "grad-wire-8": "abs:1.0:cap=0.015625|pack:8",

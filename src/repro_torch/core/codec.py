@@ -1,8 +1,7 @@
-"""The packed wire (§4 layout) over the quantizers, in torch.
-
-Counterpart of the packed half of `repro.core.codec`: bins bit-packed into
-32-bit lane words, the REL sign plane at 1 bit/value, and the capped exact
-outlier table (the first K outlier indices in ascending order, filled with
+"""The fixed-shape codec over the quantizers, in torch (counterpart of
+`repro.core.codec`): the dense and compact layouts (further down), and the
+packed wire (§4 layout): bins bit-packed into 32-bit lane words, the REL
+sign plane at 1 bit/value, and the capped exact outlier table (the first K outlier indices in ascending order, filled with
 n, plus their original IEEE bits).  `overflow` is `n_outliers > K`: the
 tensor then cannot be represented within the bound and callers must take a
 lossless path; the guarantee is never silently dropped.
@@ -226,9 +225,140 @@ def outlier_planes(n: int, out_idx: torch.Tensor, out_payload: torch.Tensor):
     dev = out_idx.device
     outlier = torch.zeros(n + 1, dtype=torch.bool, device=dev)
     outlier[idx] = True
-    payload = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-    payload.index_put_((idx,), out_payload.to(torch.int32))
+    pdt = torch.int64 if out_payload.element_size() == 8 else torch.int32
+    payload = torch.zeros(n + 1, dtype=pdt, device=dev)
+    payload.index_put_((idx,), out_payload.to(pdt))
     return outlier[:n], payload[:n]
+
+
+# ---------------------------------------------------------------------------
+# The dense and compact layouts (the reference's fixed-shape codec)
+# ---------------------------------------------------------------------------
+#
+# DENSE keeps bins, the outlier flags and the outliers' exact bits at every
+# index (0 where not an outlier); COMPACT keeps the bins and the capped
+# outlier table of the packed wire, unpacked.  float32 data goes through
+# `kernels.dense` (B8/B9 to quantize, B10/B11 to decode: the kernels on the
+# card, their plain versions on the CPU); float64 through the torch
+# quantizers on any device (the dense kernels take float32 only).
+
+_BIN_DTYPE = {8: torch.int8, 16: torch.int16, 32: torch.int32}
+
+
+class EncodedDense(NamedTuple):
+    bins: torch.Tensor         # int{8,16,32}[n]
+    outlier: torch.Tensor      # bool[n]
+    payload: torch.Tensor      # int32 (float64: int64) IEEE bits at outliers
+    sign: torch.Tensor | None  # bool[n] (REL only)
+    eb: torch.Tensor | None    # 0-d traced bound (NOA / per-tensor eb)
+
+
+class EncodedCompact(NamedTuple):
+    bins: torch.Tensor         # int{8,16,32}[n]
+    out_idx: torch.Tensor      # int32[K], n = "empty slot"
+    out_payload: torch.Tensor  # int32 (float64: int64) IEEE bits [K]
+    n_outliers: torch.Tensor   # int32 0-d
+    overflow: torch.Tensor     # bool 0-d: n_outliers > K (bound NOT met)
+    sign: torch.Tensor | None
+    eb: torch.Tensor | None
+
+    def wire_bits(self, cfg: QuantizerConfig) -> int:
+        """Static wire size in bits (what the collective moves)."""
+        n = self.bins.shape[0]
+        k = self.out_idx.shape[0]
+        elem = self.out_payload.element_size() * 8
+        sign_bits = n if self.sign is not None else 0
+        return n * cfg.bin_bits + k * (32 + elem) + sign_bits + 64
+
+
+def _narrow(bins: torch.Tensor, cfg: QuantizerConfig) -> torch.Tensor:
+    return bins.to(_BIN_DTYPE[cfg.bin_bits])
+
+
+def _dense_kernels(dt: torch.dtype):
+    """`kernels.dense` for float32 data, None for float64 (imported here:
+    it imports this module)."""
+    if dt != torch.float32:
+        return None
+    from ..kernels import dense
+    return dense
+
+
+def quantize_flat(flat: torch.Tensor, cfg: QuantizerConfig, eb):
+    """(Quantized, eb) as the reference's encoders dispatch on the mode: eb
+    passes through for ABS and REL, NOA replaces it with its range bound."""
+    k = _dense_kernels(flat.dtype)
+    if k is None:
+        if cfg.mode == "noa":
+            return q.quantize_noa(flat, cfg)
+        if cfg.mode == "rel":
+            return q.quantize_rel(flat, cfg), eb
+        return q.quantize_abs(flat, cfg, eb=eb), eb
+    if cfg.mode == "rel":
+        return k.quantize_rel(flat, cfg), eb
+    if cfg.mode == "noa":
+        eb = q.value_range_eb(flat, cfg)
+    return k.quantize_abs(flat, cfg, eb=eb), eb
+
+
+def decode_planes(bins, payload, outlier, sign, eb, cfg: QuantizerConfig,
+                  dt: torch.dtype) -> torch.Tensor:
+    """bins dequantized in dt, with the exact value of payload's bits where
+    outlier is set."""
+    bins = bins.to(torch.int32)
+    k = _dense_kernels(dt)
+    if k is not None and cfg.mode == "rel":
+        return k.dequantize_rel(bins, payload, outlier, sign, cfg)
+    if k is not None:
+        return k.dequantize_abs(bins, payload, outlier, cfg, eb=eb)
+    if cfg.mode == "rel":
+        recon = q.dequantize_rel(bins, sign, cfg, dtype=dt)
+    else:
+        recon = q.dequantize_abs(bins, cfg, eb=eb, dtype=dt)
+    return torch.where(outlier, bits_to_float(payload, dt), recon)
+
+
+def encode_dense(x: torch.Tensor, cfg: QuantizerConfig, eb=None) -> EncodedDense:
+    flat = x.reshape(-1)
+    qt, eb = quantize_flat(flat, cfg, eb)
+    bits = float_to_bits(flat)
+    payload = torch.where(qt.outlier, bits, torch.zeros_like(bits))
+    return EncodedDense(_narrow(qt.bins, cfg), qt.outlier, payload, qt.sign,
+                        eb_plane(eb, flat))
+
+
+def decode_dense(enc: EncodedDense, cfg: QuantizerConfig, shape=None):
+    vals = decode_planes(enc.bins, enc.payload, enc.outlier, enc.sign,
+                          enc.eb, cfg, getattr(torch, cfg.dtype))
+    return vals.reshape(shape) if shape is not None else vals
+
+
+def encode_compact(x: torch.Tensor, cfg: QuantizerConfig,
+                   eb=None) -> EncodedCompact:
+    """The bins and the first K = cfg.outlier_cap(n) outliers' exact bits
+    (`outlier_table`); `overflow` reports n_outliers > K."""
+    flat = x.reshape(-1)
+    qt, eb = quantize_flat(flat, cfg, eb)
+    table = outlier_table(flat, qt.outlier, cfg.outlier_cap(flat.shape[0]))
+    return EncodedCompact(_narrow(qt.bins, cfg), *table, qt.sign,
+                          eb_plane(eb, flat))
+
+
+def decode_compact(enc: EncodedCompact, cfg: QuantizerConfig, shape=None,
+                   dtype=None):
+    """Dequantize and restore the table's exact values; empty slots (index
+    n) drop, as the reference's `.at[].set(mode="drop")` drops them."""
+    dt = dtype or getattr(torch, cfg.dtype)
+    outlier, payload = outlier_planes(enc.bins.shape[0], enc.out_idx,
+                                      enc.out_payload)
+    vals = decode_planes(enc.bins, payload, outlier, enc.sign, enc.eb, cfg,
+                          dt)
+    return vals.reshape(shape) if shape is not None else vals
+
+
+def roundtrip_dense(x: torch.Tensor, cfg: QuantizerConfig) -> torch.Tensor:
+    """Encode + decode; the decoded result carries the full guarantee."""
+    return decode_dense(encode_dense(x, cfg), cfg, shape=x.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -173,6 +173,67 @@ def quantize_noa(x: torch.Tensor, cfg: QuantizerConfig):
     return quantize_abs(x, cfg, eb=eb), eb
 
 
+def quantize(x: torch.Tensor, cfg: QuantizerConfig):
+    """Mode dispatch.  Returns (Quantized, eb): eb the traced NOA bound, a
+    0-d tensor, else None."""
+    if cfg.mode == "abs":
+        return quantize_abs(x, cfg), None
+    if cfg.mode == "rel":
+        return quantize_rel(x, cfg), None
+    if cfg.mode == "noa":
+        return quantize_noa(x, cfg)
+    raise ValueError(cfg.mode)
+
+
+# ---------------------------------------------------------------------------
+# The paper's baselines (Figs 1-4, Tables 4-9), kept beside the guarded
+# quantizers only to measure what the guarantee costs.
+# ---------------------------------------------------------------------------
+
+def quantize_abs_unprotected(x: torch.Tensor, cfg: QuantizerConfig) -> Quantized:
+    """ABS without the double-check: only non-finite values and bins out of
+    range are outliers.  recon = bins * eb2 (0 at outliers)."""
+    dt, dev = x.dtype, x.device
+    _, eb2, inv_eb2 = (full_scalar(c, dt, dev) for c in cfg.abs_constants())
+    finite = torch.isfinite(x)
+    xs = torch.where(finite, x, torch.zeros((), dtype=dt, device=dev))
+    bin_f = torch.round(xs * inv_eb2)
+    range_bad = bin_f.abs() >= full_scalar(float(cfg.maxbin), dt, dev)
+    bin_i = torch.where(range_bad, torch.zeros_like(bin_f), bin_f).to(torch.int32)
+    outlier = (~finite) | range_bad
+    bins = torch.where(outlier, torch.zeros_like(bin_i), bin_i)
+    return Quantized(bins, outlier, bins.to(dt) * eb2)
+
+
+def quantize_rel_library(x: torch.Tensor, cfg: QuantizerConfig) -> Quantized:
+    """REL through the backend's own log2/exp2 (the paper's 'original
+    functions' baseline), with the double-check kept: every value still
+    meets the bound, but the bins depend on the backend's last bit, so
+    there is no cross-device parity (ROADMAP C-port-8)."""
+    dt, dev = x.dtype, x.device
+    eb_, log_step, inv_log_step = cfg.rel_constants()
+    finite = torch.isfinite(x)
+    ax = x.abs()
+    too_small = ~(ax >= full_scalar(cfg.rel_screen_threshold(), dt, dev))
+    one = torch.ones((), dtype=dt, device=dev)
+    safe = torch.where(finite & ~too_small, ax, one)
+    bin_f = torch.round(torch.log2(safe) * full_scalar(inv_log_step, dt, dev))
+    # NaN to 0 before the int cast (rint(0 * inf) at a zero log step)
+    bin_f = torch.where(torch.isnan(bin_f), torch.zeros_like(bin_f), bin_f)
+    range_bad = bin_f.abs() >= full_scalar(float(cfg.maxbin), dt, dev)
+    bin_i = torch.where(range_bad, torch.zeros_like(bin_f), bin_f).to(torch.int32)
+    mag = torch.exp2(bin_i.to(dt) * full_scalar(log_step, dt, dev))
+    neg = float_to_bits(x) < 0
+    recon = torch.where(neg, -mag, mag)
+    ebT = full_scalar(dt_np(dt).type(eb_) * dt_np(dt).type(cfg.tighten), dt, dev)
+    ok = ((x - recon).abs() <= ebT * ax) & torch.isfinite(recon)
+    ok &= mag >= full_scalar(np.finfo(dt_np(dt)).tiny, dt, dev)
+    outlier = (~finite) | too_small | range_bad | ~ok
+    bins = torch.where(outlier, torch.zeros_like(bin_i), bin_i)
+    recon = torch.where(outlier, torch.zeros((), dtype=dt, device=dev), recon)
+    return Quantized(bins, outlier, recon, sign=neg)
+
+
 def dt_np(dt: torch.dtype) -> np.dtype:
     """The numpy dtype of a torch float dtype."""
     return {torch.float32: np.dtype(np.float32),

@@ -194,12 +194,7 @@ def encode_packed(x: torch.Tensor, cfg: QuantizerConfig, eb=None,
     (EncodedPacked, Quantized)."""
     flat = x.reshape(-1).contiguous()
     C.check_f32(flat)
-    if cfg.mode == "rel":
-        qt = quantize_rel(flat, cfg)
-    else:
-        if cfg.mode == "noa":
-            eb = q.value_range_eb(flat, cfg)
-        qt = quantize_abs(flat, cfg, eb=cfg.error_bound if eb is None else eb)
+    qt, eb = C.quantize_flat(flat, cfg, eb)
     enc = C.pack_quantized(flat, qt, cfg, eb, cfg.outlier_cap(flat.shape[0]),
                            bin_transform)
     return enc, qt
@@ -221,9 +216,7 @@ def decode_packed(enc: C.EncodedPacked, cfg: QuantizerConfig,
     if bin_untransform is not None:
         bins = bin_untransform(bins)
     outlier, payload = C.outlier_planes(n, enc.out_idx, enc.out_payload)
-    if cfg.mode == "rel":
-        y = dequantize_rel(bins, payload, outlier,
-                           C.unpack_flags(enc.sign_words, n), cfg)
-    else:
-        y = dequantize_abs(bins, payload, outlier, cfg, eb=enc.eb)
+    sign = None if cfg.mode != "rel" else C.unpack_flags(enc.sign_words, n)
+    y = C.decode_planes(bins, payload, outlier, sign, enc.eb, cfg,
+                        torch.float32)
     return y.reshape(shape) if shape is not None else y

@@ -20,7 +20,7 @@ state, which one of them updates; under `DistAxis` each pod is a
 process.  Entry points run on the card unless the caller passes
 device="cpu".
 
-CLI:
+CLI (an encdec arch also gets a step's stubbed frames, `stub_frames`):
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-20b \\
       --steps 20 --batch 4 --seq 128 [--device cpu]
 """
@@ -155,6 +155,17 @@ def init_residuals(params, n_pods: int):
 
 # ---------------------------------------------------------------- CLI ----
 
+def stub_frames(cfg, batch: int, step: int, dev) -> torch.Tensor:
+    """The encdec family's stubbed frontend output for one step: N(0, 1)
+    bfloat16 [batch, enc_context, d_model] from a `torch.Generator` seeded
+    by the step.  The reference draws them with `jax.random.normal` from
+    `PRNGKey(step)`, a stream torch cannot reproduce, so the two
+    launchers train on other frames."""
+    gen = torch.Generator(device=dev).manual_seed(step)
+    return torch.randn((batch, cfg.enc_context, cfg.d_model),
+                       generator=gen, device=dev).to(torch.bfloat16)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=sorted(registry.ARCHS))
@@ -181,7 +192,10 @@ def main(argv=None):
 
     state = (params, ostate)
     for i in range(args.steps):
-        state, metrics = step(state, pipe.batch(i))
+        batch = pipe.batch(i)
+        if cfg.family == "encdec":
+            batch["frames"] = stub_frames(cfg, args.batch, i, dev)
+        state, metrics = step(state, batch)
         if i % 5 == 0 or i == args.steps - 1:
             print(f"step {i:4d} loss={float(metrics['loss']):.4f} "
                   f"gnorm={float(metrics['grad_norm']):.3f}")

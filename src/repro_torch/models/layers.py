@@ -1,7 +1,8 @@
 """The model layers, as plain functions on tensors (counterpart of
-`repro.models.layers`: `rms_norm`, `rope_tables`, `apply_rope`,
-`repeat_kv`, `flash_attention`, `decode_attention`, `ffn`, `trunc_init`,
-`NEG_BIG`).
+`repro.models.layers`: `rms_norm`, `layer_norm`, `rope_tables`,
+`apply_rope`, `repeat_kv`, `flash_attention`, `decode_attention`,
+`chunked_scan`, `ffn` (its "gelu" is the tanh form, as the reference's
+`jax.nn.gelu(approximate=True)`), `trunc_init`, `NEG_BIG`).
 
 The reference writes them as global math with sharding constraints at a
 few seams (`ShardCtx`); on one card those constraints are the identity,
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .params import _trunc_normal_
 
@@ -24,6 +26,17 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
     x32 = x.to(torch.float32)
     y = x32 * torch.rsqrt(torch.mean(x32 * x32, -1, keepdim=True) + eps)
     return (y * w.to(torch.float32)).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5):
+    """LayerNorm with bias (whisper): float32 mean and variance, rsqrt(var
+    + eps), then w and b in float32; cast back to x's dtype."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, -1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, -1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * w.to(torch.float32) + b.to(torch.float32)).to(x.dtype)
 
 
 def rope_tables(positions: torch.Tensor, dim: int, base: float = 10000.0):
@@ -131,6 +144,39 @@ def decode_attention(q, k_cache, v_cache, lengths):
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgqs,bsgd->bgqd", p, v_cache.to(torch.float32))
     return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def chunked_scan(step, carry: tuple, xs: torch.Tensor, chunk: int = 64,
+                 remat: bool = True):
+    """A scan over time in chunks: step(carry, xs[t]) -> (carry, y_t) for t
+    in order; returns (carry, ys stacked on a leading T axis).  carry is a
+    tuple of tensors, xs a tensor [T, ...].  The chunk is min(chunk, T),
+    or 1 where it does not divide T (the reference's rule).  While autograd
+    records (and remat), each chunk runs under `torch.utils.checkpoint`:
+    the backward pass keeps the carry only at chunk boundaries and replays
+    the steps inside, which changes no value."""
+    t = xs.shape[0]
+    chunk = min(chunk, t)
+    if t % chunk:
+        chunk = 1
+
+    def run(xc, *c):
+        ys = []
+        for i in range(xc.shape[0]):
+            c, y = step(c, xc[i])
+            ys.append(y)
+        return (*c, torch.stack(ys))
+
+    ys = []
+    for start in range(0, t, chunk):
+        xc = xs[start:start + chunk]
+        if remat and torch.is_grad_enabled():
+            *carry, y = checkpoint(run, xc, *carry, use_reentrant=False)
+        else:
+            *carry, y = run(xc, *carry)
+        carry = tuple(carry)
+        ys.append(y)
+    return carry, torch.cat(ys)
 
 
 def ffn(x, w1, w3, w2, act: str = "swiglu"):

@@ -140,12 +140,19 @@ def transfer_cache(cache: QuantCache, src: int, dst: int, axis, *,
 
 
 def _check_family(cfg: ArchConfig) -> None:
+    """This step, the engine and `stream_prefill` serve the decoder stack.
+    encdec and ssm decode through their own `serve_step` (by
+    `ModelBundle.serve_step`); the reference's engine does not run them
+    either (its prefill reads params["layers"]).  The hybrid is not
+    ported."""
+    if cfg.family in ("encdec", "ssm"):
+        raise NotImplementedError(
+            f"the {cfg.family} family has no QuantCache serve path: the "
+            "reference's DecodeEngine fails on it too (its prefill reads "
+            "params['layers']); decode it with ModelBundle.serve_step")
     if cfg.family not in ("dense", "vlm", "moe"):
-        item = {"hybrid": "ROADMAP A13 (mamba/hybrid serve)",
-                "ssm": "ROADMAP A13 (xlstm)",
-                "encdec": "ROADMAP A13 (encdec)"}.get(cfg.family,
-                                                      "ROADMAP A13")
-        raise not_ported(f"serving the {cfg.family} family", item)
+        raise not_ported(f"serving the {cfg.family} family",
+                         "ROADMAP A13 (mamba/hybrid serve)")
 
 
 def _project_token(cfg: ArchConfig, p: dict, x: torch.Tensor, pos: int):

@@ -8,8 +8,9 @@ grouped remat (`jax.checkpoint`); the port loops over the layers in
 Python (as `serve_step` does) and, with remat while autograd records,
 wraps each layer in `torch.utils.checkpoint.checkpoint`: the backward
 pass recomputes the layer from its input instead of keeping its
-activations, which changes no value.  The jamba hybrid is not ported
-(ROADMAP A13).
+activations, which changes no value.  encdec and ssm have stacks of
+their own (`models.encdec`, `models.xlstm_stack`); the jamba hybrid is not
+ported (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -23,6 +24,20 @@ from .moe import moe_ffn
 from .params import ParamSpec
 
 DTYPE = torch.bfloat16
+
+
+OWN_STACK = {"encdec": "models.encdec", "ssm": "models.xlstm_stack"}
+
+
+def _check_decoder(cfg: ArchConfig, what: str) -> None:
+    """The decoder stack serves the dense, vlm and MoE families; encdec and
+    ssm have stacks of their own, the hybrid is not ported."""
+    if cfg.family in OWN_STACK:
+        raise ValueError(f"the {cfg.family} family's {what} lives in "
+                         f"{OWN_STACK[cfg.family]} (models.build dispatches "
+                         "to it)")
+    if cfg.family not in ("dense", "vlm", "moe"):
+        raise not_ported(f"the {cfg.family} family's {what}", "ROADMAP A13")
 
 
 def _attn_specs(cfg: ArchConfig, lead=()):
@@ -74,8 +89,7 @@ def param_specs(cfg: ArchConfig) -> dict:
     elif cfg.family == "moe":
         layers = {**_attn_specs(cfg, (l_,)), **_moe_specs(cfg, (l_,))}
     else:
-        raise not_ported(f"the {cfg.family} family's parameters",
-                         "ROADMAP A13")
+        _check_decoder(cfg, "parameters")
     return {
         "emb": ParamSpec((cfg.padded_vocab, d), DTYPE, ("vocab", "embed")),
         "final_norm": ParamSpec((d,), torch.float32, (None,), -1.0),
@@ -129,9 +143,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, mesh=None,
     []), the sum of the layers' load-balance losses.  `mesh` must be None
     (one card); `remat` checkpoints each layer while autograd records;
     `moe_data_axes` is the reference's and changes nothing here."""
-    if cfg.family not in ("dense", "vlm", "moe"):
-        raise not_ported(f"the {cfg.family} family's forward pass",
-                         "ROADMAP A13")
+    _check_decoder(cfg, "forward pass")
     if mesh is not None:
         raise ValueError("the port runs on one card: mesh must be None")
     x = params["emb"][tokens].to(DTYPE)

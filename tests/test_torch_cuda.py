@@ -1017,3 +1017,95 @@ def test_moe_decode_step_makes_no_host_sync_on_card():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 16, 32])
+@pytest.mark.parametrize("mode", ["abs", "rel", "noa"])
+def test_dense_codec_through_b8_b11_on_card_matches_cpu(mode, bits):
+    """`core.encode_dense`/`decode_dense`/`encode_compact`/`decode_compact`
+    of float32 on the card launch B8 or B9 per encode and B10 or B11 per
+    decode, and every plane and decoded float is bit-equal to the CPU's
+    (the kernels' plain versions); float64 takes the torch quantizers on
+    either device and agrees too."""
+    _need_card()
+    from repro_torch import core as C
+    from repro_torch.kernels import dense as D
+    cfg = TCfg(mode=mode, error_bound=1e-2, bin_bits=bits,
+               outlier_cap_frac=0.25)
+    x = torch.from_numpy(_mix(4096 * 3 + 129))
+    q, dq = ("_quantize_rel", "_dequantize_rel") if mode == "rel" else (
+        "_quantize_abs", "_dequantize_abs")
+    before = dict(D.LAUNCHES)
+    enc = C.encode_dense(x.cuda(), cfg)
+    y = C.decode_dense(enc, cfg, shape=x.shape)
+    kc = C.encode_compact(x.cuda(), cfg)
+    yc = C.decode_compact(kc, cfg)
+    torch.cuda.synchronize()
+    assert D.LAUNCHES[q] == before[q] + 2
+    assert D.LAUNCHES[dq] == before[dq] + 2
+    want = C.encode_dense(x, cfg)
+    for a, b in zip(enc, want):
+        assert (a is None and b is None) or torch.equal(a.cpu(), b)
+    assert torch.equal(y.cpu().view(torch.int32),
+                       C.decode_dense(want, cfg).view(torch.int32))
+    wk = C.encode_compact(x, cfg)
+    for a, b in zip(kc, wk):
+        assert (a is None and b is None) or torch.equal(a.cpu(), b)
+    assert torch.equal(yc.cpu().view(torch.int32),
+                       C.decode_compact(wk, cfg).view(torch.int32))
+    c64 = TCfg(mode=mode, error_bound=1e-9 if mode != "rel" else 1e-6,
+               dtype="float64", bin_bits=32)
+    x64 = x.double()
+    assert torch.equal(C.roundtrip_dense(x64.cuda(), c64).cpu().view(
+        torch.int64), C.roundtrip_dense(x64, c64).view(torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["whisper-base", "xlstm-350m"])
+def test_two_layer_encdec_and_ssm_on_card_match_cpu(name):
+    """A 2-layer cut of whisper-base (2 encoder and 2 decoder layers) and
+    of xlstm-350m (one pair) at full width: the loss, the prefill logits
+    and 16 decode steps on the card within 2e-2 of the CPU's max |logit|."""
+    _need_card()
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.configs.registry import get
+    from repro_torch.models import build as tbuild
+    from repro_torch.models import encdec as TE
+    cfg = dataclasses.replace(get(name), n_layers=2,
+                              enc_layers=min(get(name).enc_layers, 2))
+    bundle = tbuild(cfg)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(21))
+    cpu = T.tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(22)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 33)))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.enc_context, cfg.d_model)).astype(np.float32)).to(
+                torch.bfloat16)
+    on_card = {k: v.cuda() for k, v in batch.items()}
+
+    def rel(a, b):
+        return float((a.cpu().float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    with torch.no_grad():
+        lc, _ = bundle.loss(params, on_card)
+        lh, _ = bundle.loss(cpu, batch)
+        assert abs(float(lc) - float(lh)) <= 1e-3 * abs(float(lh)) + 1e-3
+        assert rel(bundle.prefill(params, on_card),
+                   bundle.prefill(cpu, batch)) <= 2e-2
+        caches = []
+        for p, dev in ((params, "cuda"), (cpu, "cpu")):
+            c = bundle.make_cache(2, 16, device=dev)
+            if cfg.family == "encdec":
+                enc = TE.encode(cfg, p, batch["frames"].to(dev))
+                c = (c[0], TE.cross_kv(cfg, p, enc))
+            caches.append(c)
+        for pos in range(16):
+            t = tok[:, pos:pos + 1]
+            oc, _ = bundle.serve_step(params, caches[0], t.cuda(), pos)
+            oh, _ = bundle.serve_step(cpu, caches[1], t, pos)
+            assert rel(oc, oh) <= 2e-2, pos

@@ -561,7 +561,8 @@ def test_hybrid_forward_and_prefill_raise():
         t_build(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         TT.forward(cfg, {}, torch.zeros((1, 4), dtype=torch.int32))
+    # the ssm family has a stack of its own: the decoder stack names it
     dense = dataclasses.replace(TR.get("internlm2-20b").reduced(),
                                 family="ssm")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(ValueError, match="models.xlstm_stack"):
         TT.forward(dense, {}, torch.zeros((1, 4), dtype=torch.int32))

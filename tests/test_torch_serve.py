@@ -101,11 +101,21 @@ def test_port_init_draws_its_own_weights():
 
 @pytest.mark.parametrize("family", ["hybrid", "ssm", "encdec"])
 def test_other_families_raise(family):
+    """The hybrid is not ported (ROADMAP A13).  ssm and encdec build and
+    decode through their own steps (tests/test_torch_xlstm.py,
+    test_torch_encdec.py), but not through the decoder stack's QuantCache
+    path (this step, the engine, stream_prefill): the reference's engine
+    fails on them too."""
     name = {"hybrid": "jamba-1.5-large-398b", "ssm": "xlstm-350m",
             "encdec": "whisper-base"}[family]
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        t_build(TR.get(name).reduced())
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    if family == "hybrid":
+        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+            t_build(TR.get(name).reduced())
+        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+            TS._check_family(TR.get(name))
+        return
+    assert t_build(TR.get(name).reduced()).n_params() > 0
+    with pytest.raises(NotImplementedError, match="DecodeEngine"):
         TS._check_family(TR.get(name))
 
 

@@ -209,6 +209,18 @@ def test_token_pipeline_bit_equal(seed, step, host):
         assert got[k].dtype == np.int32 and bits_equal(got[k], want[k])
 
 
+def test_reference_lint_finds_nothing_new_in_the_port(capsys):
+    """The reference's layer-1 rules over the port (`python -m
+    repro.analysis --no-contracts src/repro_torch`): zero new findings.
+    The pipeline's step-keyed seed carries the reference's reasoned GL006
+    suppression."""
+    from repro.analysis.__main__ import main as analysis_main
+    port = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+    rc = analysis_main(["--no-contracts", str(port)])
+    out = capsys.readouterr().out
+    assert rc == 0 and "0 new findings" in out, out
+
+
 # ---------------------------------------------------------- loss and grads --
 
 CONFIGS = {name: (JR.get(name).reduced(), TR.get(name).reduced())
@@ -294,10 +306,18 @@ def test_remat_changes_no_value(models, name):
 
 
 def test_encdec_and_ssm_loss_raise():
-    for name in ("whisper-base", "xlstm-350m"):
-        bundle = ModelBundle(TR.get(name).reduced(), {})
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            bundle.loss({}, {})
+    """encdec and ssm have their loss (tests/test_torch_encdec.py,
+    test_torch_xlstm.py); what raises is an encdec batch without its
+    frames, and the hybrid's loss (ROADMAP A13)."""
+    cfg = TR.get("whisper-base").reduced()
+    bundle = t_build(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    tok = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(KeyError, match="frames"):
+        bundle.loss(params, {"tokens": tok, "labels": tok})
+    hybrid = ModelBundle(TR.get("jamba-1.5-large-398b").reduced(), {})
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        hybrid.loss({}, {"tokens": tok, "labels": tok})
 
 
 # ------------------------------------------------------------- the steps --
