@@ -100,7 +100,7 @@ call from the trace.
 A `serve` phase drives serving at internlm2-20b's full width and depth
 (48 layers, 20.3G parameters in bf16 made on the card from the seed by
 `models.model.ModelBundle.init`): (a) 8 requests of seeded tokens for
-256 steps through `models.serve.serve_step` with the quantized cache
+136 steps through `models.serve.serve_step` with the quantized cache
 (B12 over the closed pages, 2 launches a layer once a page has closed)
 and with the raw bf16 cache; every page a step closes held against the
 bf16 hot page it came from (0 values outside the page bound, a wrapper
@@ -112,12 +112,16 @@ counted from its planes, `transfer_cache` from rank 0 to rank 1 of a
 2-thread axis bit-exact, 16 more steps on the received cache bit-equal
 to 16 on the original, B12 with its (m, l) output within 2e-5 of its
 plain version on layer 0's real q and cache, no plain version run on the
-card (`plain_calls`); (b) `models.engine.DecodeEngine` with 2 slots over
-3 requests (prompts of 130, 17 and 140 tokens, 8 new tokens each, one
-evict -> insert), each slot's logits bit-identical to the batch-1
-`serve_step` path, and whether an aligned step of 2 or 4 rows keeps the
-batch-1 bits; (c) 4 requests at decode_32k's 32,768 tokens (its batch
-128 cut to 4), every layer's closed pages from `quantize_kv` of seeded
+card (`plain_calls`); (b) `models.engine.DecodeEngine` with 4 slots over
+5 requests (prompts of 130, 17, 140, 9 and 12 tokens, 8 new tokens each,
+the last waiting for a free slot, one evict -> insert), one batched
+`generate_step` a step (a position a row; B12 one call a layer over the
+4 rows), each slot's logits bit-identical to the engine's batch-1 path
+(`step_one`, batch 1) and to the aligned batch-1 `serve_step`, the
+batched step's ms against the sequential path's, and which ops of layer
+0 give a row other bits at 1 row than at 4 (`batch_dependence`); (c) 4 requests at decode_32k's
+32,768 tokens (its batch 128 cut to 4), every layer's closed pages from
+`quantize_kv` of seeded
 K, V = N(0,1)*0.7, 5 steps from position 32,700: step time (CUDA events,
 median of 5), B12's and the GEMMs' device time a step (`torch.profiler`),
 the step's bytes bound, launches a step (96 of B12), peak memory.  The
@@ -126,7 +130,7 @@ weights are freed before the `grads` phase.
 A `moe` phase drives the MoE family and head dim 80:
 olmoe-1b-7b at full width and depth (16 layers, 64 experts, top-8,
 6.82G parameters made on the card from the seed): (a) 8 requests for
-256 steps at seq 512 through `serve_step`, quantized and raw, with the
+136 steps at seq 512 through `serve_step`, quantized and raw, with the
 checks of serve (a) (every closed page within its bound, quantized
 logits within 0.15 of the raw ones' max, B12 with (m, l) within 2e-5 of
 its plain version on layer 0's real queries, no plain call), the step
@@ -142,7 +146,20 @@ last logits against 256 raw-cache decode steps within 0.15 with every
 pair kept (the reference's capacity drops pairs that a batch-1 decode
 step keeps; that gap is printed beside it), and `flash_attention` on
 layer 0's real q, k, v at 4,096 tokens within 2^-8 |o| + 2^-8 max|v|
-of a float32 softmax attention; (e) qwen3-moe-235b-a22b at full width,
+of a float32 softmax attention; (g) expert parallelism: olmoe's 64
+experts over a ("model",) mesh of 4 thread ranks on the card
+(`launch.mesh.run_mesh_threads`, each rank a view of 16 experts), a
+forward over 8 x 512 tokens through the all-to-alls against the one-rank
+forward (bit-equal, or within 2e-2 of max |logit|), 32 quantized decode
+steps at B = 8 through the decode path (local experts, float32 psum),
+each layer's output within 2^-6 of its largest |value| from one rank's
+on the same input and the logits within 2^-4 of max |logit| from the
+one-rank steps, two controls with a fault in the psum (summed in bf16;
+one rank's partial dropped: it must fail both limits), and one AdamW
+step of a 2-layer cut at full
+width on a (1, 4) mesh description (`launch.train.value_and_grad`: the
+ranks' forward as threads, one backward) with its gradients against the
+one-rank step's leaf by leaf; (e) qwen3-moe-235b-a22b at full width,
 4 of its 94 layers (128 experts, B12 at Hg = 16), 136 steps with the
 checks of (a); (f) stablelm-3b at full width and depth (B12 at D = 80),
 136 steps with the same checks.  Each model's weights are freed before
@@ -157,8 +174,9 @@ shared N(0,1)*3e-3 part plus a per-pod N(0,1)*1e-3 one), two pods as a
 2-rank thread axis on the card (`core.axis.run_threads`), 2 steps with
 error feedback at eb = 2**-5 * rms for `grad-wire-8`,
 `grad-wire-16-narrow` and `pipeline="auto"` (the `grad-wire` selector
-set).  Every pod's mean must be bit-equal to the plain result (each
-pod's wire decoded with kernels=False, summed in rank order, over p),
+set; `auto` for one step).  Every pod's mean must be bit-equal to the
+plain result (each pod's wire decoded with kernels=False, summed in rank order,
+over p),
 every residual within eb in float64, each selector wire bit-equal to its
 chosen chain's own wire, `wire_bytes` equal to the bytes counted from
 the wire's planes, `plain_calls` 0.  Then a pair of wq leaves built for
@@ -197,7 +215,9 @@ resumed by `resume_or_init` and run to 6, bit-identical to 6 straight
 steps of the replica step with a raw checkpoint (its step-2 checkpoint
 too) and within eb on every restored value with a lossy one;
 each step also encodes a residual with verify=True and `AuditCounters`
-must fold 6 reports with 0 violations.
+must fold 6 reports with 0 violations; the raw checkpoint then goes
+through `runtime.elastic.resize` onto the card's (1, 1) mesh, every leaf
+and the step as saved.
 
 A `sweep` phase (after `dense`) checks the paper's §6 claim on the
 card: all 2^32 float32 bit patterns, 2^28 at a time made on the card
@@ -217,24 +237,29 @@ on the 512^3 fields, plain torch ops on both sides, B8/B9 beside them.
 
 A `families` phase (last) drives whisper-base (encdec, frames N(0,1)
 bf16 from the seed) and xlstm-350m (ssm) at full width and depth with
-weights from the seed: 6 AdamW steps at 8 x 448 and 8 x 512 tokens (the
+weights from the seed (xlstm's training on 2 of its 24 layers: the
+sLSTM's recurrence makes a step's time follow the depth): 6 AdamW steps
+at 8 x 448 and 8 x 512 tokens (the
 loss each step, finite and falling; forward + backward and optimizer
 ms; peak GB), a prefill of 8 x 448 and 8 x 2,048 tokens (tokens/s; the
 sLSTM's share), 128 greedy decode steps of 8 requests (step ms beside
 the bytes bound, kernels a step and the busy share from a profiled
 step), 64 teacher-forced decode steps within 2e-2 of `forward`'s max
-|logit| at every position, and a 2-layer cut whose loss, prefill logits
-and 16 decode steps agree with the CPU path.
+|logit| at every position on the trained weights (xlstm's too at all 24
+layers on its untrained ones: within 2^-2 in bf16, and within 1e-4 in
+float32, the witness of bf16 rounding), and a 2-layer cut whose loss,
+prefill logits and 16 decode steps agree with the CPU path.
 
 Output: the card's name and power limit, one JSON line per chain, one
 JSON line per phase (dense, sweep, audit, code sweep, kv, serve a/b/c,
-moe a-f, grads, train, families),
+moe a-g, grads, train, families),
 one JSON line
 {"kernels": [...]}, and last
-{"ok": true, "device": {...}}.  On stderr: the build log and a summary of
+{"ok": true, "device": {...}}.  On stderr: the build log, a summary of
 its `-Xptxas -v` lines for the pack kernel (registers, stack, spills of
-each instance).  Any failed check exits non-zero; with no CUDA device, or
-outside a checkout, it exits non-zero before printing any result.
+each instance), and each phase's wall time.  Any failed check exits
+non-zero; with no CUDA device, or outside a checkout, it exits non-zero
+before printing any result.
 """
 from __future__ import annotations
 
@@ -242,6 +267,7 @@ import argparse
 import contextlib
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -250,8 +276,13 @@ import threading
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# The train phase peaks near 74 GB of the card's 80; with fixed-size
+# segments, blocks split across the pods' threads can strand 12 GiB that no
+# large tensor fits in.  Expandable segments map and unmap pages instead.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
@@ -1559,6 +1590,9 @@ GRAD_LEAVES = (("ln1", (6144,)), ("wq", (6144, 6144)), ("wkv", (6144, 2048)),
                ("w1", (6144, 16384)), ("w3", (6144, 16384)),
                ("w2", (16384, 6144)))
 GRAD_PODS, GRAD_STEPS = 2, 2
+# `auto` runs one step (its ent coder takes ~21 s a step; the first step
+# already holds every check)
+GRAD_STEPS_OF = {"auto": 1}
 GRAD_EB_REL = 2.0 ** -5                # as rms_eb
 GRAD_RING_LEAF = "wq"                  # the leaf pair built for the ring
 
@@ -1603,8 +1637,8 @@ def plain_mean(shards, g_in, branch: str):
         return total / p
     total = torch.zeros(n, device=DEV)
     for s in shards:
-        total = total + s.pipe.decode(s.enc, n=n, device=DEV, kernels=False)
-    return total / p
+        total += s.pipe.decode(s.enc, n=n, device=DEV, kernels=False)
+    return total.div_(p)
 
 
 def measured_bytes(pipe, enc, n: int) -> float:
@@ -1777,16 +1811,17 @@ def grad_check_step(label, g_in, means, resids, wires) -> dict:
 
 
 def grad_run(label: str, spec: str, pods) -> tuple:
-    """GRAD_STEPS steps with error feedback of one configuration on every
-    pod, each step held by `grad_check_step`; prints the configuration's
-    line.  Returns (the launch counts of its steps, each leaf's
-    branch)."""
+    """GRAD_STEPS steps (GRAD_STEPS_OF's for some) with error feedback of
+    one configuration on every pod, each step held by `grad_check_step`;
+    prints the configuration's line.  Returns (the launch counts of its
+    steps, each leaf's branch)."""
     from repro_torch.compression import grads as G
     cfg = G.GradCompressionConfig(eb_rel=GRAD_EB_REL, pipeline=spec)
     torch.cuda.reset_peak_memory_stats()
     r = [{k: torch.zeros_like(v) for k, v in g.items()} for g in pods]
     step_ms, steps, total = [], [], {}
-    for _ in range(GRAD_STEPS):
+    n_steps = GRAD_STEPS_OF.get(label, GRAD_STEPS)
+    for _ in range(n_steps):
         g_in = [{k: g[k] + res[k] for k in g} for g, res in zip(pods, r)]
         torch.cuda.synchronize()
         reset_launches()
@@ -1808,7 +1843,7 @@ def grad_run(label: str, spec: str, pods) -> tuple:
     print(json.dumps({
         "phase": "grads", "config": label, "spec": spec,
         "model": "internlm2-20b", "layer": "one decoder layer, 8 leaves",
-        "pods": GRAD_PODS, "values_per_pod": n_total, "steps": GRAD_STEPS,
+        "pods": GRAD_PODS, "values_per_pod": n_total, "steps": n_steps,
         "eb_rel": GRAD_EB_REL, "step_ms": step_ms,
         "bytes_moved_per_step": [s["bytes_moved"] for s in steps],
         "f32_allreduce_bytes_per_step": info["f32_bytes"],
@@ -1820,7 +1855,7 @@ def grad_run(label: str, spec: str, pods) -> tuple:
         "wire_bytes_max_rel_err": max(s["wire_bytes_max_rel_err"]
                                       for s in steps),
         "plain_calls": 0, "peak_device_GB": peak, **parts,
-        "launches_per_step": {k: v / GRAD_STEPS for k, v in total.items()
+        "launches_per_step": {k: v / n_steps for k, v in total.items()
                               if v}}), flush=True)
     return total, info["branch"]
 
@@ -2064,7 +2099,8 @@ def grads_phase(seed: int) -> list:
         for k, v in run_counts.items():
             counts[k] = counts.get(k, 0) + v
     check("gather" in branches, "grads: no full-width leaf took the gather")
-    per_step = {k: v / (len(configs) * GRAD_STEPS) for k, v in counts.items()}
+    n_steps = sum(GRAD_STEPS_OF.get(lab, GRAD_STEPS) for lab, _ in configs)
+    per_step = {k: v / n_steps for k, v in counts.items()}
     pair_counts, ring_in = grad_pair_phase(seed)
     for k, v in pair_counts.items():
         counts[k] = counts.get(k, 0) + v
@@ -2080,12 +2116,13 @@ def grads_phase(seed: int) -> list:
 # (src/repro/models/engine.py:99); (c) at decode_32k's context
 # (src/repro/configs/base.py:159) with its batch cut from 128 to 4
 SERVE_ARCH = "internlm2-20b"
-SERVE_B, SERVE_SEQ, SERVE_STEPS, SERVE_MORE = 8, 512, 256, 16
+# 136 steps: past one page close (256, past two, do not fit the time aim)
+SERVE_B, SERVE_SEQ, SERVE_STEPS, SERVE_MORE = 8, 512, 136, 16
 SERVE_CHAINS = ("kv-page", "kv-page-narrow", "kv-page-pred", "auto")
 SERVE_QUANT_TOL = 0.15         # tests/test_models_smoke.py:115
-SERVE_PROMPTS = (130, 17, 140)
+SERVE_PROMPTS = (130, 17, 140, 9, 12)   # 4 slots, the last request waits
 SERVE_NEW = 8
-SERVE_BATCHED_ROWS, SERVE_BATCHED_STEPS = (2, 4), 3
+ENGINE_SLOTS = 4
 LONG_B, LONG_SEQ, LONG_POS, LONG_STEPS = 4, 32_768, 32_700, 5
 B12_QUERIES = 4               # layer 0's queries B12 is held on, per part
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
@@ -2245,11 +2282,13 @@ def b12_outputs_agree(got, want) -> dict:
     return res
 
 
-def b12_row(label, qs, kq, vq, lengths, s: int, launches_: int) -> dict:
-    """B12 at a serve call's shapes: the kernel with its (m, l) against its
-    plain version for each query in qs (the first one is timed), timed
-    beside the plain version and one scaled_dot_product_attention call
-    over the dequantized cache."""
+def b12_row(label, qs, kq, vq, lengths, s: int, launches_: int,
+            pps=None, caller: str = "models.serve._attn_history") -> dict:
+    """B12 at a serve call's shapes (and split `pps`, the default when
+    None): the kernel with its (m, l) against its plain version for each
+    query in qs (the first one is timed), timed beside the plain version
+    and one scaled_dot_product_attention call over the dequantized
+    cache."""
     import torch.nn.functional as F
     from repro_torch.compression import kv as KV
     from repro_torch.kernels import kv_attention as A
@@ -2259,10 +2298,12 @@ def b12_row(label, qs, kq, vq, lengths, s: int, launches_: int) -> dict:
 
     def kern(q=q):
         return A.kv_decode_attention(q, kq, vq, lengths, page=KV_PAGE,
-                                     cap=KV_CAP, return_stats=True)
+                                     cap=KV_CAP, return_stats=True,
+                                     pages_per_split=pps)
 
     def plain(q=q):
         return A._kv_decode_attention_plain(q, kq, vq, lengths, page=KV_PAGE,
+                                            pages_per_split=pps,
                                             return_stats=True)
 
     close, err, per_q = True, 0.0, []
@@ -2290,9 +2331,9 @@ def b12_row(label, qs, kq, vq, lengths, s: int, launches_: int) -> dict:
     bound_ms, bound_by = bound_from(n_bytes, ops)
     return {"name": name, "route": "cuda", "source": CSRC + KERNELS[name][0],
             "replaces": KERNELS[name][1], "chain": f"serve-{label}",
-            "caller": "models.serve._attn_history",
+            "caller": caller,
             "stage": f"B={b} G={q.shape[1]} Hg={q.shape[2]} D={q.shape[3]} "
-                     f"S={s} lengths={int(lengths[0])}",
+                     f"S={s} lengths={lengths.tolist()}",
             "bits": 8, "launches": launches_, "launches_per_call": per_call,
             "max_abs_err": err, "tolerance": KV_TOL, "match": close,
             "queries": len(qs), "tolerance_used": used,
@@ -2395,8 +2436,9 @@ def serve_aligned(cfg, params, seed: int) -> tuple:
     check(counts[b12] == cfg.n_layers * (SERVE_STEPS - KV_PAGE),
           f"serve: {counts[b12]} B12 calls in (a), want "
           f"{cfg.n_layers * (SERVE_STEPS - KV_PAGE)}")
-    check(pages["pages"] == 2 * 2 * cfg.n_layers * SERVE_B * cfg.n_kv_heads,
-          f"serve: {pages['pages']} pages closed")
+    closes = SERVE_STEPS // KV_PAGE
+    check(pages["pages"] == 2 * closes * cfg.n_layers * SERVE_B
+          * cfg.n_kv_heads, f"serve: {pages['pages']} pages closed")
     check(pages["violations"] == 0,
           f"serve: {pages['violations']} values outside their page bound")
     check(plain["calls"] == 0, f"serve: {plain['calls']} plain calls")
@@ -2462,7 +2504,8 @@ def serve_aligned(cfg, params, seed: int) -> tuple:
         "batch": SERVE_B, "seq": SERVE_SEQ, "steps": SERVE_STEPS,
         "step_ms_no_history": statistics.median(q_ms[:KV_PAGE]),
         "step_ms_with_history": hist_ms,
-        "step_ms_page_close": [q_ms[KV_PAGE - 1], q_ms[SERVE_STEPS - 1]],
+        "step_ms_page_close": [q_ms[KV_PAGE * (i + 1) - 1]
+                               for i in range(closes)],
         "raw_step_ms": statistics.median(r_ms[KV_PAGE:]),
         "device_ms_per_step": sum(dev_a.values()) or None,
         "b12_device_ms_per_step": sum(
@@ -2493,13 +2536,18 @@ def serve_aligned(cfg, params, seed: int) -> tuple:
     return line, rows
 
 
-def serve_engine(cfg, params, seed: int, batched_rows=SERVE_BATCHED_ROWS,
-                 phase: str = "serve") -> dict:
-    """(b): DecodeEngine with 2 slots over 3 requests (one evict -> insert);
-    each request's tokens and logits against the sequential batch-1
-    serve_step path; then whether one aligned batched step of n rows, for
-    n in `batched_rows`, keeps the batch-1 bits (the evidence for the
-    engine's design)."""
+def serve_engine(cfg, params, seed: int, phase: str = "serve") -> tuple:
+    """(b): DecodeEngine with ENGINE_SLOTS slots over len(SERVE_PROMPTS)
+    requests (the last waits for a free slot; one evict -> insert), each
+    request's tokens and logits bit-identical to the engine's batch-1 path
+    (`step_one`) and to the aligned batch-1 `serve_step`, each continued
+    from the request's prefill (the step_one chain over the prompt); the
+    batched generate_step's ms against the sequential path's (a step_one
+    per live slot), B12's calls a step (one over every slot's rows a
+    layer), and which ops of the step make a row's bits depend on the
+    batch (`batch_dependence`).
+    Returns (line, B12's row at the engine's call: its slots' layer-0
+    cache, the engine's split)."""
     from repro_torch.compression import kv as KV
     from repro_torch.configs.registry import get_kv_chain
     from repro_torch.models import engine as E
@@ -2507,20 +2555,28 @@ def serve_engine(cfg, params, seed: int, batched_rows=SERVE_BATCHED_ROWS,
     gen = torch.Generator(device=DEV).manual_seed(seed + 21)
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen, device=DEV,
                              dtype=torch.int32) for n in SERVE_PROMPTS]
-    eng = E.DecodeEngine(cfg, params, n_slots=2, seq=SERVE_SEQ,
+    eng = E.DecodeEngine(cfg, params, n_slots=ENGINE_SLOTS, seq=SERVE_SEQ,
                          stages=get_kv_chain("kv-page"), integrity="raise",
                          device=DEV)
     got = {r: [] for r in range(len(prompts))}
     t0 = time.time()
     pres = {r: eng.prefill(p) for r, p in enumerate(prompts)}
-    for r in (0, 1):
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    for r in range(ENGINE_SLOTS):
         eng.insert(eng.allocate(), pres[r], request=r)
         got[r].append(pres[r].logits[0])
     evicted = False
-    pending = [2]
-    steps = 0
+    pending = list(range(len(prompts) - 1, ENGINE_SLOTS - 1, -1))
+    steps, step_ms, b12_steps = 0, [], 0
+    b12 = "_kv_decode_attention"
+    before = launches().get(b12, 0)
     while any(r is not None for r in eng.requests):
+        b12_steps += any(r is not None and eng._pos[s_] >= KV_PAGE
+                         for s_, r in enumerate(eng.requests))
+        a = cuda_mark()
         logits, _ = eng.generate_step()
+        step_ms.append((a, cuda_mark()))
         steps += 1
         for slot, r in enumerate(list(eng.requests)):
             if r is None:
@@ -2535,58 +2591,151 @@ def serve_engine(cfg, params, seed: int, batched_rows=SERVE_BATCHED_ROWS,
         if steps == 3 and not evicted:
             slot = eng.requests.index(1)
             pre = eng.evict(slot)
-            check(eng.insert(slot, pre, request=1), "serve: re-insert")
+            check(eng.insert(slot, pre, request=1), f"{phase}: re-insert")
             evicted = True
     torch.cuda.synchronize()
+    n_b12 = launches().get(b12, 0) - before
+    step_ms = [a.elapsed_time(e) for a, e in step_ms]
     engine_s = time.time() - t0
-    same = True
+    check(n_b12 == cfg.n_layers * b12_steps,
+          f"{phase} (b): {n_b12} B12 calls in {b12_steps} steps with "
+          f"history, want one a layer")
+    same, aligned, one_ms = True, True, []
     for r, p in enumerate(prompts):
-        cache = S.make_quant_cache(cfg, 1, SERVE_SEQ, device=DEV)
-        for i in range(p.shape[0]):
-            logits, cache = eng.step_one(cache, p[i].reshape(1, 1), i)
-        want = [logits[0]]
-        for k in range(SERVE_NEW - 1):
-            tok = torch.argmax(logits, -1).to(torch.int32).reshape(1, 1)
-            logits, cache = eng.step_one(cache, tok, p.shape[0] + k)
-            want.append(logits[0])
-        same &= all(planes_equal(a, b) for a, b in zip(got[r], want))
+        # the prefill is the step_one chain over the prompt: go on from
+        # its cache (the wire's exact inverse) and its last logits, by
+        # step_one and by the aligned batch-1 serve_step
+        for chain in ("step_one", "serve_step"):
+            cache, logits = S.unpack_cache(pres[r].pages), pres[r].logits
+            want = [logits[0]]
+            for k in range(SERVE_NEW - 1):
+                tok = torch.argmax(logits, -1).to(torch.int32).reshape(1, 1)
+                a = cuda_mark()
+                if chain == "step_one":
+                    logits, cache = eng.step_one(cache, tok, p.shape[0] + k)
+                    one_ms.append((a, cuda_mark()))
+                else:
+                    logits, cache = S.serve_step(cfg, params, cache, tok,
+                                                 p.shape[0] + k, None,
+                                                 eng.kv_cfg)
+                want.append(logits[0])
+            eq = all(planes_equal(a, b) for a, b in zip(got[r], want))
+            if chain == "step_one":
+                same &= eq
+            else:
+                aligned &= eq
+    torch.cuda.synchronize()
+    one_ms = [a.elapsed_time(e) for a, e in one_ms]
     check(same, f"{phase}: an engine slot's logits differ from batch-1")
-    # aligned steps of n rows against n batch-1 steps: does one batched
-    # step keep the batch-1 bits?
-    kv_cfg = KV.kv_quantizer_config()
-    batched = {}
-    for n in batched_rows:
-        toks = torch.randint(0, cfg.vocab, (SERVE_BATCHED_STEPS, n, 1),
-                             generator=gen, device=DEV, dtype=torch.int32)
-        cb = S.make_quant_cache(cfg, n, SERVE_SEQ, device=DEV)
-        c1 = [S.make_quant_cache(cfg, 1, SERVE_SEQ, device=DEV)
-              for _ in range(n)]
-        first = None
-        for pos in range(SERVE_BATCHED_STEPS):
-            lb, _ = S.serve_step(cfg, params, cb, toks[pos], pos, None,
-                                 kv_cfg)
-            for s in range(n):
-                l1, _ = S.serve_step(cfg, params, c1[s], toks[pos, s:s + 1],
-                                     pos, None, kv_cfg)
-                diff = l1[0].view(torch.int32) != lb[s].view(torch.int32)
-                if first is None and bool(diff.any()):
-                    i = int(diff.nonzero()[0])
-                    first = {"pos": pos, "slot": s, "index": i,
-                             "batch1": float(l1[0, i]),
-                             "batched": float(lb[s, i]),
-                             "n_differ": int(diff.sum())}
-        batched[n] = {"bit_identical": first is None,
-                      "first_differing_logit": first}
-        del cb, c1
+    check(aligned, f"{phase}: an engine slot's logits differ from the "
+                   f"aligned batch-1 serve_step")
     st = eng.stats()
-    return {"phase": phase, "part": "b", "arch": cfg.name, "slots": 2,
-            "prompts": list(SERVE_PROMPTS), "new_tokens": SERVE_NEW,
+    # B12 as the engine calls it: every slot's row of layer 0, lengths a
+    # row (a slot whose first page never closed reads its zero page)
+    lens = torch.tensor([max(KV_PAGE, p_ - p_ % KV_PAGE) for p_ in eng._pos],
+                        dtype=torch.int32, device=DEV)
+    toks = torch.randint(0, cfg.vocab, (ENGINE_SLOTS, 1), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    row = b12_row(f"{phase}-b", layer0_queries(cfg, params, toks, 200, gen),
+                  KV.QuantizedKV(*(t[0] for t in eng._cache.k)),
+                  KV.QuantizedKV(*(t[0] for t in eng._cache.v)), lens,
+                  SERVE_SEQ, n_b12, pps=eng._pps,
+                  caller="models.engine.DecodeEngine.generate_step")
+    line = {"phase": phase, "part": "b", "arch": cfg.name,
+            "slots": ENGINE_SLOTS, "prompts": list(SERVE_PROMPTS),
+            "new_tokens": SERVE_NEW, "prefill_s": prefill_s,
             "engine_s": engine_s, "generate_steps": steps,
+            "generate_step_ms": statistics.median(step_ms),
+            "generate_step_ms_all": step_ms,
+            "sequential_step_ms": ENGINE_SLOTS * statistics.median(one_ms),
+            "step_one_ms": statistics.median(one_ms),
+            "b12_calls_per_step_with_history": n_b12 / max(b12_steps, 1),
+            "b12_rows_per_call": ENGINE_SLOTS,
             "slots_bit_identical_to_batch1": same,
-            "aligned_steps_vs_batch1": batched,
+            "slots_bit_identical_to_aligned_serve_step": aligned,
+            "raw_slot_bytes": eng.raw_slot_bytes(),
             "wire_bytes": st["wire_bytes"], "sends": st["sends"],
             "evictions": st["evictions"],
-            "audit_checks": st["audit_checks"]}
+            "audit_checks": st["audit_checks"],
+            "b12_max_abs_err": row["max_abs_err"],
+            "batch_dependence": batch_dependence(cfg, params, seed)}
+    return line, row
+
+
+def batch_dependence(cfg, params, seed: int) -> dict:
+    """Which ops of a decode step give a row other bits in a batch of
+    ENGINE_SLOTS rows than alone: each op of layer 0 over ENGINE_SLOTS
+    seeded rows against the same op on each row alone (batch 1).  {op:
+    {"rows_differ": [...], "first": the first differing value, alone and
+    in the batch}}."""
+    from repro_torch.compression import kv as KV
+    from repro_torch.kernels import kv_attention as KA
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models import serve as S
+    gen = torch.Generator(device=DEV).manual_seed(seed + 23)
+    n, d = ENGINE_SLOTS, cfg.d_model
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
+    x = rnd(n, 1, d).to(torch.bfloat16)
+    xo = rnd(n, 1, h * hd).to(torch.bfloat16)
+    qr = rnd(n, 1, h, hd).to(torch.bfloat16)
+    hk = (rnd(n, KV_PAGE, g, hd) * 0.7).to(torch.bfloat16)
+    hv = (rnd(n, KV_PAGE, g, hd) * 0.7).to(torch.bfloat16)
+    hl = torch.full((n,), 77, dtype=torch.int32, device=DEV)
+    kq, vq = (KV.quantize_kv(rnd(n, g, SERVE_SEQ, hd) * 0.7,
+                             KV.kv_quantizer_config(), page=KV_PAGE,
+                             cap=KV_CAP) for _ in range(2))
+    qf = rnd(n, g, h // g, hd)
+    lens = torch.full((n,), 384, dtype=torch.int32, device=DEV)
+    pos = torch.full((n, 1), 300, dtype=torch.int32, device=DEV)
+    cos, sin = L.rope_tables(pos, hd if cfg.rope == "full" else hd // 2)
+    fixed = KA.default_pages_per_split(n, g, SERVE_SEQ // KV_PAGE)
+    # each op takes `sel`, which picks its rows of every per-row input
+    ops = {"rms_norm": lambda sel: L.rms_norm(sel(x), lp["ln1"],
+                                              cfg.norm_eps),
+           "wq GEMM": lambda sel: sel(x) @ lp["wq"],
+           "wkv GEMM": lambda sel: sel(x) @ lp["wkv"],
+           "wo GEMM": lambda sel: sel(xo) @ lp["wo"],
+           "logits GEMM": lambda sel: sel(x) @ params["emb"].T,
+           "rope": lambda sel: L.apply_rope(sel(qr), sel(cos), sel(sin),
+                                            cfg.rope),
+           "hot-page attention": lambda sel: S._partial_attn(
+               sel(qr), sel(hk), sel(hv), sel(hl))[0]}
+    if "router" in lp:
+        ops["moe_ffn_rows"] = lambda sel: M.moe_ffn_rows(
+            sel(x), lp["router"], lp["w1"], lp["w3"], lp["w2"],
+            top_k=cfg.moe_top_k, act=cfg.act)
+    else:
+        ops["ffn"] = lambda sel: L.ffn(sel(x), lp["w1"], lp.get("w3"),
+                                       lp["w2"], cfg.act)
+    for label, pps in (("B12, default split", None), ("B12, one split",
+                                                      fixed)):
+        ops[label] = lambda sel, pps=pps: KA.kv_decode_attention(
+            sel(qf), KV.QuantizedKV(*map(sel, kq)),
+            KV.QuantizedKV(*map(sel, vq)), sel(lens), pages_per_split=pps)
+
+    def bits(t):
+        t = t.reshape(-1)
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    out = {}
+    for name, fn in ops.items():
+        full = fn(lambda t: t)
+        bad, first = [], None
+        for r in range(n):
+            got = fn(lambda t, r=r: t[r:r + 1])
+            diff = bits(got) != bits(full[r:r + 1])
+            if bool(diff.any()):
+                bad.append(r)
+                if first is None:
+                    i = int(diff.nonzero()[0])
+                    first = {"row": r, "index": i,
+                             "alone": float(got.reshape(-1)[i]),
+                             "in_batch": float(full[r].reshape(-1)[i])}
+        out[name] = {"rows_differ": bad, "first": first}
+    return out
 
 
 def serve_long(cfg, params, seed: int, phase: str = "serve",
@@ -2698,18 +2847,20 @@ def serve_phase(seed: int) -> list:
     line_a, rows = serve_aligned(cfg, params, seed)
     line_a.update(n_params=n_params, init_s=init_s)
     print(json.dumps(line_a), flush=True)
-    print(json.dumps(serve_engine(cfg, params, seed)), flush=True)
+    line_b, row_b = serve_engine(cfg, params, seed)
+    print(json.dumps(line_b), flush=True)
     line_c, row_c = serve_long(cfg, params, seed)
     print(json.dumps(line_c), flush=True)
     del params
     torch.cuda.empty_cache()
-    return rows + [row_c]
+    return rows + [row_b, row_c]
 
 
 MOE_ARCH = "olmoe-1b-7b"
 MOE_WIDE_ARCH, MOE_WIDE_LAYERS = "qwen3-moe-235b-a22b", 4
 D80_ARCH = "stablelm-3b"
-MOE_STEPS, MOE_SHORT_STEPS = 256, 136   # past two page closes; past one
+# past one page close (256, past two, do not fit the time aim)
+MOE_STEPS = 136
 STREAM_PROMPT, STREAM_MORE = 300, 8
 PREFILL_LONG, PREFILL_CHECK, FLASH_S = 32_768, 256, 4096
 # flash_attention against a float32 softmax: p rounded to bfloat16 moves
@@ -3028,6 +3179,383 @@ def moe_prefill(cfg, params, seed: int) -> dict:
             "flash_tolerance_used": used}
 
 
+# (g): expert parallelism on the one card: olmoe-1b-7b's 64 experts over a
+# "model" axis of EP_RANKS thread ranks (src/repro/models/moe.py:42-168,
+# src/repro/launch/mesh.py:36), each rank a view of 16 experts
+EP_RANKS, EP_BATCH, EP_TOKENS, EP_STEPS = 4, 8, 512, 32
+EP_POS0 = 112                  # decode from here: a page closes mid-run
+EP_TOL = 2e-2                  # of max |logit| (the serving limit)
+# a decode layer's output: two bfloat16 ulps of its largest |value| (each
+# rank rounds its partial sum to bfloat16 before the float32 psum, as the
+# reference's decode path does; one rank rounds once)
+EP_LAYER_TOL = 2.0 ** -6
+# the decode steps' logits against one rank's, of max |logit|: above the
+# sound runs (0.025-0.028 on an H100 80GB HBM3, 700 W), below a dropped
+# rank's control (1.03; its layers 0.44-0.94, the sound ones 0.0055-0.0068)
+EP_DECODE_TOL = 2.0 ** -4
+EP_CONTROL_STEPS = 8
+EP_TRAIN_LAYERS = 2
+
+
+class RecordedRoutes:
+    """A stand-in for `models.moe._top_k_experts`: records each thread's
+    choices in call order (`take`), or gives the recorded choices of call
+    i in place of its own (`give`), keeping the least of r and 1 / r, r
+    the ratio of the weakest given expert's probability to the weakest
+    own one's, over the tokens where they differ (`tie`, 1 when none)."""
+
+    def __init__(self, real, routes=None):
+        self.real, self.routes = real, routes
+        self.local, self.seen, self.tie = threading.local(), {}, 1.0
+        self.lock = threading.Lock()
+
+    def __call__(self, probs, top_k):
+        own = self.real(probs, top_k)
+        i = getattr(self.local, "calls", 0)
+        self.local.calls = i + 1
+        if self.routes is None:
+            with self.lock:
+                self.seen.setdefault(threading.get_ident(), []).append(own)
+            return own
+        want = self.routes[i]
+        differ = (own != want).any(-1)
+        if bool(differ.any()):
+            r = (probs.gather(1, want).amin(-1)
+                 / probs.gather(1, own).amin(-1))[differ]
+            with self.lock:
+                self.tie = min(self.tie, float(torch.minimum(r, 1 / r).min()))
+        return want
+
+
+NEAR_TIE = 2.0 ** -4      # tests/test_torch_moe.py: a near tie's ratio
+
+
+class PlantedAxis:
+    """A control: the "model" axis of a rank with a fault in its psum,
+    "bf16 psum" (the partials summed in bfloat16) or "rank dropped" (the
+    last rank's partial left out)."""
+
+    def __init__(self, axis, kind: str):
+        self.axis, self.kind = axis, kind
+
+    def __getattr__(self, name):
+        return getattr(self.axis, name)
+
+    def psum(self, t):
+        if self.kind == "bf16 psum":
+            return self.axis.psum(t.to(torch.bfloat16)).to(t.dtype)
+        if self.axis.rank == self.axis.size - 1:
+            t = torch.zeros_like(t)
+        return self.axis.psum(t)
+
+
+@contextlib.contextmanager
+def planted(kind):
+    """`moe.moe_ffn_decode_local` over a PlantedAxis of `kind` (None: as
+    it is)."""
+    from repro_torch.models import moe as M
+    real = M.moe_ffn_decode_local
+    if kind is not None:
+        M.moe_ffn_decode_local = lambda *a, model_axis, **kw: real(
+            *a, model_axis=PlantedAxis(model_axis, kind), **kw)
+    try:
+        yield
+    finally:
+        M.moe_ffn_decode_local = real
+
+
+def ep_decode_layers(cfg, params, toks, plant=None) -> list:
+    """Each layer's expert-parallel decode output against one rank's on
+    the same input: the MoE inputs of a one-rank decode step (the decode
+    path, at position 0) are kept and run again through `moe_ffn` on
+    EP_RANKS ranks (with the control `plant`) and on one.  [max
+    |difference| / max |one rank's|] a layer."""
+    from repro_torch.compression import kv as KV
+    from repro_torch.launch.mesh import run_mesh_threads
+    from repro_torch.models import serve as S
+    from repro_torch.models import transformer as TT
+    real, calls = TT.moe_ffn, []
+
+    def kept(*a, **kw):
+        calls.append((a, {k: v for k, v in kw.items() if k != "mesh"}))
+        return real(*a, **kw)
+
+    def one_rank_step(m):
+        cache = S.make_quant_cache(cfg, EP_BATCH, KV_PAGE, device=DEV)
+        return S.serve_step(cfg, params, cache, toks, 0, m,
+                            KV.kv_quantizer_config())[0]
+
+    TT.moe_ffn = kept
+    try:
+        with torch.no_grad():
+            run_mesh_threads((1,), ("model",), one_rank_step)
+    finally:
+        TT.moe_ffn = real
+    out = []
+    with torch.no_grad():
+        for a, kw in calls:
+            with planted(plant):
+                ep = run_mesh_threads((EP_RANKS,), ("model",), lambda m: real(
+                    *a, **kw, mesh=m))[0][0]
+            one = run_mesh_threads((1,), ("model",), lambda m: real(
+                *a, **kw, mesh=m))[0][0]
+            out.append(float((ep.float() - one.float()).abs().max()
+                             / one.float().abs().max()))
+    return out
+
+
+def moe_ep(cfg, params, seed: int) -> tuple:
+    """(g): (i) a forward over EP_BATCH x EP_TOKENS seeded tokens on a
+    ("model",) mesh of EP_RANKS thread ranks (the all-to-alls), every
+    rank's logits against the one-rank forward: bit-equal, or within
+    EP_TOL of max |logit|;
+    (ii) EP_STEPS quantized decode steps at B = EP_BATCH from EP_POS0 (a
+    seeded hot page before it; B12 from the step after the page closes)
+    through `moe_ffn_decode_local`, each rank its own cache: each layer
+    within EP_LAYER_TOL of one rank's on the same input
+    (`ep_decode_layers`), the ranks' logits the same bits and within
+    EP_DECODE_TOL of the one-rank steps' (the decode path on one rank, with
+    the ranks' expert choices; the dispatch path keeping every pair is
+    reported), and two controls with a fault planted in the psum
+    (`PlantedAxis`) over EP_CONTROL_STEPS steps and the layers: a dropped
+    rank must fail both limits; (iii) one AdamW step of an
+    EP_TRAIN_LAYERS-layer cut at full width through the expert-parallel
+    forward (`make_train_step` on a (1, EP_RANKS) mesh description), its
+    gradients against the one-rank step's leaf by leaf.  Step ms, the
+    bytes each all-to-all and psum moves, peak GB.  Returns (line, B12's
+    row at rank 0's decode call)."""
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.compression import kv as KV
+    from repro_torch.launch import train as TL
+    from repro_torch.launch.mesh import Mesh, run_mesh_threads
+    from repro_torch.models import build
+    from repro_torch.models import moe as M
+    from repro_torch.models import serve as S
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import optimizer as O
+    gen = torch.Generator(device=DEV).manual_seed(seed + 40)
+    toks = torch.randint(0, cfg.vocab, (EP_BATCH, EP_TOKENS), generator=gen,
+                         device=DEV)
+    on_mesh = lambda fn: run_mesh_threads((EP_RANKS,), ("model",), fn)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    out = {"phase": "moe", "part": "g", "arch": cfg.name,
+           "ranks": EP_RANKS, "experts_per_rank":
+               cfg.moe_experts // EP_RANKS, "layers": cfg.n_layers}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        a = cuda_mark()
+        one, one_aux = TT.forward(cfg, params, toks, None, remat=False)
+        b = cuda_mark()
+        got = on_mesh(lambda m: TT.forward(cfg, params, toks, m,
+                                           remat=False, moe_data_axes=()))
+        e = cuda_mark()
+        e.synchronize()
+    n = EP_BATCH * EP_TOKENS
+    cap = M.capacity(n, cfg.moe_experts, cfg.moe_top_k)
+    bit_equal = all(planes_equal(lg, one) and planes_equal(ax, one_aux)
+                    for lg, ax in got)
+    fwd_rel = max(rel(lg, one) for lg, _ in got)
+    ranks_agree = all(planes_equal(lg, got[0][0]) for lg, _ in got)
+    check(all(bool(torch.isfinite(lg).all()) for lg, _ in got),
+          "moe (g): a non-finite logit")
+    check(ranks_agree, "moe (g): the ranks' logits differ")
+    check(bit_equal or fwd_rel <= EP_TOL,
+          f"moe (g): the expert-parallel forward is {fwd_rel} of max|logit| "
+          f"from the one-rank forward")
+    out["forward"] = {
+        "tokens": n, "one_rank_ms": a.elapsed_time(b),
+        "ep_ms": b.elapsed_time(e), "bit_equal_to_one_rank": bit_equal,
+        "rel_to_one_rank": fwd_rel, "tolerance": EP_TOL,
+        "capacity": cap,
+        # per layer, per rank: the [E, cap, D] bf16 buffer out and back
+        "all_to_all_bytes_per_call": cfg.moe_experts * cap * cfg.d_model * 2,
+        "all_to_all_bytes_crossing_per_call": cfg.moe_experts * cap
+        * cfg.d_model * 2 * (EP_RANKS - 1) // EP_RANKS,
+        "all_to_alls_per_rank": 2 * cfg.n_layers}
+    del got, one
+    # (ii) decode steps, each rank its own cache
+    kv_cfg = KV.kv_quantizer_config()
+    dtoks = torch.randint(0, cfg.vocab, (EP_STEPS, EP_BATCH, 1),
+                          generator=gen, device=DEV, dtype=torch.int32)
+
+    def steps(m, n=EP_STEPS):
+        cache = S.make_quant_cache(cfg, EP_BATCH, SERVE_SEQ, device=DEV)
+        fill = torch.Generator(device=DEV).manual_seed(seed + 43)
+        for hot in (cache.hot_k, cache.hot_v):
+            hot[:, :, :EP_POS0] = (torch.randn(
+                hot[:, :, :EP_POS0].shape, generator=fill, device=DEV)
+                * 0.7).to(hot.dtype)
+        outs = []
+        for i in range(n):
+            lg, cache = S.serve_step(cfg, params, cache, dtoks[i],
+                                     EP_POS0 + i, m, kv_cfg)
+            outs.append(lg)
+        return outs, cache
+
+    b12 = "_kv_decode_attention"
+    # the one-rank steps take the ranks' expert choices (a near tie can
+    # flip where two paths' sums round apart; the own choices that differ
+    # must be near ties): the decode path on one rank (all 64 experts
+    # local: every pair kept), and the dispatch path with a capacity
+    # that keeps every pair
+    real_top_k, real_cap = M._top_k_experts, M.capacity
+    rec = RecordedRoutes(real_top_k)
+    forced = []
+    with torch.no_grad():
+        before = launches().get(b12, 0)
+        M._top_k_experts = rec
+        try:
+            a = cuda_mark()
+            got = on_mesh(steps)
+            b = cuda_mark()
+        finally:
+            M._top_k_experts = real_top_k
+        n_b12 = launches().get(b12, 0) - before
+        routes = next(iter(rec.seen.values()))
+        try:
+            forced.append(RecordedRoutes(real_top_k, routes))
+            M._top_k_experts = forced[-1]
+            one = run_mesh_threads((1,), ("model",), steps)[0][0]
+            e = cuda_mark()
+            forced.append(RecordedRoutes(real_top_k, routes))
+            M._top_k_experts = forced[-1]
+            M.capacity = lambda n_, e_, k, f=1.0: n_ * k    # every pair kept
+            kept, _ = steps(None)
+        finally:
+            M.capacity, M._top_k_experts = real_cap, real_top_k
+        e.synchronize()
+    tie = min(f.tie for f in forced)
+    check(tie >= 1 - NEAR_TIE, f"moe (g): a one-rank choice off the ranks' "
+          f"is no near tie ({tie})")
+    want_b12 = EP_RANKS * cfg.n_layers * (EP_POS0 + EP_STEPS - KV_PAGE)
+    check(n_b12 == want_b12, f"moe (g): {n_b12} B12 calls, want {want_b12}")
+    dec_rel = [rel(g, w) for g, w in zip(got[0][0], one)]
+    kept_rel = [rel(g, w) for g, w in zip(got[0][0], kept)]
+    one_kept_rel = [rel(g, w) for g, w in zip(one, kept)]
+    check(all(planes_equal(x, y) for r in got for x, y in zip(r[0],
+                                                             got[0][0])),
+          "moe (g): the ranks' decode logits differ")
+    cache0 = got[0][1]
+    row = b12_row("moe-g", layer0_queries(cfg, params, dtoks[-1],
+                                          EP_POS0 + EP_STEPS, gen),
+                  KV.QuantizedKV(*(t[0] for t in cache0.k)),
+                  KV.QuantizedKV(*(t[0] for t in cache0.v)),
+                  torch.full((EP_BATCH,), KV_PAGE, dtype=torch.int32,
+                             device=DEV), SERVE_SEQ, n_b12,
+                  caller="models.serve._attn_history in each rank's "
+                         "expert-parallel decode step")
+    layer_rel = ep_decode_layers(cfg, params, dtoks[-1])
+    check(max(layer_rel) <= EP_LAYER_TOL, f"moe (g): an expert-parallel "
+          f"decode layer is {max(layer_rel)} of its max |value| from one "
+          f"rank's on the same input")
+    check(max(dec_rel) <= EP_DECODE_TOL, f"moe (g): the expert-parallel "
+          f"decode logits are {max(dec_rel)} of max |logit| from one "
+          f"rank's")
+    # the controls: the first EP_CONTROL_STEPS steps with a fault planted
+    # in the psum, against one rank's steps on the control's own expert
+    # choices (as the sound run is held), and the layers on one input; a
+    # dropped rank must fail both limits
+    controls = {}
+    with torch.no_grad():
+        for kind in ("bf16 psum", "rank dropped"):
+            rec_c = RecordedRoutes(real_top_k)
+            try:
+                M._top_k_experts = rec_c
+                with planted(kind):
+                    bad = on_mesh(lambda m: steps(m, EP_CONTROL_STEPS))[0][0]
+                M._top_k_experts = RecordedRoutes(
+                    real_top_k, next(iter(rec_c.seen.values())))
+                base = run_mesh_threads((1,), ("model",), lambda m: steps(
+                    m, EP_CONTROL_STEPS))[0][0]
+            finally:
+                M._top_k_experts = real_top_k
+            controls[kind] = {
+                "logits_rel_to_one_rank_max": max(
+                    rel(g, w) for g, w in zip(bad, base)),
+                "layer_rel_to_one_rank": ep_decode_layers(
+                    cfg, params, dtoks[-1], plant=kind)}
+            del bad, base
+    drop = controls["rank dropped"]
+    check(drop["logits_rel_to_one_rank_max"] > EP_DECODE_TOL
+          and min(drop["layer_rel_to_one_rank"]) > EP_LAYER_TOL,
+          f"moe (g): a dropped rank passes the decode limits: {drop}")
+    out["decode"] = {
+        "batch": EP_BATCH, "steps": EP_STEPS, "from_pos": EP_POS0,
+        "b12_calls": n_b12, "b12_max_abs_err": row["max_abs_err"],
+        "ep_step_ms": a.elapsed_time(b) / EP_STEPS,
+        "one_rank_step_ms": b.elapsed_time(e) / EP_STEPS,
+        "layer_rel_to_one_rank": layer_rel,
+        "layer_tolerance": EP_LAYER_TOL,
+        "logits_tolerance": EP_DECODE_TOL,
+        "controls": controls, "control_steps": EP_CONTROL_STEPS,
+        "logits_rel_to_one_rank_max": max(dec_rel),
+        "logits_rel_to_one_rank": dec_rel,
+        "rel_to_dispatch_path_all_kept_max": max(kept_rel),
+        "one_rank_rel_to_dispatch_path_all_kept_max": max(one_kept_rel),
+        "max_abs_logit": max(float(t.abs().max()) for t in kept),
+        "routes": "the ranks' choices in the one-rank steps",
+        "own_choice_tie_ratio": tie,
+        # per layer, per rank: the float32 [B, D] partial sums of the psum
+        "psum_bytes_per_call": EP_BATCH * cfg.d_model * 4,
+        "psum_bytes_crossing_per_call": EP_BATCH * cfg.d_model * 4
+        * (EP_RANKS - 1), "psums_per_step": cfg.n_layers}
+    out["peak_device_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    del got, one, kept, cache0
+    torch.cuda.empty_cache()
+    # (iii) one training step of a 2-layer cut through the EP forward
+    cut = dataclasses.replace(cfg, n_layers=EP_TRAIN_LAYERS)
+    bundle = build(cut)
+    p2 = bundle.init(torch.Generator(device=DEV).manual_seed(seed + 42),
+                     device=DEV)
+    tt = torch.randint(0, cfg.vocab, (EP_BATCH, EP_TOKENS + 1),
+                       generator=gen, device=DEV)
+    batch = {"tokens": tt[:, :-1], "labels": tt[:, 1:]}
+    mesh = Mesh((1, EP_RANKS), ("data", "model"))
+    torch.cuda.reset_peak_memory_stats()
+    a = cuda_mark()
+    (l1, _), g1 = TL.value_and_grad(bundle, p2, batch, None)
+    b = cuda_mark()
+    (l4, _), g4 = TL.value_and_grad(bundle, p2, batch, mesh)
+    e = cuda_mark()
+    e.synchronize()
+    names = leaf_names(g1)
+    leaves = {}
+    for name, x, y in zip(names, T.leaves(g4), T.leaves(g1)):
+        leaves[name] = {"bit_equal": planes_equal(x, y),
+                        "rel": rel(x, y) if bool(y.abs().max() > 0) else 0.}
+    worst = max(v["rel"] for v in leaves.values())
+    check(worst <= EP_TOL, f"moe (g): an expert-parallel gradient is "
+          f"{worst} of its max |value| from the one-rank step's")
+    ocfg = O.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    step = TL.make_train_step(bundle, mesh, ocfg)
+    c = cuda_mark()
+    (p3, _), metrics = step((p2, O.init(p2, ocfg)), batch)
+    f = cuda_mark()
+    f.synchronize()
+    check(np.isfinite(float(metrics["loss"])), "moe (g): a non-finite loss")
+    out["train"] = {
+        "layers": EP_TRAIN_LAYERS, "tokens": EP_BATCH * EP_TOKENS,
+        "loss_one_rank": float(l1), "loss_ep": float(l4),
+        "loss_bit_equal": planes_equal(l1, l4),
+        "grad_one_rank_ms": a.elapsed_time(b), "grad_ep_ms": b.elapsed_time(e),
+        "step_ep_ms": c.elapsed_time(f),
+        "leaves_bit_equal": sum(v["bit_equal"] for v in leaves.values()),
+        "leaves": len(leaves),
+        "leaves_not_bit_equal": {k: v["rel"] for k, v in leaves.items()
+                                 if not v["bit_equal"]},
+        "rel_max": worst, "tolerance": EP_TOL,
+        "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+    del p2, p3, g1, g4
+    torch.cuda.empty_cache()
+    return out, row
+
+
 def moe_phase(seed: int) -> list:
     """The MoE family and head dim 80 on the card: olmoe-1b-7b at full width
     and depth, (a) the aligned batch, (b) the engine and stream_prefill,
@@ -3065,9 +3593,9 @@ def moe_phase(seed: int) -> list:
     reset_launches()
     with first_call_args(LC, "lc_select") as sel_args, \
             first_call_args(LC, "lc_expand") as exp_args:
-        line_b = serve_engine(cfg, params, seed, batched_rows=(),
-                              phase="moe")
+        line_b, row_b = serve_engine(cfg, params, seed, phase="moe")
         lc_counts = launches()
+    rows.append(row_b)
     line_b["stream"] = moe_stream(cfg, params, seed)
     print(json.dumps(line_b), flush=True)
     rows += lc_rows(sel_args[0][:2], exp_args[0][:3], lc_counts)
@@ -3082,6 +3610,9 @@ def moe_phase(seed: int) -> list:
     print(json.dumps(line_c), flush=True)
     rows.append(row_c)
     print(json.dumps(moe_prefill(cfg, params, seed)), flush=True)
+    line_g, row_g = moe_ep(cfg, params, seed)
+    print(json.dumps(line_g), flush=True)
+    rows.append(row_g)
     del params
     torch.cuda.empty_cache()
 
@@ -3092,7 +3623,7 @@ def moe_phase(seed: int) -> list:
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
         params, info = load(cfg, offset)
-        line, row = aligned_run(cfg, params, seed, MOE_SHORT_STEPS, label)
+        line, row = aligned_run(cfg, params, seed, MOE_STEPS, label)
         line.update(info, full_layers=get(name).n_layers)
         print(json.dumps(line), flush=True)
         rows.append(row)
@@ -3368,6 +3899,34 @@ def train_serializer(master) -> dict:
             "max_err": err}
 
 
+def elastic_resize(mgr, template, bundle, want) -> dict:
+    """The loop's latest raw checkpoint through `runtime.elastic.resize`
+    onto a mesh of the cards at hand ((1, 1) on one card), under the
+    param shardings (the optimizer's trees like the params, the step and
+    the residuals replicated): every leaf and the step as saved."""
+    from repro_torch import tree as T
+    from repro_torch.launch import mesh as MS
+    from repro_torch.optim.optimizer import OptState
+    from repro_torch.runtime import elastic
+
+    def rules(m):
+        ps = MS.param_shardings(m, bundle.axes(), bundle.abstract_params())
+        rep = MS.replicated(m)
+        return (ps, OptState(rep, ps, ps, ps),
+                T.tree_map(lambda _: rep, template[2]))
+
+    t0 = time.perf_counter()
+    states, step, mesh = elastic.resize(mgr, template, rules)
+    dt = time.perf_counter() - t0
+    check(mesh.shape == (1, 1) and len(states) == 1 and step == LOOP_STEPS,
+          f"elastic: mesh {mesh.shape}, {len(states)} states, step {step}")
+    check(all(planes_equal(a, b) for a, b in zip(T.leaves(states[0]),
+                                                 T.leaves(want))),
+          "elastic: a resized leaf differs from the saved state")
+    return {"mesh": list(mesh.shape), "step": step, "bit_identical": True,
+            "leaves": len(T.leaves(want)), "resize_s": dt}
+
+
 def train_loop_check(seed: int) -> dict:
     """The loop and the checkpoint on the card, on the reduced
     configuration, with the compressed step over 2 thread pods: LOOP_STEPS
@@ -3483,6 +4042,8 @@ def train_loop_check(seed: int) -> dict:
                       "train loop: the resumed run is not bit-identical to "
                       "the uninterrupted one")
                 out["raw_resume_bit_identical"] = True
+                out["elastic"] = elastic_resize(mgr, init_fn("meta"), bundle,
+                                                resumed)
                 continue
             worst = 0.0
             for a, b in zip(T.leaves(part), T.leaves(state)):
@@ -3803,8 +4364,16 @@ def sweep_phase(f) -> list:
 
 FAM_RUNS = {"whisper-base": dict(seq=448, prefill=448),
             "xlstm-350m": dict(seq=512, prefill=2048)}
+# xlstm-350m trains on 2 of its 24 layers (its sLSTM is a true recurrence,
+# so a step's time follows the depth); prefill and decode keep all 24
+FAM_TRAIN_LAYERS = {"xlstm-350m": 2}
 FAM_BATCH, FAM_STEPS, FAM_SERVE = 8, 6, 128
 FAM_PROMPT, FAM_CUT_STEPS, FAM_TOL = 64, 16, 2e-2
+# xlstm-350m's teacher-forced steps at full depth on its untrained weights,
+# of max |logit| (0.73): in bfloat16 about twice the sound reading (0.130
+# on an H100 80GB HBM3, 700 W, where bfloat16 alone moves forward 0.116 and
+# the steps 0.126 from themselves in float32), and in float32 (2.9e-5)
+FAM_DEEP_TOL, FAM_F32_TOL = 2.0 ** -2, 1e-4
 FAM_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=FAM_STEPS)
 
 
@@ -3989,28 +4558,82 @@ def fam_serve(bundle, params, seed: int) -> dict:
             "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
 
 
-def fam_teacher_forced(bundle, params, seed: int) -> float:
-    """FAM_PROMPT teacher-forced decode steps against `forward`'s logits at
-    every position: the largest |difference| over the largest |logit| at
-    that position (must be within FAM_TOL)."""
+def fam_forced_run(bundle, params, seed: int) -> tuple:
+    """FAM_PROMPT teacher-forced decode steps and `forward` over the same
+    seeded tokens: (forward's logits, the steps' [B, FAM_PROMPT, V], both
+    float32)."""
     cfg = bundle.cfg
     gen = torch.Generator(device=DEV).manual_seed(seed + 90)
     tokens = torch.randint(0, cfg.vocab, (FAM_BATCH, FAM_PROMPT),
                            generator=gen, device=DEV)
     batch = fam_batch(cfg, tokens, seed + 91)
-    worst = 0.0
     with torch.no_grad():
         fwd, _ = bundle._forward(params, batch, None, remat=False)
         cache = fam_cache(bundle, params, batch, FAM_PROMPT)
+        steps = []
         for pos in range(FAM_PROMPT):
             got, cache = bundle.serve_step(params, cache,
                                            tokens[:, pos:pos + 1], pos)
-            want = fwd[:, pos].float()
-            worst = max(worst, float((got - want).abs().max()
-                                     / want.abs().max()))
-    check(worst <= FAM_TOL, f"families {cfg.name}: teacher-forced steps "
-                            f"{worst} of max |logit| from forward")
+            steps.append(got)
+    return fwd.float(), torch.stack(steps, 1)
+
+
+def forced_gap(fwd, steps) -> float:
+    """The largest |difference| over the largest |logit| of `fwd` at each
+    position, the worst position's."""
+    return max(float((steps[:, p] - fwd[:, p]).abs().max()
+                     / fwd[:, p].abs().max()) for p in range(fwd.shape[1]))
+
+
+def fam_teacher_forced(bundle, params, seed: int) -> float:
+    """FAM_PROMPT teacher-forced decode steps against `forward`'s logits at
+    every position: the worst `forced_gap` (must be within FAM_TOL)."""
+    worst = forced_gap(*fam_forced_run(bundle, params, seed))
+    check(worst <= FAM_TOL, f"families {bundle.cfg.name}: teacher-forced "
+                            f"steps {worst} of max |logit| from forward")
     return worst
+
+
+@contextlib.contextmanager
+def ssm_float32():
+    """The ssm stack's activations in float32 (`xlstm_stack.DTYPE`)."""
+    from repro_torch.models import xlstm_stack as XS
+    real = XS.DTYPE
+    XS.DTYPE = torch.float32
+    try:
+        yield
+    finally:
+        XS.DTYPE = real
+
+
+def fam_teacher_forced_deep(bundle, params, seed: int) -> dict:
+    """The teacher-forced steps at full depth on the untrained weights, in
+    bfloat16 and, as the witness of what bfloat16 rounding does there,
+    again in float32 (the weights cast, `ssm_float32`): the bfloat16 gap
+    within FAM_DEEP_TOL, the float32 one within FAM_F32_TOL; beside them
+    the largest |logit|, the largest |difference|, and how far each path
+    in bfloat16 lies from itself in float32."""
+    from repro_torch import tree as T
+    name = bundle.cfg.name
+    fwd, steps = fam_forced_run(bundle, params, seed)
+    p32 = T.tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                     params)
+    with ssm_float32():
+        fwd32, steps32 = fam_forced_run(bundle, p32, seed)
+    del p32
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    out = {"layers": bundle.cfg.n_layers, "bf16_rel_max":
+           forced_gap(fwd, steps), "f32_rel_max": forced_gap(fwd32, steps32),
+           "max_abs_logit": float(fwd.abs().max()),
+           "abs_gap_max": float((steps - fwd).abs().max()),
+           "forward_bf16_vs_f32": rel(fwd, fwd32),
+           "steps_bf16_vs_f32": rel(steps, steps32),
+           "tolerance": FAM_DEEP_TOL, "f32_tolerance": FAM_F32_TOL}
+    check(out["f32_rel_max"] <= FAM_F32_TOL, f"families {name}: float32 "
+          f"teacher-forced steps at full depth {out['f32_rel_max']}")
+    check(out["bf16_rel_max"] <= FAM_DEEP_TOL, f"families {name}: "
+          f"teacher-forced steps at full depth {out['bf16_rel_max']}")
+    return out
 
 
 def fam_cut_vs_cpu(name: str, seed: int) -> dict:
@@ -4062,30 +4685,55 @@ def fam_cut_vs_cpu(name: str, seed: int) -> dict:
 
 
 def families_phase(seed: int) -> None:
-    """A13's encdec and ssm families at full width and depth: per model a
-    line with (a) training, (b) prefill, (c) serving, and the checks
-    (teacher-forced steps against forward, a 2-layer cut against the CPU
+    """A13's encdec and ssm families at full width and depth (xlstm's
+    training at FAM_TRAIN_LAYERS of its layers): per model a line with (a)
+    training, (b) prefill, (c) serving, and the checks (teacher-forced
+    steps against forward on the trained weights, and for xlstm also at
+    full depth with its float32 witness; a 2-layer cut against the CPU
     path)."""
     from repro_torch.configs.registry import get
     from repro_torch.models import build
+    import dataclasses
     for name, run in FAM_RUNS.items():
         t0 = time.time()
         gc.collect()
         torch.cuda.empty_cache()
         bundle = build(get(name))
-        train, params = fam_train(bundle, seed, run["seq"])
+        cut = FAM_TRAIN_LAYERS.get(name)
+        if cut is None:
+            train, params = fam_train(bundle, seed, run["seq"])
+            trained = (bundle, params)
+        else:
+            cut_bundle = build(dataclasses.replace(get(name), n_layers=cut))
+            train, cut_params = fam_train(cut_bundle, seed, run["seq"])
+            train["layers"] = cut
+            trained = (cut_bundle, cut_params)
+            params = bundle.init(torch.Generator(device=DEV).manual_seed(
+                seed + 60), device=DEV)
         line = {"phase": "families", "model": name,
                 "n_params": bundle.n_params(), "train": train}
         line["prefill"] = fam_prefill(bundle, params, seed, run["prefill"])
         line["serve"] = fam_serve(bundle, params, seed)
-        line["teacher_forced_rel_max"] = fam_teacher_forced(bundle, params,
-                                                            seed)
-        del params
+        line["teacher_forced_rel_max"] = fam_teacher_forced(*trained, seed)
+        line["teacher_forced_layers"] = trained[0].cfg.n_layers
+        if cut is not None:
+            line["teacher_forced_full_depth"] = fam_teacher_forced_deep(
+                bundle, params, seed)
+        del params, trained
         torch.cuda.empty_cache()
         line["cut_vs_cpu"] = fam_cut_vs_cpu(name, seed)
         line["tolerance"] = FAM_TOL
         line["phase_s"] = time.time() - t0
         print(json.dumps(line), flush=True)
+
+
+def phase_timed(name: str, fn, *args):
+    """fn(*args), its wall time on stderr."""
+    t0 = time.time()
+    out = fn(*args)
+    print(f"chip_smoke: phase {name} {time.time() - t0:.1f} s",
+          file=sys.stderr, flush=True)
+    return out
 
 
 def main(argv=None) -> int:
@@ -4137,12 +4785,12 @@ def main(argv=None) -> int:
     for name in ("sci-rel-shuffle", "sci-rel-ent", "sci-lorenzo-ent"):
         rows += run_chain(name, get_pipeline(name), f["nyx"], None,
                           shape=nyx_shape)
-    rows += dense_phase(f)
-    rows += sweep_phase(f)
-    rows += audit_phase(f)
+    rows += phase_timed("dense", dense_phase, f)
+    rows += phase_timed("sweep", sweep_phase, f)
+    rows += phase_timed("audit", audit_phase, f)
     del f
-    code_sweep(args.seed)
-    kv_rows_, k_row0 = kv_phase(args.seed)
+    phase_timed("code sweep", code_sweep, args.seed)
+    kv_rows_, k_row0 = phase_timed("kv", kv_phase, args.seed)
     rows += kv_rows_
     # one user's K at 32K as pages of 128 tokens: (G S / 128, 128, D)
     g, s, d = k_row0.shape
@@ -4150,11 +4798,11 @@ def main(argv=None) -> int:
                       k_row0.reshape(-1), rms_eb(k_row0),
                       shape=(g * s // KV_PAGE, KV_PAGE, d))
     del k_row0
-    rows += serve_phase(args.seed)
-    rows += moe_phase(args.seed)
-    rows += grads_phase(args.seed)
-    rows += train_phase(args.seed)
-    families_phase(args.seed)
+    rows += phase_timed("serve", serve_phase, args.seed)
+    rows += phase_timed("moe", moe_phase, args.seed)
+    rows += phase_timed("grads", grads_phase, args.seed)
+    rows += phase_timed("train", train_phase, args.seed)
+    phase_timed("families", families_phase, args.seed)
     check(set(KERNELS) <= {r["name"] for r in rows},
           "a kernel has no main-path row")
     print(json.dumps({"kernels": rows}), flush=True)

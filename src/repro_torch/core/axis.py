@@ -4,10 +4,15 @@ The reference runs its collectives inside `shard_map` over a named mesh
 axis (`lax.all_gather`, `ppermute`, `pmax`, `psum`).  Here an axis is an
 object that each rank's code holds, with the same four collectives:
 
-    axis.size, axis.rank
+    axis.size, axis.rank, axis.axis_index() (= rank)
     axis.all_gather(t)        -> [size, *t.shape], rank order
     axis.ppermute(t, perm)    -> what (src, rank) in perm sends here, else 0
-    axis.pmax(t), axis.psum(t)
+    axis.pmax(t), axis.psum(t), axis.pmean(t)
+    axis.all_to_all(t, split_axis, concat_axis)
+                              -> `lax.all_to_all(..., tiled=True)`: t cut
+                                 into `size` chunks along split_axis, chunk
+                                 j sent to rank j, the chunks received
+                                 joined along concat_axis in rank order
 
 Two implementations run the same per-rank code:
 
@@ -20,8 +25,24 @@ Two implementations run the same per-rank code:
     one device).  `run_threads(p, fn)` runs fn(axis) once per rank.
 
 Both reduce in rank order (`psum` folds ranks 0, 1, ... left to right;
-`pmax` takes the maximum with NaN propagating), so the two agree bit for
-bit.
+`pmax` takes the maximum with NaN propagating; `pmean` sums pairwise,
+((r0 + r1) + (r2 + r3)), and divides by the size, so the mean of a value
+every rank holds is that value), so the two agree bit for bit.
+
+Autograd.  `all_to_all`, `psum` and `pmean` carry gradients, so a training
+forward can differentiate through the expert-parallel MoE.  A thread
+rank's all_to_all and psum are built from the other ranks' tensors
+themselves (a chunk, a cat, an add), so the ranks of one process share one
+autograd graph, and one backward call differentiates every rank; its
+backward needs no exchange (the autograd engine runs a card's backward
+nodes on one worker thread, where a barrier would wait for ever).  On
+`DistAxis` they are autograd functions whose backward is the transposed
+exchange: the inverse all-to-all, and a psum of the gradients.  `pmean`'s
+gradient goes to the rank's own input alone, on both: the mean of a value
+every rank holds (the MoE load-balance loss over the "model" axis, whose
+ranks see the same tokens) differentiates as that value, and over ranks
+that hold different values the mean of the ranks' gradients (data
+parallelism's) completes it.
 """
 from __future__ import annotations
 
@@ -37,14 +58,59 @@ def _fold(vals: list, op) -> torch.Tensor:
     return out
 
 
+def _tree_sum(vals: list) -> torch.Tensor:
+    """Pairwise sum in rank order: ((v0 + v1) + (v2 + v3)), ...; exact
+    for equal values at power-of-two sizes (a replicated value's pmean is
+    that value)."""
+    while len(vals) > 1:
+        vals = [vals[i] + vals[i + 1] if i + 1 < len(vals) else vals[i]
+                for i in range(0, len(vals), 2)]
+    return vals[0]
+
+
+def _join_chunks(vals: list, rank: int, split_axis: int,
+                 concat_axis: int) -> torch.Tensor:
+    """The tiled all-to-all's result on `rank` from every rank's tensor."""
+    size = len(vals)
+    return torch.cat([v.chunk(size, split_axis)[rank] for v in vals],
+                     concat_axis)
+
+
+def _check_split(t: torch.Tensor, split_axis: int, size: int) -> None:
+    if t.shape[split_axis] % size:
+        raise ValueError(f"all_to_all: dim {split_axis} of {tuple(t.shape)} "
+                         f"does not split over {size} ranks")
+
+
+class _OwnMean(torch.autograd.Function):
+    """The ranks' mean (computed by the caller) as the value; the gradient
+    to the rank's own input only."""
+
+    @staticmethod
+    def forward(ctx, own, mean):
+        return mean.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class _RankOrder:
-    """pmax/psum from `_exchange` (every rank's tensor, in rank order)."""
+    """pmax/psum/pmean from `_exchange` (every rank's tensor, in rank
+    order)."""
+
+    def axis_index(self) -> int:
+        return self.rank
 
     def pmax(self, t: torch.Tensor) -> torch.Tensor:
         return _fold(self._exchange(t), torch.maximum)
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         return _fold(self._exchange(t), torch.add)
+
+    def pmean(self, t: torch.Tensor) -> torch.Tensor:
+        vals = [v.detach() for v in self._exchange(t)]
+        return _OwnMean.apply(t, _tree_sum(vals) / self.size)
 
 
 # ----------------------------------------------------------- thread axis --
@@ -91,6 +157,12 @@ class ThreadAxis(_RankOrder):
         src = [s for s, d in perm if d == self.rank]
         return vals[src[0]].clone() if src else torch.zeros_like(t)
 
+    def all_to_all(self, t: torch.Tensor, split_axis: int,
+                   concat_axis: int) -> torch.Tensor:
+        _check_split(t, split_axis, self.size)
+        return _join_chunks(self._exchange(t), self.rank, split_axis,
+                            concat_axis)
+
 
 def run_threads(size: int, fn) -> list:
     """[fn(axis of rank r) for r in range(size)], each rank in a thread of
@@ -122,6 +194,31 @@ def run_threads(size: int, fn) -> list:
 
 # ------------------------------------------------------ distributed axis --
 
+class _DistAllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, t, split_axis, concat_axis):
+        ctx.axis, ctx.split, ctx.concat = axis, split_axis, concat_axis
+        return axis._all_to_all(t, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, ctx.axis._all_to_all(g.contiguous(), ctx.concat,
+                                           ctx.split), None, None)
+
+
+class _DistPsum(torch.autograd.Function):
+    """psum; its gradient is the psum of the gradients."""
+
+    @staticmethod
+    def forward(ctx, axis, t):
+        ctx.axis = axis
+        return _fold(axis._exchange(t), torch.add)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _fold(ctx.axis._exchange(g.contiguous()), torch.add)
+
+
 class DistAxis(_RankOrder):
     """The ranks of a `torch.distributed` process group (the default group
     unless one is given); the caller has run `init_process_group`."""
@@ -134,21 +231,53 @@ class DistAxis(_RankOrder):
 
     @staticmethod
     def _wire_dtype(t: torch.Tensor) -> torch.Tensor:
-        # bool planes travel as bytes (gloo has no bool)
-        return t.to(torch.uint8) if t.dtype == torch.bool else t
+        # bool planes travel as bytes (gloo has no bool), 16-bit floats as
+        # their bytes (a contiguous t: the last dim doubles)
+        if t.dtype == torch.bool:
+            return t.to(torch.uint8)
+        if t.dtype in (torch.bfloat16, torch.float16):
+            return t.view(torch.uint8)
+        return t
+
+    @staticmethod
+    def _from_wire(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        if like.dtype in (torch.bfloat16, torch.float16):
+            return w.view(like.dtype)
+        return w.to(like.dtype)
 
     def _exchange(self, t: torch.Tensor) -> list:
-        flat = self._wire_dtype(t).reshape(-1).contiguous()
+        flat = self._wire_dtype(t.reshape(-1).contiguous())
         outs = [torch.empty_like(flat) for _ in range(self.size)]
         self._dist.all_gather(outs, flat, group=self.group)
-        return [o.reshape(t.shape).to(t.dtype) for o in outs]
+        return [self._from_wire(o, t).reshape(t.shape) for o in outs]
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        return _DistPsum.apply(self, t)
+
+    def pmean(self, t: torch.Tensor) -> torch.Tensor:
+        vals = self._exchange(t.detach())
+        return _OwnMean.apply(t, _tree_sum(vals) / self.size)
+
+    def all_to_all(self, t: torch.Tensor, split_axis: int,
+                   concat_axis: int) -> torch.Tensor:
+        _check_split(t, split_axis, self.size)
+        return _DistAllToAll.apply(self, t, split_axis, concat_axis)
+
+    def _all_to_all(self, t, split_axis: int, concat_axis: int):
+        """One all_to_all_single (gloo and NCCL have it) over t with
+        split_axis moved to the front."""
+        wire = self._wire_dtype(t.movedim(split_axis, 0).contiguous())
+        out = torch.empty_like(wire)
+        self._dist.all_to_all_single(out, wire, group=self.group)
+        return torch.cat([self._from_wire(b, t).movedim(0, split_axis)
+                          for b in out.chunk(self.size, 0)], concat_axis)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         return torch.stack(self._exchange(t))
 
     def ppermute(self, t: torch.Tensor, perm) -> torch.Tensor:
         dist = self._dist
-        flat = self._wire_dtype(t).reshape(-1).contiguous()
+        flat = self._wire_dtype(t.reshape(-1).contiguous())
         buf = torch.zeros_like(flat)
         ops = []
         for s, d in perm:
@@ -161,4 +290,4 @@ class DistAxis(_RankOrder):
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-        return buf.reshape(t.shape).to(t.dtype)
+        return self._from_wire(buf, t).reshape(t.shape)

@@ -69,19 +69,26 @@ def pack_words(values: torch.Tensor, bin_bits: int) -> torch.Tensor:
 def unpack_words(words: torch.Tensor, n: int, bin_bits: int,
                  signed: bool = True) -> torch.Tensor:
     """Inverse of pack_words.  Returns int32[n]: sign-extended bins, or the
-    raw bin_bits-wide fields when signed=False."""
+    raw bin_bits-wide fields when signed=False.  Runs in int32: a shift
+    then a mask to bin_bits < 32 bits, the xor and the subtract give the
+    bits their uint32 forms give, mod 2^32."""
     vpw = 32 // bin_bits
-    w = (words.to(torch.int64) & _U32).reshape(-1, PACK_LANES)
+    w = words if words.dtype == torch.int32 else to_i32(words.to(torch.int64))
+    w = w.reshape(-1, PACK_LANES)
     if vpw == 1:
-        flat = w.reshape(-1)[:n]
+        flat = w.reshape(-1)[:n].clone()
     else:
         mask = (1 << bin_bits) - 1
-        cols = [(w >> (i * bin_bits)) & mask for i in range(vpw)]
-        flat = torch.stack(cols, dim=1).reshape(-1)[:n]
-    if not signed or bin_bits == 32:
-        return to_i32(flat)
-    half = 1 << (bin_bits - 1)
-    return ((flat ^ half) - half).to(torch.int32)    # sign-extend
+        out = torch.empty((w.shape[0], vpw, PACK_LANES), dtype=torch.int32,
+                          device=w.device)
+        for i in range(vpw):
+            torch.bitwise_and(w >> (i * bin_bits), mask, out=out[:, i, :])
+        flat = out.reshape(-1)[:n]
+    if signed and bin_bits < 32:
+        half = 1 << (bin_bits - 1)
+        flat ^= half                                  # sign-extend
+        flat -= half
+    return flat
 
 
 def pack_flags(flags: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,286 @@
+"""The mesh and its logical-axis sharding rules (counterpart of
+`repro.launch.mesh`).
+
+Mesh axes of the production meshes:
+  single-pod  (16, 16)      ("data", "model")            = 256 chips
+  multi-pod   (2, 16, 16)   ("pod", "data", "model")     = 512 chips
+
+Logical axis -> mesh axis (`LOGICAL_RULES`):
+  embed -> every data axis (FSDP)   heads/mlp/vocab/experts -> model (TP/EP)
+  layers/None -> replicated
+A dimension whose size the named axes do not divide stays replicated
+(whisper's vocab 51865; head counts below the model axis).
+
+A spec is a tuple with one entry per dimension: a mesh axis name, a tuple
+of names, or None; it equals the reference's `PartitionSpec` element for
+element.  A `Sharding` pairs a spec with its mesh.
+
+A `Mesh` has axis names and a shape.  `make_production_mesh` gives one as
+a description (no devices); `runtime.elastic.make_mesh_for` one over the
+devices at hand.  A rank's mesh also carries, for that rank, one
+`core.axis` axis per mesh axis (`axes[name]`: its rank along that axis and
+the collectives over the ranks that share its other coordinates).  Ranks
+as threads of one process (`run_mesh_threads`, over `core.axis.
+ThreadGroup`s: NCCL refuses two ranks on one card) and as processes
+(`dist_mesh`, over `torch.distributed` subgroups) hold the same code.
+
+`local_view` gives a rank its block of a tensor under a sharding, and
+`local_views` of a tree: views, not copies (tensors are mutable: the
+views of ranks that share a tensor must be read only).
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+
+import numpy as np
+import torch
+
+from .. import tree as T
+from ..core.axis import DistAxis, ThreadGroup, run_threads
+
+LOGICAL_RULES = {
+    "heads": "model",
+    "mlp": "model",
+    "vocab": "model",
+    "experts": "model",
+    None: None,
+}
+
+
+class Mesh:
+    """`axis_names` with a `shape` (the reference's `mesh.devices.shape`);
+    `devices` an object array of that shape (None for a description);
+    `axes` {name: core.axis axis} on a rank's own mesh (None otherwise)."""
+
+    def __init__(self, shape, axis_names, *, devices=None, axes=None):
+        self.shape = tuple(int(n) for n in shape)
+        self.axis_names = tuple(axis_names)
+        if len(self.shape) != len(self.axis_names):
+            raise ValueError(f"mesh shape {self.shape} for axes "
+                             f"{self.axis_names}")
+        if devices is not None:
+            devices = np.asarray(devices, dtype=object).reshape(self.shape)
+        self.devices = devices
+        self.axes = axes
+
+    def __repr__(self):
+        return f"Mesh({dict(zip(self.axis_names, self.shape))})"
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape))
+
+    @property
+    def sizes(self) -> dict:
+        return dict(zip(self.axis_names, self.shape))
+
+    def axis(self, name: str):
+        """This rank's `core.axis` axis along mesh axis `name`."""
+        if self.axes is None:
+            raise ValueError(f"{self!r} is a description, with no rank's "
+                             "axes: run the rank's code on a rank's mesh "
+                             "(run_mesh_threads, dist_mesh)")
+        return self.axes[name]
+
+    def coords(self) -> dict:
+        """This rank's coordinate along each axis (a rank's mesh only)."""
+        return {n: self.axis(n).rank for n in self.axis_names}
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A spec on a mesh (the reference's NamedSharding); a leaf of a tree
+    (not a tuple, which `tree.flatten` would enter)."""
+    mesh: Mesh
+    spec: tuple
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(shape, axes)
+
+
+def data_axes(mesh: Mesh) -> tuple:
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+def _entry(names: tuple):
+    """A spec entry over `names`: one name stands alone (as a
+    PartitionSpec holds it)."""
+    return names[0] if len(names) == 1 else names
+
+
+def _axis_size(entry, sizes: dict) -> int:
+    if entry is None:
+        return 1
+    if isinstance(entry, str):
+        return sizes[entry]
+    return int(np.prod([sizes[a] for a in entry]))
+
+
+def logical_to_spec(axes: tuple, mesh: Mesh, shape=None) -> tuple:
+    """The spec of a leaf with logical `axes`; with its `shape`, an axis
+    whose size does not divide the dimension is dropped (replicated)."""
+    rules = dict(LOGICAL_RULES)
+    rules["embed"] = _entry(data_axes(mesh))
+    sizes = mesh.sizes
+    spec = []
+    for i, a in enumerate(axes):
+        r = rules.get(a, None)
+        ok = (r is None or shape is None
+              or shape[i] % _axis_size(r, sizes) == 0)
+        spec.append(r if ok else None)
+    return tuple(spec)
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and not hasattr(x, "_fields")
+
+
+def _map_axes(fn, axes_tree, *rest):
+    """fn over the axes tuples of a dict tree (and the matching leaves of
+    `rest`, trees of the same dicts)."""
+    if isinstance(axes_tree, dict):
+        return {k: _map_axes(fn, axes_tree[k], *(r[k] for r in rest))
+                for k in axes_tree}
+    if not _is_axes(axes_tree):
+        raise TypeError(f"an axes leaf must be a tuple, got {axes_tree!r}")
+    return fn(axes_tree, *rest)
+
+
+def param_shardings(mesh: Mesh, axes_tree, abstract_tree=None):
+    """A tree of `Sharding`s from a tree of logical axes tuples (and of the
+    leaves' shapes: tensors, e.g. on the meta device)."""
+    if abstract_tree is None:
+        return _map_axes(lambda ax: Sharding(mesh, logical_to_spec(ax, mesh)),
+                         axes_tree)
+    return _map_axes(lambda ax, ab: Sharding(
+        mesh, logical_to_spec(ax, mesh, tuple(ab.shape))), axes_tree,
+        abstract_tree)
+
+
+def batch_sharding(mesh: Mesh, ndim: int = 2) -> Sharding:
+    return Sharding(mesh, (_entry(data_axes(mesh)),) + (None,) * (ndim - 1))
+
+
+def batch_shardings_for(mesh: Mesh, tree):
+    """The batch sharding of every leaf (a tensor) of a tree."""
+    leaves, treedef = T.flatten(tree)
+    return T.unflatten(treedef, [batch_sharding(mesh, t.ndim)
+                                 for t in leaves])
+
+
+def replicated(mesh: Mesh) -> Sharding:
+    return Sharding(mesh, ())
+
+
+def cache_shardings(mesh: Mesh, cache_tree):
+    """KV caches and recurrent states: dim 1 (the batch of a layer-stacked
+    leaf) over the data axes for leaves of 2 or more dims, else
+    replicated (the reference's rule)."""
+    dp = _entry(data_axes(mesh))
+
+    def spec_for(leaf):
+        if leaf.ndim >= 2:
+            return Sharding(mesh, (None, dp) + (None,) * (leaf.ndim - 2))
+        return Sharding(mesh, ())
+
+    leaves, treedef = T.flatten(cache_tree)
+    return T.unflatten(treedef, [spec_for(t) for t in leaves])
+
+
+# ---------------------------------------------------------- local views --
+
+def _block(entry, sizes: dict, coords: dict) -> tuple[int, int]:
+    """(index, count) of a rank's block along a dim sharded over `entry`:
+    the axes in order, the first the most significant."""
+    if entry is None:
+        return 0, 1
+    names = (entry,) if isinstance(entry, str) else tuple(entry)
+    index = 0
+    for n in names:
+        index = index * sizes[n] + coords[n]
+    return index, _axis_size(entry, sizes)
+
+
+def local_view(t: torch.Tensor, sharding: Sharding, coords: dict):
+    """The block of `t` that the rank at `coords` ({axis name: index})
+    holds under `sharding`: a view of t (narrow per sharded dim)."""
+    sizes = sharding.mesh.sizes
+    for dim, entry in enumerate(sharding.spec):
+        index, count = _block(entry, sizes, coords)
+        if count == 1:
+            continue
+        if t.shape[dim] % count:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"over {entry} ({count})")
+        n = t.shape[dim] // count
+        t = t.narrow(dim, index * n, n)
+    return t
+
+
+def local_views(tree, shardings, coords: dict):
+    """`local_view` over a tree of tensors and a tree of `Sharding`s of the
+    same structure."""
+    leaves, treedef = T.flatten(tree)
+    shards, _ = T.flatten(shardings)
+    if len(shards) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves and {len(shards)} shardings")
+    return T.unflatten(treedef, [local_view(t, s, coords)
+                                 for t, s in zip(leaves, shards)])
+
+
+def mesh_coords(mesh: Mesh) -> list:
+    """Every rank's coordinates, in row-major order over the mesh."""
+    return [dict(zip(mesh.axis_names, c))
+            for c in itertools.product(*(range(n) for n in mesh.shape))]
+
+
+# ---------------------------------------------------------- rank meshes --
+
+def run_mesh_threads(shape, axis_names, fn) -> list:
+    """fn(mesh of rank r) for every rank of a mesh of `shape`, each rank a
+    thread of this process (row-major rank order): each mesh axis of a
+    rank is a `ThreadGroup` axis over the ranks that share its other
+    coordinates.  Returns the results in rank order."""
+    desc = Mesh(shape, axis_names)
+    coords = mesh_coords(desc)
+    groups = {}
+    for c in coords:
+        for name in desc.axis_names:
+            key = (name,) + tuple(c[n] for n in desc.axis_names if n != name)
+            groups.setdefault(key, ThreadGroup(desc.sizes[name]))
+
+    def rank_mesh(r):
+        c = coords[r]
+        axes = {name: groups[(name,) + tuple(
+            c[n] for n in desc.axis_names if n != name)].axis(c[name])
+            for name in desc.axis_names}
+        return Mesh(shape, axis_names, axes=axes)
+
+    return run_threads(desc.size, lambda ax: fn(rank_mesh(ax.rank)))
+
+
+def dist_mesh(shape, axis_names) -> Mesh:
+    """This process's mesh over the default `torch.distributed` group (its
+    size the mesh's, ranks in row-major order): one subgroup per line of
+    each axis.  Every process calls it with the same arguments."""
+    import torch.distributed as dist
+    desc = Mesh(shape, axis_names)
+    if dist.get_world_size() != desc.size:
+        raise ValueError(f"a mesh of {desc.size} ranks over a world of "
+                         f"{dist.get_world_size()}")
+    coords = mesh_coords(desc)
+    axes = {}
+    for name in desc.axis_names:
+        lines = {}
+        for r, c in enumerate(coords):
+            key = tuple(c[n] for n in desc.axis_names if n != name)
+            lines.setdefault(key, []).append(r)
+        for key, ranks in sorted(lines.items()):
+            group = dist.new_group(ranks)     # every process, every group
+            if dist.get_rank() in ranks:
+                axes[name] = DistAxis(group)
+    return Mesh(shape, axis_names, axes=axes)

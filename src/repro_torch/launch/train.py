@@ -38,6 +38,7 @@ from ..core.pipeline import resolve_device
 from ..data.pipeline import DataConfig, TokenPipeline
 from ..models import build
 from ..optim import optimizer as opt
+from .mesh import run_mesh_threads
 
 
 def _device_of(params) -> torch.device:
@@ -54,16 +55,46 @@ def value_and_grad(bundle, params, batch: dict, mesh=None,
     """(loss, (ce, aux)) of `bundle.loss` and its gradient tree, like
     params.  The gradient is `torch.autograd.grad` with respect to
     detached aliases of the params, so no `.grad` field is written: pods
-    that share a card (threads) each take their own graph."""
+    that share a card (threads) each take their own graph.
+
+    With a mesh description (`launch.mesh.Mesh` with no rank axes, its
+    axes other than "model" of size 1) the forward runs on every rank of
+    the mesh as threads on the params' device, the MoE layers expert
+    parallel, each rank on the whole batch; the loss is rank 0's (every
+    rank's is the same: the tokens are replicated over "model"), and one
+    backward over the graph the ranks share (their collectives join it)
+    gives the gradient, each expert's from the rank that holds it.  The
+    layers are not rematerialized there: a recomputed layer would call a
+    collective inside the backward."""
     flat, tdef = T.flatten(params)
     xs = [p.detach().requires_grad_(True) for p in flat]
+    tree = T.unflatten(tdef, xs)
     with torch.enable_grad():
-        loss, (ce, aux) = bundle.loss(T.unflatten(tdef, xs), batch, mesh,
-                                      moe_data_axes=moe_data_axes)
+        if mesh is not None and mesh.axes is None:
+            loss, (ce, aux) = _mesh_loss(bundle, tree, batch, mesh,
+                                         moe_data_axes)
+        else:
+            loss, (ce, aux) = bundle.loss(tree, batch, mesh,
+                                          moe_data_axes=moe_data_axes)
         gs = torch.autograd.grad(loss, xs, allow_unused=True,
                                  materialize_grads=True)
     return ((loss.detach(), (ce.detach(), torch.as_tensor(aux).detach())),
             T.unflatten(tdef, list(gs)))
+
+
+def _mesh_loss(bundle, params, batch: dict, mesh, moe_data_axes):
+    """Rank 0's loss of a forward on every rank of `mesh` (threads)."""
+    if any(n > 1 for a, n in mesh.sizes.items() if a != "model"):
+        raise ValueError(f"{mesh!r}: the batch is replicated over the "
+                         "mesh, so its axes besides 'model' must have size "
+                         "1")
+
+    def rank(m):
+        with torch.enable_grad():
+            return bundle.loss(params, batch, m, remat=False,
+                               moe_data_axes=moe_data_axes)
+
+    return run_mesh_threads(mesh.shape, mesh.axis_names, rank)[0]
 
 
 def make_train_step(bundle, mesh, opt_cfg: opt.AdamWConfig, *,

@@ -129,9 +129,8 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
             frames: torch.Tensor, mesh=None, remat: bool = True):
     """The teacher-forced decoder over stubbed audio frames: tokens int
     [B, S], frames [B, enc_context, D] -> (logits bfloat16 [B, S,
-    V_padded], aux 0.0 float32)."""
-    if mesh is not None:
-        raise ValueError("the port runs on one card: mesh must be None")
+    V_padded], aux 0.0 float32).  With a mesh (the calling rank's) every
+    layer runs replicated on the rank: the family has no experts."""
     enc_out = encode(cfg, params, frames)
     s = tokens.shape[1]
     x = (params["emb"][tokens] + params["dec_pos"][:s][None]).to(DTYPE)
@@ -174,9 +173,7 @@ def serve_step(cfg: ArchConfig, params: dict, cache, tokens, pos: int,
     """One decoder token at the host int `pos`; tokens int [B, 1].  The
     self-attention K/V are written into the cache in place; the
     cross-attention K/V are read from it.  Returns (logits float32 [B,
-    V_padded], cache)."""
-    if mesh is not None:
-        raise ValueError("the port serves on one card: mesh must be None")
+    V_padded], cache); a mesh changes nothing (see `forward`)."""
     self_kv, cross = cache
     pos = int(pos)
     if self_kv.k.shape[2] <= pos:

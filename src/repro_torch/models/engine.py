@@ -13,14 +13,23 @@ the slot back to a `PackedCache` wire and free it).  Closed pages cross
 any boundary only as `PackedKV` wires; `stats()["wire_bytes"]` accounts
 every transfer through `Transport.bytes_moved`.
 
-Every slot is a batch-1 `QuantCache` with its position kept on the host,
-and `generate_step` runs the live slots' batch-1 `serve_step`s in turn, so
-each slot's logits are bit-identical to the single-request path at the
-same position (the reference vmaps the batch-1 step over a slot axis).  One aligned
-step over 4 slots is not bit-identical to their 4 batch-1 steps on the
-card, so the batched step waits (ROADMAP A14).  A batch-1 step also keeps
-a MoE layer from dropping: one token has K distinct experts and one slot
-in each.
+The slots are the rows of one `QuantCache` of n_slots rows, their
+positions kept on the host, and `generate_step` is one step over all of
+them (`serve.serve_step_rows`, the counterpart of the reference's vmap of
+the batch-1 step over the slot axis): RoPE, the hot-page write, the page
+close and B12's lengths follow each slot's own position, every slot is
+its own MoE routing group (one token has K distinct experts and one slot
+in each, so nothing drops), and a free slot's cache, position and token
+stay as they are.
+
+Each slot's logits are bit-identical to the single-request path
+(`step_one`, batch 1) at the same position.  Two things could tie a
+row's bits to the batch, and the engine fixes both: B12's split, which
+its default takes from the batch (the engine passes one
+`pages_per_split` on both paths), and a library kernel picked by the row
+count (on an H100 a batched float32 product over the hot page gave a row
+other bits at 1 row than at 4, so the hot-page attention sums by
+elementwise adds in one fixed order: `serve._fold_sum`).
 
 Streaming migration (`stream_prefill`): the prefill rank packs each KV
 page the moment it closes and hands it to `Transport.send_pages` as a
@@ -36,12 +45,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import tree as T
 from ..compression import kv as KVC
 from ..configs.base import ArchConfig
 from ..core import audit as A
 from ..core.config import QuantizerConfig
 from ..core.pipeline import resolve_device
 from ..core.transport import TRANSPORT, Transport
+from ..kernels import kv_attention as KA
 from . import serve as S
 
 
@@ -123,13 +134,14 @@ class DecodeEngine:
         if integrity is not None:
             A.get_policy(integrity)          # fail fast on unknown names
         self.transport = TRANSPORT if transport is None else transport
-        self._cache = [self._new_cache() for _ in range(self.n_slots)]
+        self._cache = S.make_quant_cache(cfg, self.n_slots, self.seq,
+                                         device=self.device)
         self._pos = [0] * self.n_slots       # host-side positions
-        self._tok = [torch.zeros((1, 1), dtype=torch.int32,
-                                 device=self.device)
-                     for _ in range(self.n_slots)]
-        self._logits = torch.zeros((self.n_slots, cfg.padded_vocab),
-                                   device=self.device)
+        self._tok = torch.zeros((self.n_slots, 1), dtype=torch.int32,
+                                device=self.device)
+        # one split for the batched step and the batch-1 path alike
+        self._pps = KA.default_pages_per_split(self.n_slots, cfg.n_kv_heads,
+                                               self.seq // S.PAGE)
         self.requests: list = [None] * self.n_slots   # host slot table
         self._stats = dict(prefill_tokens=0, generated_tokens=0, steps=0,
                            wire_bytes=0.0, sends=0, inserts=0, evictions=0,
@@ -144,9 +156,18 @@ class DecodeEngine:
         return S.make_quant_cache(self.cfg, 1, self.seq, device=self.device)
 
     def step_one(self, cache: S.QuantCache, token, pos: int):
-        """The single-request serve path, the bit-identity reference."""
-        return S.serve_step(self.cfg, self.params, cache, token, pos, None,
-                            self.kv_cfg)
+        """The single-request serve path, the bit-identity reference: one
+        request (a batch-1 cache, token [1, 1]) with the batched step's
+        B12 split."""
+        return S.serve_step_rows(self.cfg, self.params, cache, token, [pos],
+                                 self.kv_cfg, pages_per_split=self._pps)
+
+    def _slot_cache(self, slot: int) -> S.QuantCache:
+        """Slot `slot` as a batch-1 cache (views of its row)."""
+        row = lambda t: t[:, slot:slot + 1]
+        return S.QuantCache(KVC.QuantizedKV(*map(row, self._cache.k)),
+                            KVC.QuantizedKV(*map(row, self._cache.v)),
+                            row(self._cache.hot_k), row(self._cache.hot_v))
 
     # --- slot lifecycle ---------------------------------------------------
 
@@ -158,7 +179,7 @@ class DecodeEngine:
         return None
 
     def prefill(self, prompt) -> PrefillResult:
-        """Run one request's prompt through the batch-1 `serve_step` chain
+        """Run one request's prompt through the batch-1 `step_one` chain
         and emit the slot-insert wire: closed pages leave as `PackedKV`
         (per-page chain `self.stages`), the open hot page rides raw."""
         if not torch.is_tensor(prompt):
@@ -224,10 +245,11 @@ class DecodeEngine:
         then advances in place)."""
         if self.requests[slot] is not None:
             raise ValueError(f"slot {slot} is live")
-        self._cache[slot] = _clone_cache(cache1)
+        for d, t in zip(T.leaves(self._slot_cache(slot)), T.leaves(cache1)):
+            d.copy_(t)
         self._pos[slot] = int(pos)
         self._tok[slot] = torch.as_tensor(next_token).to(
-            device=self.device, dtype=torch.int32).reshape(1, 1).clone()
+            device=self.device, dtype=torch.int32).reshape(1)
         self.requests[slot] = request
         self._stats["inserts"] += 1
 
@@ -242,28 +264,30 @@ class DecodeEngine:
             if on and self._pos[slot] >= self.seq:
                 raise RuntimeError(f"slot {slot} ran past seq={self.seq}; "
                                    f"release it first")
-        for slot, on in enumerate(live):
-            if not on:
-                continue
-            logits, _ = self.step_one(self._cache[slot], self._tok[slot],
-                                      self._pos[slot])
-            self._logits[slot] = logits[0]
-            self._tok[slot] = torch.argmax(logits, -1).to(
-                torch.int32).reshape(1, 1)
+        logits, _ = S.serve_step_rows(self.cfg, self.params, self._cache,
+                                      self._tok, self._pos, self.kv_cfg,
+                                      live=live, pages_per_split=self._pps)
+        rows = [s_ for s_, on in enumerate(live) if on]
+        idx = torch.tensor(rows, device=self.device) if len(rows) < len(
+            live) else slice(None)
+        self._tok[idx] = torch.argmax(logits[idx], -1, keepdim=True).to(
+            torch.int32)
+        for slot in rows:
             self._pos[slot] += 1
         self._stats["steps"] += 1
-        self._stats["generated_tokens"] += sum(live)
-        return self._logits.clone(), torch.cat(self._tok).reshape(-1)
+        self._stats["generated_tokens"] += len(rows)
+        return logits, self._tok[:, 0].clone()
 
     def evict(self, slot: int) -> PrefillResult:
         """Pack `slot` back to the `PackedCache` wire and free it; the
         result re-`insert`s into any engine bit-exactly."""
         if self.requests[slot] is None:
             raise ValueError(f"slot {slot} is free")
-        wire = S.pack_cache(self._cache[slot], stages=self.stages,
+        wire = S.pack_cache(_clone_cache(self._slot_cache(slot)),
+                            stages=self.stages,
                             integrity=self.integrity is not None)
-        out = PrefillResult(wire, self._tok[slot].clone(), None,
-                            self._pos[slot])
+        out = PrefillResult(wire, self._tok[slot].reshape(1, 1).clone(),
+                            None, self._pos[slot])
         self._account(wire)
         self._stats["evictions"] += 1
         self.release(slot)
@@ -280,6 +304,12 @@ class DecodeEngine:
         self._stats["wire_bytes"] += moved
         self._stats["sends"] += 1
         return moved
+
+    def raw_slot_bytes(self) -> int:
+        """bfloat16 K + V of one slot's history at full `seq`: the
+        denominator of the wire-bytes-against-raw ratio."""
+        g, hd = self.cfg.n_kv_heads, self.cfg.head_dim
+        return 2 * self.cfg.n_layers * self.seq * g * hd * 2
 
     def record_audit(self, report) -> None:
         """Fold an `AuditReport` (or a list of them) into the engine's

@@ -179,9 +179,32 @@ def chunked_scan(step, carry: tuple, xs: torch.Tensor, chunk: int = 64,
     return carry, torch.cat(ys)
 
 
+class _Silu(torch.autograd.Function):
+    """`jax.nn.silu` as XLA runs it, every op rounded to x's dtype: s = 1 /
+    (1 + exp(-x)), y = x s; the gradient g s + (g x)(s (1 - s)), the
+    transpose of `lax.logistic`'s JVP rule."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """The reference's silu bit for bit (in bfloat16 `F.silu` rounds once
+    and differs in the last bit on about a third of the values)."""
+    return _Silu.apply(x)
+
+
 def ffn(x, w1, w3, w2, act: str = "swiglu"):
     if act == "swiglu":
-        h = F.silu(x @ w1) * (x @ w3)
+        h = silu(x @ w1) * (x @ w3)
     else:                                        # gelu (whisper)
         h = F.gelu(x @ w1, approximate="tanh")
     return h @ w2

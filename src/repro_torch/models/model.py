@@ -1,18 +1,24 @@
 """Family dispatcher: ArchConfig -> parameter specs, weights, the training
-loss, caches, the forward pass's prefill and the decode step (counterpart
-of `repro.models.model`, for the dense, vlm, MoE, encdec and ssm
-families).  The hybrid raises, naming its ROADMAP item; `input_specs`
-waits for the dry-run slice (ROADMAP A16)."""
+loss, caches, the forward pass's prefill, the decode step and the input
+specs (counterpart of `repro.models.model`, for the dense, vlm, MoE,
+encdec and ssm families; the hybrid has its specs, and its forward,
+caches and decode step raise, naming ROADMAP A13).
+
+`mesh` is a `launch.mesh.Mesh` of the calling rank: the MoE layers then
+run expert parallel over its "model" axis (`models.moe`), with `params`
+the rank's local view (`launch.mesh.local_views`); every other layer runs
+replicated on each rank."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeConfig
 from ..core.pipeline import not_ported
 from . import encdec, serve, transformer, xlstm_stack
-from .params import count_params, materialize, tree_map
+from .params import abstract, axes_tree, count_params, materialize
+from .transformer import DTYPE
 
 
 class ModelBundle(NamedTuple):
@@ -28,8 +34,11 @@ class ModelBundle(NamedTuple):
         """The weights' shapes and dtypes as tensors on the "meta" device:
         a template that allocates nothing (the reference's
         ShapeDtypeStructs)."""
-        return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
-                                              device="meta"), self.specs)
+        return abstract(self.specs)
+
+    def axes(self) -> dict:
+        """Every weight's logical axes (`launch.mesh.param_shardings`)."""
+        return axes_tree(self.specs)
 
     def n_params(self) -> int:
         return count_params(self.specs)
@@ -85,6 +94,28 @@ class ModelBundle(NamedTuple):
                                      kv_cfg)
         return serve.serve_step(cfg, params, cache, tokens, pos, mesh,
                                 kv_cfg)
+
+    def input_specs(self, shape: ShapeConfig, quantized_kv: bool = False):
+        """Every model input of this (arch, shape) cell as tensors on the
+        "meta" device (no allocation): train {"tokens", "labels"},
+        prefill {"tokens"} (encdec: and "frames" [B, enc_context, D]),
+        decode {"tokens" [B, 1], "pos" [], "cache"} against a seq_len
+        cache."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
+        tok = meta((b, s), torch.int32)
+        if shape.kind in ("train", "prefill"):
+            d = {"tokens": tok}
+            if shape.kind == "train":
+                d["labels"] = meta((b, s), torch.int32)
+            if cfg.family == "encdec":
+                d["frames"] = meta((b, cfg.enc_context, cfg.d_model), DTYPE)
+            return d
+        return {"tokens": meta((b, 1), torch.int32),
+                "pos": meta((), torch.int32),
+                "cache": self.make_cache(b, s, quantized=quantized_kv,
+                                         device="meta")}
 
     def prefill(self, params, batch: dict, mesh=None) -> torch.Tensor:
         """The forward pass without a loss (the prefill_32k program):

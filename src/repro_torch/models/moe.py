@@ -9,25 +9,48 @@ land in one extra row that nothing reads).  The expert products are
 batched matmuls over all E experts, and each token gathers its k outputs
 (a dropped pair gathers zeros) and sums them weighted by its gates.
 
-Two choices keep the port on the reference's values:
+These choices keep the port on the reference's values as XLA compiles
+it (a bfloat16 product that the reference casts to float32 is kept in
+float32 there: XLA drops the rounding between the two):
 
   * experts are picked by a stable descending sort of the router
     probabilities, so of tied probabilities the lower expert index wins,
-    as in `jax.lax.top_k` (`torch.topk` on the CPU orders ties otherwise;
-    the router logits are a bfloat16 product, so ties are common);
-  * the k weighted outputs are summed by `torch.sum` over the bfloat16
-    tensor, which accumulates in float32 and rounds once, as XLA does.
+    as in `jax.lax.top_k` (`torch.topk` on the CPU orders ties otherwise);
+  * the router logits and each pair's output times its gate stay
+    float32, and the k products are summed in float32 and rounded once;
+  * the experts' silu is `layers.silu`, rounded op by op as XLA does.
 
-On one card there is no expert parallelism: `moe_ffn` with a mesh, and
-the decode path that runs local experts over a `model` axis
-(`moe_ffn_decode_local`), raise (ROADMAP A16).
+Expert parallelism (`moe_ffn` with a `launch.mesh.Mesh` of the calling
+rank): the experts split over the mesh's "model" axis, each rank taking
+its block of E / ep experts as a view of the global stacked weights; the
+tokens are the rank's own (replicated over "model").  Two paths, as the
+reference's:
+
+  * prefill / training (`moe_ffn_local` with `model_axis`): the capacity
+    from the global expert count, routing and the scatter into [E, C, D]
+    as above, a tiled all-to-all to [E / ep, ep C, D] (every rank's
+    tokens for this rank's experts), the three products over the local
+    experts, the all-to-all back, and the load-balance loss's pmean over
+    every mesh axis;
+  * decode (`moe_ffn_decode_local`, a call over one token a row): the
+    local experts over all tokens, each output weighted by its token's
+    gate where the token chose that expert, summed over the local
+    experts, and a float32 psum over "model" cast back (no capacity, so
+    no pair drops).
+
+The collectives are `core.axis`'s: `all_to_all`, `psum` and `pmean`,
+differentiable (a training forward goes through them).
+
+`moe_ffn_rows` is the vmapped form the engine's batched decode step
+takes: every row (one token) its own routing group, as the reference's
+`jax.vmap` of the batch-1 step gives.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..core.pipeline import not_ported
+from .layers import silu
 
 
 def _route(x_flat: torch.Tensor, router_w: torch.Tensor, top_k: int):
@@ -35,7 +58,7 @@ def _route(x_flat: torch.Tensor, router_w: torch.Tensor, top_k: int):
     aux float32 []): the router logits are x_flat @ router_w in x_flat's
     dtype, the gates the top-k softmax probabilities renormalized over k,
     aux the Shazeer load-balance loss E sum_e mean_prob_e token_frac_e / K."""
-    logits = (x_flat @ router_w.to(x_flat.dtype)).to(torch.float32)
+    logits = x_flat.float() @ router_w.to(x_flat.dtype).float()
     return _route_logits(logits, top_k)
 
 
@@ -81,15 +104,40 @@ def dispatch_slots(gate_idx: torch.Tensor, n_experts: int, cap: int):
     return pos, keep, slot
 
 
+def _experts(buf, w1, w3, w2, act: str, dtype):
+    """The expert products over buffers [E, C, D] -> [E, C, D]."""
+    h = torch.bmm(buf, w1.to(dtype))
+    if act == "swiglu":
+        h = silu(h) * torch.bmm(buf, w3.to(dtype))
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return torch.bmm(h, w2.to(dtype))
+
+
+def _combine(out_buf, slot, gate_vals, n: int, top_k: int, dtype):
+    """Each pair's output from out_buf [R, D] (row R, zeros, for a dropped
+    pair), weighted by its gate and summed over k -> [n, D]."""
+    d = out_buf.shape[-1]
+    out_buf = torch.cat([out_buf, out_buf.new_zeros((1, d))])
+    y = out_buf[slot].reshape(n, top_k, d).float()
+    return (y * gate_vals[..., None].to(dtype).float()).sum(dim=1).to(dtype)
+
+
 def moe_ffn_local(x, router_w, w1, w3, w2, *, top_k: int,
-                  capacity_factor: float = 1.0, act: str = "swiglu"):
-    """x [..., D]; router_w [D, E]; w1/w3 [E, D, F], w2 [E, F, D].
-    Returns (out [..., D] in x's dtype, aux float32 [])."""
+                  capacity_factor: float = 1.0, act: str = "swiglu",
+                  model_axis=None, all_axes=None):
+    """x [..., D] (the rank's tokens); router_w [D, E]; w1/w3 [El, D, F],
+    w2 [El, F, D], the rank's El = E / ep experts (all E without
+    `model_axis`, a `core.axis` axis of ep ranks).  `all_axes`: the axes
+    whose ranks' load-balance losses are averaged.  Returns (out [..., D]
+    in x's dtype, aux float32 [])."""
     orig_shape = x.shape
     d = x.shape[-1]
     x_flat = x.reshape(-1, d)
     n = x_flat.shape[0]
-    e = w1.shape[0]
+    el = w1.shape[0]
+    ep = 1 if model_axis is None else model_axis.size
+    e = el * ep
     cap = capacity(n, e, top_k, capacity_factor)
     gate_vals, gate_idx, aux = _route(x_flat, router_w, top_k)
     _, _, slot = dispatch_slots(gate_idx, e, cap)
@@ -100,33 +148,95 @@ def moe_ffn_local(x, router_w, w1, w3, w2, *, top_k: int,
     buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
     buf[slot] = xk
     buf = buf[:e * cap].reshape(e, cap, d)
-    h = torch.bmm(buf, w1.to(x.dtype))
-    if act == "swiglu":
-        h = F.silu(h) * torch.bmm(buf, w3.to(x.dtype))
-    else:
-        h = F.gelu(h, approximate="tanh")
-    out_buf = torch.bmm(h, w2.to(x.dtype)).reshape(e * cap, d)
-
-    # gather each pair's output (zeros for a dropped one) and combine
-    out_buf = torch.cat([out_buf, out_buf.new_zeros((1, d))])
-    y = out_buf[slot].reshape(n, top_k, d)
-    y = (y * gate_vals[..., None].to(x.dtype)).sum(dim=1)
+    if model_axis is not None:         # -> [El, ep cap, D]: every rank's
+        buf = model_axis.all_to_all(buf, 0, 1)    # tokens for my experts
+    out_buf = _experts(buf, w1, w3, w2, act, x.dtype)
+    if model_axis is not None:         # back to [E, cap, D], my tokens
+        out_buf = model_axis.all_to_all(out_buf, 1, 0)
+    y = _combine(out_buf.reshape(e * cap, d), slot, gate_vals, n, top_k,
+                 x.dtype)
+    for ax in all_axes or ():
+        aux = ax.pmean(aux)
     return y.reshape(orig_shape), aux
 
 
-def moe_ffn_decode_local(*args, **kwargs):
-    """Expert parallelism over a `model` mesh axis: not on one card."""
-    raise not_ported("moe_ffn_decode_local (experts over a model axis)",
-                     "ROADMAP A16")
+def moe_ffn_decode_local(x, router_w, w1, w3, w2, *, top_k: int, act: str,
+                         model_axis):
+    """A decode step's few tokens: the rank's El local experts (w1/w3
+    [El, D, F], w2 [El, F, D]) over all tokens x [..., D], each output
+    weighted by the token's gate where it chose that expert, summed over
+    the local experts, then a float32 psum over `model_axis` cast back to
+    x's dtype (the reference's float32 psum).  Returns (out, aux)."""
+    orig_shape = x.shape
+    d = x.shape[-1]
+    x_flat = x.reshape(-1, d)
+    el = w1.shape[0]
+    gate_vals, gate_idx, aux = _route(x_flat, router_w, top_k)
+    e0 = model_axis.axis_index() * el
+    xe = x_flat[None].expand(el, *x_flat.shape)                # [El, N, D]
+    y_e = _experts(xe, w1, w3, w2, act, x.dtype)              # [El, N, D]
+    eids = e0 + torch.arange(el, device=x.device)
+    w_ne = torch.sum(gate_vals[None] * (gate_idx[None] == eids[:, None, None]),
+                     dim=-1).to(x.dtype)                       # [El, N]
+    y = torch.einsum("end,en->nd", y_e, w_ne)
+    y = model_axis.psum(y.to(torch.float32)).to(x.dtype)
+    return y.reshape(orig_shape), model_axis.pmean(aux)
+
+
+def moe_ffn_rows(x, router_w, w1, w3, w2, *, top_k: int,
+                 act: str = "swiglu"):
+    """`moe_ffn_local` of each row of x [R, 1, D] alone (the reference's
+    vmap over a batch-1 decode call): a row's one token has K distinct
+    experts and takes the one slot (capacity 1) of each, so nothing
+    drops; one scatter into [E, R, D], one set of products and one gather
+    for all rows.  Returns out [R, 1, D] (the rows' load-balance losses
+    are not returned: the decode step discards them)."""
+    r, t, d = x.shape
+    if t != 1:
+        raise ValueError(f"one token a row, got {t}")
+    e = w1.shape[0]
+    gate_vals, gate_idx, _ = _route(x.reshape(r, d), router_w, top_k)
+    slot = (gate_idx * r + torch.arange(r, device=x.device)[:, None]
+            ).reshape(-1)                                    # [R K]
+    buf = x.new_zeros((e * r, d))
+    buf[slot] = x.expand(r, top_k, d).reshape(-1, d)
+    out_buf = _experts(buf.reshape(e, r, d), w1, w3, w2, act, x.dtype)
+    y = _combine(out_buf.reshape(e * r, d), slot, gate_vals, r, top_k,
+                 x.dtype)
+    return y.reshape(r, 1, d)
+
+
+def _expert_block(w: torch.Tensor, axis) -> torch.Tensor:
+    """The rank's block of a global stacked expert weight [E, ...]: a view
+    (the param sharding's "experts" -> "model")."""
+    e = w.shape[0]
+    if e % axis.size:
+        raise ValueError(f"{e} experts do not split over a model axis of "
+                         f"{axis.size}")
+    el = e // axis.size
+    return w.narrow(0, axis.rank * el, el)
 
 
 def moe_ffn(x, router_w, w1, w3, w2, *, top_k: int, mesh=None,
             capacity_factor: float = 1.0, act: str = "swiglu",
             data_axes=("data",), model_axis: str = "model"):
-    """The global entry point: `moe_ffn_local` on one card (mesh None);
-    a mesh (expert parallelism with all-to-alls) raises."""
-    if mesh is not None:
-        raise not_ported("moe_ffn over a mesh (expert parallelism)",
-                         "ROADMAP A16")
+    """The global entry point (the reference's): the global weights (w1/w3
+    [E, D, F], w2 [E, F, D]) and the calling rank's tokens.  Without a
+    mesh, `moe_ffn_local` over every expert; with one (a
+    `launch.mesh.Mesh` of the calling rank) expert parallel over its
+    `model_axis`, each rank on its block of the experts: a call over one
+    token a row (x.shape[-2] == 1) takes the decode path, any other the
+    all-to-all path with aux averaged over `data_axes` and the model
+    axis."""
+    if mesh is None:
+        return moe_ffn_local(x, router_w, w1, w3, w2, top_k=top_k,
+                             capacity_factor=capacity_factor, act=act)
+    axis = mesh.axis(model_axis)
+    w1, w3, w2 = (_expert_block(w, axis) for w in (w1, w3, w2))
+    if x.dim() >= 2 and x.shape[-2] == 1:                 # decode step
+        return moe_ffn_decode_local(x, router_w, w1, w3, w2, top_k=top_k,
+                                    act=act, model_axis=axis)
+    all_axes = [mesh.axis(a) for a in data_axes] + [axis]
     return moe_ffn_local(x, router_w, w1, w3, w2, top_k=top_k,
-                         capacity_factor=capacity_factor, act=act)
+                         capacity_factor=capacity_factor, act=act,
+                         model_axis=axis, all_axes=all_axes)

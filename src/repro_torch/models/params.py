@@ -2,8 +2,9 @@
 dtypes and initialization (counterpart of `repro.models.params`).
 
 Each leaf is a `ParamSpec(shape, dtype, axes, init_scale)`; `axes` keeps
-the reference's logical axis names (the port runs on one card, where they
-name no mesh).  `materialize` draws the port's own weights on the card
+the reference's logical axis names, which `launch.mesh` maps to mesh axes
+(`axes_tree`; `abstract` gives the shapes and dtypes on the meta device,
+allocating nothing).  `materialize` draws the port's own weights on the card
 (or on the CPU when the caller asks) from a `torch.Generator` on that
 device; `params_from_numpy` carries the JAX
 package's weights across instead, so both packages can run one model, and
@@ -34,6 +35,18 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def abstract(tree):
+    """The spec tree as tensors on the "meta" device: shapes and dtypes,
+    no storage (the reference's ShapeDtypeStructs)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), tree)
+
+
+def axes_tree(tree):
+    """The logical axes tuple of every leaf."""
+    return tree_map(lambda s: s.axes, tree)
 
 
 def tree_leaves(tree) -> list:

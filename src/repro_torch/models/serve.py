@@ -47,6 +47,7 @@ from ..core.pipeline import not_ported, resolve_device
 from ..core.transport import TRANSPORT, Transport
 from ..kernels import kv_attention as KA
 from . import layers as L
+from .moe import moe_ffn_rows
 from .transformer import DTYPE, _ffn_block
 
 PAGE = KVC.PAGE
@@ -155,15 +156,17 @@ def _check_family(cfg: ArchConfig) -> None:
                          "ROADMAP A13 (mamba/hybrid serve)")
 
 
-def _project_token(cfg: ArchConfig, p: dict, x: torch.Tensor, pos: int):
-    """x: [B, 1, D] -> q [B, 1, H, hd], k/v [B, 1, G, hd], rope at pos."""
+def _project_token(cfg: ArchConfig, p: dict, x: torch.Tensor, pos):
+    """x: [B, 1, D] -> q [B, 1, H, hd], k/v [B, 1, G, hd], rope at pos (a
+    host int, or int32 positions [B, 1], one a row)."""
     b = x.shape[0]
     h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     hx = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     q = (hx @ p["wq"]).reshape(b, 1, h, hd)
     kv = (hx @ p["wkv"]).reshape(b, 1, 2, g, hd)
     k, v = kv[:, :, 0], kv[:, :, 1]
-    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    positions = pos if torch.is_tensor(pos) else torch.full(
+        (1, 1), pos, dtype=torch.int32, device=x.device)
     cos, sin = L.rope_tables(positions,
                              hd if cfg.rope == "full" else hd // 2)
     return (L.apply_rope(q, cos, sin, cfg.rope),
@@ -196,36 +199,57 @@ def _quantize_page(qkv: KVC.QuantizedKV, hot: torch.Tensor, page_idx: int,
     return qkv
 
 
+def _fold_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over `dim` in one fixed order, by elementwise adds (zeros up
+    to a power of two, then halves added pairwise), so that a row's bits
+    follow neither the other rows nor a library kernel's choice by the
+    shapes (a batched product's does on the card)."""
+    n = x.shape[dim]
+    if n & (n - 1):
+        pad = list(x.shape)
+        pad[dim] = (1 << n.bit_length()) - n
+        x = torch.cat([x, x.new_zeros(pad)], dim)
+    while x.shape[dim] > 1:
+        half = x.shape[dim] // 2
+        x = x.narrow(dim, 0, half) + x.narrow(dim, half, half)
+    return x.squeeze(dim)
+
+
 def _partial_attn(q, kc, vc, lengths):
     """Un-normalized attention piece for a two-part merge.  q [B, 1, H, hd];
-    kc/vc [B, T, G, hd]; returns (acc / l [B, H, hd], l [B, H], m [B, H])."""
+    kc/vc [B, T, G, hd]; returns (acc / l [B, H, hd], l [B, H], m [B, H]).
+    Every sum is a `_fold_sum`, so each row is computed as it would be
+    alone."""
     b, _, h, hd = q.shape
     t, g = kc.shape[1], kc.shape[2]
-    qg = q.reshape(b, g, h // g, hd)
-    scores = torch.einsum("bgqd,bsgd->bgqs", qg.to(torch.float32),
-                          kc.to(torch.float32)) / (hd ** 0.5)
+    qg = q.reshape(b, g, h // g, 1, hd).to(torch.float32)
+    kg = kc.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]  # [B,G,1,T,hd]
+    vg = vc.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
+    scores = _fold_sum(qg * kg, -1) / (hd ** 0.5)         # [B, G, gs, T]
     valid = torch.arange(t, device=q.device)[None, :] < lengths[:, None]
     scores = torch.where(valid[:, None, None, :], scores,
                          torch.full((), L.NEG_BIG, device=q.device))
     m = scores.amax(-1)                                   # [B, G, gs]
     p = torch.exp(scores - m[..., None])
-    l_ = p.sum(-1)
-    acc = torch.einsum("bgqs,bsgd->bgqd", p, vc.to(torch.float32))
+    l_ = _fold_sum(p, -1)
+    acc = _fold_sum(p[..., None] * vg, -2)                # [B, G, gs, hd]
     o = acc / torch.clamp(l_, min=1e-30)[..., None]
     return o.reshape(b, h, hd), l_.reshape(b, h), m.reshape(b, h)
 
 
-def _attn_history(cfg: ArchConfig, q, qk, qv, page_start: int):
+def _attn_history(cfg: ArchConfig, q, qk, qv, page_start,
+                  pages_per_split=None):
     """The closed pages' part, (o [B, H, hd], l [B, H], m [B, H]), through
-    B12 with lengths = page_start (the kernel on the card, its plain
-    version on the CPU)."""
+    B12 with lengths = page_start (a host int, or int32 [B], one a row;
+    the kernel on the card, its plain version on the CPU)."""
     b, _, h, hd = q.shape
     g = cfg.n_kv_heads
     qg = q.to(torch.float32).reshape(b, g, h // g, hd)
-    lengths = torch.full((b,), page_start, dtype=torch.int32,
-                         device=q.device)
+    lengths = page_start if torch.is_tensor(page_start) else torch.full(
+        (b,), page_start, dtype=torch.int32, device=q.device)
     o, m, l_ = KA.kv_decode_attention(qg, qk, qv, lengths, page=PAGE,
-                                      cap=CAP, return_stats=True)
+                                      cap=CAP, return_stats=True,
+                                      pages_per_split=pages_per_split)
     return o.reshape(b, h, hd), l_.reshape(b, h), m.reshape(b, h)
 
 
@@ -276,11 +300,10 @@ def serve_step(cfg: ArchConfig, params: dict, cache, tokens, pos: int,
                mesh=None, kv_cfg: QuantizerConfig | None = None):
     """One decode step.  tokens: int [B, 1]; pos: a host int (aligned
     batch).  Returns (logits float32 [B, V_padded], cache), the cache
-    updated in place.  `mesh` is accepted for the reference's signature
-    and must be None (one card)."""
+    updated in place.  `mesh`: the calling rank's (`launch.mesh`); the MoE
+    layers then take the expert-parallel decode path over its "model"
+    axis, every other layer runs replicated."""
     _check_family(cfg)
-    if mesh is not None:
-        raise ValueError("the port serves on one card: mesh must be None")
     pos = int(pos)
     x = params["emb"][tokens].to(DTYPE)
     lay = params["layers"]
@@ -295,7 +318,7 @@ def serve_step(cfg: ArchConfig, params: dict, cache, tokens, pos: int,
             x = _attn_decode_quant(cfg, lp, x, _qkv_layer(cache.k, i),
                                    _qkv_layer(cache.v, i), cache.hot_k[i],
                                    cache.hot_v[i], pos, kv_cfg)
-            x, _ = _ffn_block(cfg, lp, x)
+            x, _ = _ffn_block(cfg, lp, x, mesh)
     else:
         if cache.k.shape[2] <= pos:
             raise ValueError(f"pos {pos} is past the cache's "
@@ -303,7 +326,130 @@ def serve_step(cfg: ArchConfig, params: dict, cache, tokens, pos: int,
         for i in range(cfg.n_layers):
             lp = _layer(lay, i)
             x = _attn_decode_raw(cfg, lp, x, cache.k[i], cache.v[i], pos)
-            x, _ = _ffn_block(cfg, lp, x)
+            x, _ = _ffn_block(cfg, lp, x, mesh)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x @ params["emb"].T.to(DTYPE))[:, 0].to(torch.float32)
+    return logits, cache
+
+
+# ------------------------------------------------- one position a row --
+
+def _host_ints(vals: list, dev: torch.device) -> torch.Tensor:
+    """int32 [len(vals)] on dev without a device sync (pinned, async)."""
+    t = torch.tensor(vals, dtype=torch.int32)
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" \
+        else t
+
+
+class _Rows(NamedTuple):
+    """A row-wise step's per-row state, made once a step."""
+    positions: torch.Tensor       # int32 [B, 1]
+    hot_len: torch.Tensor         # int32 [B]
+    page_start: torch.Tensor      # int32 [B]
+    has_hist: torch.Tensor        # bool [B]
+    any_hist: bool
+    wr_rows: torch.Tensor         # int64 [W], the live rows
+    wr_slot: torch.Tensor         # int64 [W], their hot-page slot
+    closing: list                 # [(row, page index)] of pages that fill
+
+
+def _rows_state(pos: list, live: list, dev) -> _Rows:
+    b = len(pos)
+    eff = [p if on else 0 for p, on in zip(pos, live)]
+    in_page = [p % PAGE for p in eff]
+    start = [p - i for p, i in zip(eff, in_page)]
+    wr = [r for r in range(b) if live[r]]
+    ints = _host_ints(eff + [i + 1 for i in in_page] + start + wr
+                      + [in_page[r] for r in wr], dev)
+    start_t = ints[2 * b:3 * b]
+    return _Rows(ints[:b][:, None], ints[b:2 * b], start_t, start_t > 0,
+                 any(s_ > 0 for s_ in start),
+                 ints[3 * b:3 * b + len(wr)].long(),
+                 ints[3 * b + len(wr):].long(),
+                 [(r, eff[r] // PAGE) for r in wr if (eff[r] + 1) % PAGE == 0])
+
+
+def _attn_decode_rows(cfg: ArchConfig, p: dict, x, qk, qv, hot_k, hot_v,
+                      st: _Rows, kv_cfg: QuantizerConfig, pages_per_split):
+    """`_attn_decode_quant` with a position a row: the live rows' tokens go
+    into their hot pages, the closed pages (B12, lengths a row) and the
+    hot page are merged row by row, and a live row's page is quantized
+    when it fills."""
+    rows = x.shape[0]
+    q, k, v = _project_token(cfg, p, x, st.positions)
+    hot_k[st.wr_rows, st.wr_slot] = k[st.wr_rows, 0].to(hot_k.dtype)
+    hot_v[st.wr_rows, st.wr_slot] = v[st.wr_rows, 0].to(hot_v.dtype)
+    o_hot, l_hot, m_hot = _partial_attn(q, hot_k, hot_v, st.hot_len)
+    if st.any_hist:
+        o_h, l_h, m_h = _attn_history(cfg, q, qk, qv, st.page_start,
+                                      pages_per_split)
+        has = st.has_hist[:, None]
+        m = torch.where(has, torch.maximum(m_h, m_hot), m_hot)
+        w1 = torch.where(has, l_h * torch.exp(m_h - m),
+                         torch.zeros_like(l_hot))
+        o_hist = torch.where(has[..., None], o_h, torch.zeros_like(o_hot))
+    else:
+        o_hist = torch.zeros_like(o_hot)
+        m, w1 = m_hot, torch.zeros_like(l_hot)
+    w2 = l_hot * torch.exp(m_hot - m)
+    o = (o_hist * w1[..., None] + o_hot * w2[..., None]) / (
+        w1 + w2)[..., None]
+    o = o.reshape(rows, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
+    for r, page_idx in st.closing:                 # close each row's page
+        for qkv, hot in ((qk, hot_k), (qv, hot_v)):
+            _quantize_page(KVC.QuantizedKV(*(t[r:r + 1] for t in qkv)),
+                           hot[r:r + 1], page_idx, kv_cfg)
+            hot[r].zero_()
+    return x + o @ p["wo"]
+
+
+def _ffn_rows(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The FFN sublayer with every row its own MoE routing group."""
+    if "router" not in p:
+        return _ffn_block(cfg, p, x)[0]
+    hx = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + moe_ffn_rows(hx, p["router"], p["w1"], p["w3"], p["w2"],
+                            top_k=cfg.moe_top_k, act=cfg.act)
+
+
+def serve_step_rows(cfg: ArchConfig, params: dict, cache: QuantCache,
+                    tokens, pos: list, kv_cfg: QuantizerConfig, *,
+                    live=None, pages_per_split: int | None = None):
+    """One decode step over a quantized cache with a position a row (the
+    reference's vmap of the batch-1 step over a slot axis, which the
+    engine's batched step is).  tokens: int [B, 1]; pos: B host ints;
+    the cache (B rows) is updated in place.  Returns (logits float32 [B,
+    V_padded], cache).
+
+    Each row is computed as the batch-1 step computes it: RoPE at its
+    position, its token into its hot page at pos % page, B12 over its
+    closed pages (lengths a row; not launched while no row has any), its
+    own MoE routing group, and its page quantized when it fills.
+
+    live: B host bools (default all): a dead row is computed at position
+    0 and writes nothing; its logits are stale.  pages_per_split: B12's
+    split (fix it to keep a row's sums from depending on B)."""
+    _check_family(cfg)
+    b = tokens.shape[0]
+    pos = [int(p_) for p_ in pos]
+    live = [True] * b if live is None else [bool(on) for on in live]
+    if len(pos) != b or len(live) != b:
+        raise ValueError(f"{b} rows with {len(pos)} positions and "
+                         f"{len(live)} live flags")
+    s = cache.k.bins.shape[3]
+    for r in range(b):
+        if live[r] and not 0 <= pos[r] < s:
+            raise ValueError(f"row {r}: pos {pos[r]} is outside the cache's "
+                             f"{s} tokens")
+    st = _rows_state(pos, live, tokens.device)
+    x = params["emb"][tokens].to(DTYPE)
+    lay = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = _layer(lay, i)
+        x = _attn_decode_rows(cfg, lp, x, _qkv_layer(cache.k, i),
+                              _qkv_layer(cache.v, i), cache.hot_k[i],
+                              cache.hot_v[i], st, kv_cfg, pages_per_split)
+        x = _ffn_rows(cfg, lp, x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["emb"].T.to(DTYPE))[:, 0].to(torch.float32)
     return logits, cache

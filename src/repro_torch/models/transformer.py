@@ -9,8 +9,13 @@ Python (as `serve_step` does) and, with remat while autograd records,
 wraps each layer in `torch.utils.checkpoint.checkpoint`: the backward
 pass recomputes the layer from its input instead of keeping its
 activations, which changes no value.  encdec and ssm have stacks of
-their own (`models.encdec`, `models.xlstm_stack`); the jamba hybrid is not
-ported (ROADMAP A13).
+their own (`models.encdec`, `models.xlstm_stack`); the jamba hybrid has
+its parameter specs here, and its stack is not ported (ROADMAP A13).
+
+With a `launch.mesh.Mesh` of the calling rank the MoE layers run expert
+parallel over its "model" axis (`moe.moe_ffn`); every other layer runs
+replicated on each rank, as the reference computes them (its tensor
+parallel and FSDP layouts are its compiler's partitioning, not code).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.pipeline import not_ported
+from ..launch.mesh import data_axes
 from . import layers as L
 from .moe import moe_ffn
 from .params import ParamSpec
@@ -30,8 +36,8 @@ OWN_STACK = {"encdec": "models.encdec", "ssm": "models.xlstm_stack"}
 
 
 def _check_decoder(cfg: ArchConfig, what: str) -> None:
-    """The decoder stack serves the dense, vlm and MoE families; encdec and
-    ssm have stacks of their own, the hybrid is not ported."""
+    """The decoder stack runs the dense, vlm and MoE families; encdec and
+    ssm have stacks of their own, the hybrid's is not ported."""
     if cfg.family in OWN_STACK:
         raise ValueError(f"the {cfg.family} family's {what} lives in "
                          f"{OWN_STACK[cfg.family]} (models.build dispatches "
@@ -82,19 +88,63 @@ def _moe_specs(cfg: ArchConfig, lead=()):
     }
 
 
+MAMBA_CONV_K = 4                  # the reference's models/mamba.py CONV_K
+
+_MAMBA_AXES = {
+    "in_proj": ("embed", "mlp"),
+    "conv_w": (None, "mlp"),
+    "a_log": ("mlp", None),
+    "d_skip": ("mlp",),
+    "bc_proj": ("mlp", None),
+    "dt_proj": ("embed", "mlp"),
+    "dt_bias": ("mlp",),
+    "out_proj": ("mlp", "embed"),
+}
+
+
+def _mamba_specs(cfg: ArchConfig, lead=()):
+    """One Mamba block's parameters (the reference's mamba_params_shape)."""
+    d, n = cfg.d_model, cfg.ssm_state
+    di = 2 * d
+    f32 = torch.float32
+    shapes = {"in_proj": ((d, 2 * di), DTYPE),
+              "conv_w": ((MAMBA_CONV_K, di), f32),
+              "a_log": ((di, n), f32), "d_skip": ((di,), f32),
+              "bc_proj": ((di, 2 * n), DTYPE), "dt_proj": ((di, di), DTYPE),
+              "dt_bias": ((di,), f32), "out_proj": ((di, d), DTYPE)}
+    ax = tuple(None for _ in lead)
+    out = {"ln1": ParamSpec(lead + (d,), f32, ax + (None,), -1.0)}
+    for name, (shape, dt) in shapes.items():
+        scale = -1.0 if name in ("a_log", "d_skip", "dt_bias") else 0.02
+        out[name] = ParamSpec(lead + shape, dt, ax + _MAMBA_AXES[name], scale)
+    return out
+
+
 def param_specs(cfg: ArchConfig) -> dict:
     d, l_ = cfg.d_model, cfg.n_layers
-    if cfg.family in ("dense", "vlm"):
-        layers = {**_attn_specs(cfg, (l_,)), **_ffn_specs(cfg, (l_,))}
-    elif cfg.family == "moe":
-        layers = {**_attn_specs(cfg, (l_,)), **_moe_specs(cfg, (l_,))}
-    else:
-        _check_decoder(cfg, "parameters")
-    return {
+    specs = {
         "emb": ParamSpec((cfg.padded_vocab, d), DTYPE, ("vocab", "embed")),
         "final_norm": ParamSpec((d,), torch.float32, (None,), -1.0),
-        "layers": layers,
     }
+    if cfg.family in ("dense", "vlm"):
+        specs["layers"] = {**_attn_specs(cfg, (l_,)),
+                           **_ffn_specs(cfg, (l_,))}
+    elif cfg.family == "moe":
+        specs["layers"] = {**_attn_specs(cfg, (l_,)),
+                           **_moe_specs(cfg, (l_,))}
+    elif cfg.family == "hybrid":
+        n_per = cfg.attn_period                  # blocks per period
+        periods = l_ // n_per
+        n_moe = n_per // cfg.moe_every
+        specs["periods"] = {
+            "mamba": _mamba_specs(cfg, (periods, n_per - 1)),
+            "attn": _attn_specs(cfg, (periods,)),
+            "dense_ffn": _ffn_specs(cfg, (periods, n_per - n_moe)),
+            "moe_ffn": _moe_specs(cfg, (periods, n_moe)),
+        }
+    else:
+        _check_decoder(cfg, "parameters")
+    return specs
 
 
 def _attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
@@ -116,36 +166,42 @@ def _attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
     return x + o.reshape(b, s, h * hd) @ p["wo"]
 
 
-def _ffn_block(cfg: ArchConfig, p: dict, x: torch.Tensor, mesh=None):
+def _ffn_block(cfg: ArchConfig, p: dict, x: torch.Tensor, mesh=None,
+               moe_data_axes=None):
     """The FFN sublayer with its residual: (x + ffn(rms_norm(x)), aux),
     through the experts where the layer has a router (aux is their
     load-balance loss, a 0-d tensor; else the number 0.0, which launches
-    nothing in the decode step)."""
+    nothing in the decode step); with a mesh, expert parallel, aux
+    averaged over `moe_data_axes` (default: the mesh's data axes) and the
+    model axis."""
     hx = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if "router" in p:
+        if moe_data_axes is None:
+            moe_data_axes = ("data",) if mesh is None else data_axes(mesh)
         y, aux = moe_ffn(hx, p["router"], p["w1"], p["w3"], p["w2"],
-                         top_k=cfg.moe_top_k, mesh=mesh, act=cfg.act)
+                         top_k=cfg.moe_top_k, mesh=mesh,
+                         data_axes=moe_data_axes, act=cfg.act)
         return x + y, aux
     y = L.ffn(hx, p["w1"], p.get("w3"), p["w2"], cfg.act)
     return x + y, 0.0
 
 
 def _layer(cfg: ArchConfig, lp: dict, x: torch.Tensor,
-           positions: torch.Tensor):
+           positions: torch.Tensor, mesh=None, moe_data_axes=None):
     """One decoder layer: (x after attention and FFN, its aux loss)."""
     x = _attention(cfg, lp, x, positions)
-    return _ffn_block(cfg, lp, x)
+    return _ffn_block(cfg, lp, x, mesh, moe_data_axes)
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, mesh=None,
             remat: bool = True, moe_data_axes=None):
     """tokens: int [B, S] -> (logits bfloat16 [B, S, V_padded], aux float32
-    []), the sum of the layers' load-balance losses.  `mesh` must be None
-    (one card); `remat` checkpoints each layer while autograd records;
-    `moe_data_axes` is the reference's and changes nothing here."""
+    []), the sum of the layers' load-balance losses.  `mesh`: the calling
+    rank's (MoE layers expert parallel; the tokens are the rank's);
+    `remat` checkpoints each layer while autograd records;
+    `moe_data_axes`: the axes the MoE aux is averaged over besides the
+    model axis (default: the mesh's data axes)."""
     _check_decoder(cfg, "forward pass")
-    if mesh is not None:
-        raise ValueError("the port runs on one card: mesh must be None")
     x = params["emb"][tokens].to(DTYPE)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
@@ -153,10 +209,10 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, mesh=None,
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in lay.items()}
         if remat and torch.is_grad_enabled():
-            x, a = checkpoint(_layer, cfg, lp, x, positions,
-                              use_reentrant=False)
+            x, a = checkpoint(_layer, cfg, lp, x, positions, mesh,
+                              moe_data_axes, use_reentrant=False)
         else:
-            x, a = _layer(cfg, lp, x, positions)
+            x, a = _layer(cfg, lp, x, positions, mesh, moe_data_axes)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["emb"].T.to(DTYPE), aux

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .layers import chunked_scan
+from .layers import chunked_scan, silu
 
 MASK = -1e30
 
@@ -146,7 +146,7 @@ def mlstm_block(p: dict, x: torch.Tensor, n_heads: int, state=None):
     else:
         h, state = _mlstm_chunkwise(q, k, v, ig, fg, state)
     h = (h * og[..., None]).reshape(b, t, di).to(x.dtype)
-    y = h * F.silu(z)
+    y = h * silu(z)
     return y @ p["down_proj"], state
 
 
@@ -185,5 +185,5 @@ def slstm_block(p: dict, x: torch.Tensor, n_heads: int, state=None):
 
     state, hs = chunked_scan(step, state, wx.transpose(0, 1), chunk=256)
     y = hs.transpose(0, 1).reshape(b, t, di).to(x.dtype)
-    y = y * F.silu(zgate)
+    y = y * silu(zgate)
     return y @ p["down_proj"], state

@@ -9,8 +9,8 @@
   * stragglers: a per-step wall-time EWMA; steps slower than
     `straggler_factor` x EWMA are recorded (the scheduler's drain hook).
 
-The reference's elastic re-mesh (`runtime/elastic.py`) needs a mesh and
-waits for ROADMAP A16.
+A checkpoint restores onto a mesh rebuilt from the devices at hand
+through `runtime.elastic.resize`.
 """
 from __future__ import annotations
 

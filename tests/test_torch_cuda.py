@@ -1109,3 +1109,56 @@ def test_two_layer_encdec_and_ssm_on_card_match_cpu(name):
             oc, _ = bundle.serve_step(params, caches[0], t.cuda(), pos)
             oh, _ = bundle.serve_step(cpu, caches[1], t, pos)
             assert rel(oc, oh) <= 2e-2, pos
+
+
+@pytest.mark.cuda
+def test_expert_parallel_moe_on_card_matches_one_rank():
+    """`moe_ffn` on 4 thread ranks of a ("model",) mesh on the card, 16
+    experts of d 256: every rank the same bits; the all-to-all path within
+    2^-6 of the one-rank output's largest |value| (cuBLAS may pick other
+    algorithms for 4 experts x 4 copies than for 16 experts), aux equal;
+    the decode path within 2^-6 of the one-rank path with every pair
+    kept; a 2-layer MoE's gradient over a (1, 4) mesh description within
+    2e-2 of the one-rank gradient, leaf by leaf."""
+    _need_card()
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ArchConfig as TArch
+    from repro_torch.launch import train as TL
+    from repro_torch.launch.mesh import Mesh, run_mesh_threads
+    from repro_torch.models import build as tbuild
+    from repro_torch.models import moe as TM
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    e, d, f = 16, 256, 512
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    x = rnd(2, 64, d).to(torch.bfloat16)
+    rw = rnd(d, e) * 0.1
+    w1, w3 = (rnd(e, d, f).mul(0.05).to(torch.bfloat16) for _ in range(2))
+    w2 = rnd(e, f, d).mul(0.05).to(torch.bfloat16)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    for xx, cf in ((x, 1.0), (x[:, :1], float(e))):
+        one, aux = TM.moe_ffn_local(xx, rw, w1, w3, w2, top_k=4,
+                                    capacity_factor=cf)
+        got = run_mesh_threads((4,), ("model",), lambda m: TM.moe_ffn(
+            xx, rw, w1, w3, w2, top_k=4, mesh=m, data_axes=()))
+        for y, a in got:
+            assert torch.equal(y.view(torch.int16),
+                               got[0][0].view(torch.int16))
+            assert rel(y, one) <= 2.0 ** -6
+            assert float(a) == float(aux)
+    cfg = TArch(name="tiny-ep-card", family="moe", n_layers=2, d_model=256,
+                n_heads=4, n_kv_heads=2, d_ff=256, vocab=1024, head_dim=64,
+                moe_experts=8, moe_top_k=2)
+    bundle = tbuild(cfg)
+    params = bundle.init(gen)
+    tok = torch.randint(0, cfg.vocab, (2, 65), generator=gen, device="cuda")
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    (l1, _), g1 = TL.value_and_grad(bundle, params, batch, None)
+    (l4, _), g4 = TL.value_and_grad(bundle, params, batch,
+                                    Mesh((1, 4), ("data", "model")))
+    assert abs(float(l1) - float(l4)) <= 1e-3 * abs(float(l1))
+    for a, b in zip(T.leaves(g4), T.leaves(g1)):
+        assert rel(a, b) <= 2e-2

@@ -158,8 +158,10 @@ def _reference_dispatch(gate_idx, e, cap):
 
 @pytest.mark.parametrize("n,d,e,k", [(256, 64, 64, 8), (96, 32, 8, 2)])
 def test_route_matches_reference_on_identical_logits(n, d, e, k):
-    """Both `_route`s on tokens whose router product is exact in either
-    package (two bfloat16 terms a row), so the logits are identical: the
+    """Both `_route`s (the reference's jitted, as it runs: XLA keeps the
+    router product in float32, as the port does) on tokens whose router
+    product is exact (two bfloat16 terms a row), so the logits are
+    identical: the
     expert choices (ties to the lower index: a built tie at the top-k
     boundary on token 0, a three-way one on token 1), the capacity
     positions, drops and slots bit-equal; gates within 4 ulps (the exp's
@@ -179,7 +181,8 @@ def test_route_matches_reference_on_identical_logits(n, d, e, k):
     row[k - 2:k + 1] = row[k - 2]
     w[1], w[10] = 0.0, row[RNG.permutation(e)]
     xb = jnp.asarray(x).astype(jnp.bfloat16)
-    jv, ji, jaux = JM._route(xb, jnp.asarray(w), k)
+    jv, ji, jaux = jax.jit(JM._route, static_argnums=2)(xb, jnp.asarray(w),
+                                                        k)
     tx = params_from_numpy({"x": np.asarray(xb)}, device="cpu")["x"]
     tv, ti, taux = TM._route(tx, torch.from_numpy(w), k)
     np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
@@ -235,13 +238,27 @@ def test_moe_ffn_local_matches_reference_with_drops(models, monkeypatch):
     assert abs(float(taux) - float(jaux)) < 1e-3
 
 
-def test_moe_mesh_paths_raise():
-    x = torch.zeros((2, 1, 8), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        TM.moe_ffn(x, None, None, None, None, top_k=2, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        TM.moe_ffn_decode_local(x, None, None, None, None, top_k=2,
-                                act="swiglu", model_axis="model")
+def test_moe_mesh_paths_raise(models):
+    """The expert-parallel paths (tests/test_torch_ep.py holds them against
+    the reference): a mesh description, which has no rank, raises; on 2
+    thread ranks of a ("model",) mesh the reduced olmoe's layer-0 experts
+    give the one-rank output (prefill) and every pair (decode)."""
+    from repro_torch.launch.mesh import make_production_mesh, run_mesh_threads
+    _, _, _, tp = models["olmoe-1b-7b"]
+    lp = {k: v[0] for k, v in tp["layers"].items()}
+    w = (lp["router"], lp["w1"], lp["w3"], lp["w2"])
+    x = torch.from_numpy(RNG.standard_normal((2, 8, 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="description"):
+        TM.moe_ffn(x, *w, top_k=2, mesh=make_production_mesh())
+    for xx, cf in ((x, 1.0), (x[:, :1], 4.0)):
+        one = TM.moe_ffn_local(xx, *w, top_k=2, capacity_factor=cf)[0]
+        got = run_mesh_threads((2,), ("model",), lambda m: TM.moe_ffn(
+            xx, *w, top_k=2, mesh=m, data_axes=())[0])
+        for y in got:
+            assert y.shape == xx.shape
+            assert float((y.float() - one.float()).abs().max()) <= 2.0 ** -6 \
+                * float(one.float().abs().max())
 
 
 # ------------------------------------------------ layers, forward, prefill --
@@ -556,11 +573,15 @@ def test_params_carry_moe_tree_across(models):
 
 
 def test_hybrid_forward_and_prefill_raise():
+    """The hybrid has its parameter specs (tests/test_torch_mesh.py holds
+    them against the reference); its forward and prefill raise."""
     cfg = TR.get("jamba-1.5-large-398b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        t_build(cfg)
+    bundle = t_build(cfg)
+    assert "periods" in bundle.specs
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         TT.forward(cfg, {}, torch.zeros((1, 4), dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        bundle.prefill({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
     # the ssm family has a stack of its own: the decoder stack names it
     dense = dataclasses.replace(TR.get("internlm2-20b").reduced(),
                                 family="ssm")

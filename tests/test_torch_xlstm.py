@@ -210,6 +210,12 @@ def test_param_counts_and_archs_match_reference():
 
 
 def test_hybrid_still_raises():
+    """The hybrid builds its parameter specs only: its loss and cache
+    raise (ROADMAP A13)."""
     cfg = TR.get("jamba-1.5-large-398b").reduced()
+    bundle = t_build(cfg)
+    tok = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        t_build(cfg)
+        bundle.loss({}, {"tokens": tok, "labels": tok})
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        bundle.make_cache(1, 128, device="cpu")
