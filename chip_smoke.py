@@ -100,7 +100,10 @@ call from the trace.
 A `serve` phase drives serving at internlm2-20b's full width and depth
 (48 layers, 20.3G parameters in bf16 made on the card from the seed by
 `models.model.ModelBundle.init`): (a) 8 requests of seeded tokens for
-136 steps through `models.serve.serve_step` with the quantized cache
+16 steps from position 120, every layer's cache seeded before it with
+the same K, V = N(0,1)*0.7 in the quantized cache's bf16 hot page and
+in the raw cache, through `models.serve.serve_step` with the quantized
+cache
 (B12 over the closed pages, 2 launches a layer once a page has closed)
 and with the raw bf16 cache; every page a step closes held against the
 bf16 hot page it came from (0 values outside the page bound, a wrapper
@@ -130,7 +133,8 @@ weights are freed before the `grads` phase.
 A `moe` phase drives the MoE family and head dim 80:
 olmoe-1b-7b at full width and depth (16 layers, 64 experts, top-8,
 6.82G parameters made on the card from the seed): (a) 8 requests for
-136 steps at seq 512 through `serve_step`, quantized and raw, with the
+16 steps at seq 512 from a seeded history at position 120, as serve
+(a), through `serve_step`, quantized and raw, with the
 checks of serve (a) (every closed page within its bound, quantized
 logits within 0.15 of the raw ones' max, B12 with (m, l) within 2e-5 of
 its plain version on layer 0's real queries, no plain call), the step
@@ -160,9 +164,9 @@ step of a 2-layer cut at full
 width on a (1, 4) mesh description (`launch.train.value_and_grad`: the
 ranks' forward as threads, one backward) with its gradients against the
 one-rank step's leaf by leaf; (e) qwen3-moe-235b-a22b at full width,
-4 of its 94 layers (128 experts, B12 at Hg = 16), 136 steps with the
-checks of (a); (f) stablelm-3b at full width and depth (B12 at D = 80),
-136 steps with the same checks.  Each model's weights are freed before
+4 of its 94 layers (128 experts, B12 at Hg = 16), 16 steps from 120 with
+the checks of (a); (f) stablelm-3b at full width and depth (B12 at D =
+80), 16 steps from 120 with the same checks.  Each model's weights are freed before
 the next.
 
 A `grads` phase drives the compressed gradient all-reduce
@@ -250,9 +254,30 @@ layers on its untrained ones: within 2^-2 in bf16, and within 1e-4 in
 float32, the witness of bf16 rounding), and a 2-layer cut whose loss,
 prefill logits and 16 decode steps agree with the CPU path.
 
+A `hybrid` phase (last) drives jamba-1.5-large-398b at full width (d
+8,192, 64 heads over 8 KV heads, d_ff 24,576, 16 experts top 2, Di
+16,384, N 16) on one period of its 9 (8 of 72 layers: 7 Mamba blocks
+and an attention block, 4 dense and 4 MoE FFNs), weights from the seed
+with the 4 MoE FFNs' experts one seeded set (stride-0 views: 92.9 GB
+untied, 34.9 GB resident): (a) a prefill of 1 x 4,096 tokens
+(prefill_32k cut x8: ms, tokens/s, the Mamba scans' share, peak GB);
+(b) 8 requests, 64 teacher-forced `serve_step`s from position 0 on
+`make_cache(8, 128)` (step ms beside the bytes bound with every weight
+read once as if untied and with the experts routed to, kernels a step
+and the busy share from a profiled step), then `forward` over the same
+tokens and the steps again with every pair kept and forward's expert
+choices given to the steps: within 2e-2 of max |logit| at every
+position, a step's own choice different only at a near tie; (c)
+long_500k: B = 1 at S = 524,288, K and V N(0,1)*0.7 below position
+524,224, the Mamba states of (b)'s row 0, 8 steps (ms against the
+weights' and the 2.15 GB of K and V's bound, finite logits); (d) the
+reduced jamba on the same weights on the card and on the CPU (loss,
+prefill logits, 16 steps, the card's expert choices given to the CPU),
+then 6 AdamW steps on the card, the loss finite and falling.
+
 Output: the card's name and power limit, one JSON line per chain, one
 JSON line per phase (dense, sweep, audit, code sweep, kv, serve a/b/c,
-moe a-g, grads, train, families),
+moe a-g, grads, train, families, hybrid a-d),
 one JSON line
 {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.  On stderr: the build log, a summary of
@@ -267,6 +292,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -2116,8 +2142,11 @@ def grads_phase(seed: int) -> list:
 # (src/repro/models/engine.py:99); (c) at decode_32k's context
 # (src/repro/configs/base.py:159) with its batch cut from 128 to 4
 SERVE_ARCH = "internlm2-20b"
-# 136 steps: past one page close (256, past two, do not fit the time aim)
-SERVE_B, SERVE_SEQ, SERVE_STEPS, SERVE_MORE = 8, 512, 136, 16
+# 16 steps from a seeded history 8 positions before the first page close
+# (past it, and 8 steps of B12 after it), where 136 steps from position 0
+# stepped to it
+SERVE_B, SERVE_SEQ, SERVE_STEPS, SERVE_MORE = 8, 512, 16, 16
+SERVE_POS0 = 120               # KV_PAGE - 8
 SERVE_CHAINS = ("kv-page", "kv-page-narrow", "kv-page-pred", "auto")
 SERVE_QUANT_TOL = 0.15         # tests/test_models_smoke.py:115
 SERVE_PROMPTS = (130, 17, 140, 9, 12)   # 4 slots, the last request waits
@@ -2251,6 +2280,40 @@ def serve_steps(step, cache, toks, pos0: int):
         evs.append((a, b))
     torch.cuda.synchronize()
     return out, [a.elapsed_time(b) for a, b in evs]
+
+
+def seed_history(cfg, params, qcache, rcache, tokens) -> None:
+    """The model's own K and V of the seeded tokens [B, P] (P within the
+    first page) at positions 0 .. P - 1 of every layer, the same bf16
+    values in the quantized cache's hot page and in the raw cache: one
+    batched pass through the layers (`forward`'s blocks), where P decode
+    steps would take P passes.  The steps from P go on from that
+    history.  (An N(0,1) history fails the quantized-vs-raw limit: over
+    uncorrelated V the attention output is small beside the page's
+    quantization error.)"""
+    from repro_torch.models import transformer as TT
+    p = tokens.shape[1]
+    positions = torch.arange(p, device=tokens.device)[None, :]
+    with torch.no_grad():
+        x = params["emb"][tokens].to(TT.DTYPE)
+        for i in range(cfg.n_layers):
+            lp = {k: v[i] for k, v in params["layers"].items()}
+            _, k, v = TT._project(cfg, lp, x, positions)
+            for dst in (qcache.hot_k[i], rcache.k[i]):
+                dst[:, :p] = k.to(dst.dtype)
+            for dst in (qcache.hot_v[i], rcache.v[i]):
+                dst[:, :p] = v.to(dst.dtype)
+            x = TT._attention(cfg, lp, x, positions)
+            x, _ = TT._ffn_block(cfg, lp, x)
+
+
+def step_split(ms: list, pos0: int) -> dict:
+    """The step times of a run from pos0 over one page close: before the
+    close (no history), the closing step, after it (B12)."""
+    close = KV_PAGE - 1 - pos0
+    return {"step_ms_no_history": statistics.median(ms[:close]),
+            "step_ms_page_close": [ms[close]],
+            "step_ms_with_history": statistics.median(ms[close + 1:])}
 
 
 def step_bytes(params, lengths, b: int, hg: int, s: int, n_layers: int,
@@ -2391,7 +2454,8 @@ def lc_rows(select_args, expand_args, counts) -> list:
 
 
 def serve_aligned(cfg, params, seed: int) -> tuple:
-    """(a): SERVE_B requests of seeded tokens for SERVE_STEPS steps through
+    """(a): SERVE_B requests of seeded tokens for SERVE_STEPS steps from
+    SERVE_POS0 (a seeded history before it, `seed_history`) through
     serve_step with the quantized and the raw cache; the wire for every
     chain in SERVE_CHAINS; the transfer between two thread ranks; 16 more
     steps on the received cache.  Returns (line, kernel rows, counts)."""
@@ -2408,6 +2472,9 @@ def serve_aligned(cfg, params, seed: int) -> tuple:
                          device=DEV, dtype=torch.int32)
     qcache = S.make_quant_cache(cfg, SERVE_B, SERVE_SEQ, device=DEV)
     rcache = S.make_raw_cache(cfg, SERVE_B, SERVE_SEQ, device=DEV)
+    pos0 = SERVE_POS0
+    seed_history(cfg, params, qcache, rcache, torch.randint(
+        0, cfg.vocab, (SERVE_B, pos0), generator=gen, device=DEV))
 
     def qstep(c, t, pos):
         return S.serve_step(cfg, params, c, t, pos, None, kv_cfg)
@@ -2416,11 +2483,13 @@ def serve_aligned(cfg, params, seed: int) -> tuple:
         return S.serve_step(cfg, params, c, t, pos, None, None)
 
     torch.cuda.synchronize()
+    t_steps = time.time()
     reset_launches()
     with closed_pages() as kept, plain_calls(SERVE_PLAIN_FNS) as plain:
-        q_logits, q_ms = serve_steps(qstep, qcache, toks[:SERVE_STEPS], 0)
+        q_logits, q_ms = serve_steps(qstep, qcache, toks[:SERVE_STEPS], pos0)
         counts = launches()
-        r_logits, r_ms = serve_steps(rstep, rcache, toks[:SERVE_STEPS], 0)
+        r_logits, r_ms = serve_steps(rstep, rcache, toks[:SERVE_STEPS], pos0)
+        steps_s = time.time() - t_steps
         reset_launches()
         with first_call_args(L, "lc_select") as sel_args:
             wires = {c: S.pack_cache(qcache, stages=get_kv_chain(c),
@@ -2429,14 +2498,17 @@ def serve_aligned(cfg, params, seed: int) -> tuple:
             backs = {c: S.unpack_cache(w, verify=True)
                      for c, w in wires.items()}
         lc_counts = launches()
+    print(f"chip_smoke: serve (a) {SERVE_STEPS} steps from {pos0}, "
+          f"quantized and raw: {steps_s:.1f} s", file=sys.stderr, flush=True)
     pages = page_bound_tally(kept)
     del kept
     b12 = "_kv_decode_attention"
     # a B12 call is two kernel launches (split + merge), counted once
-    check(counts[b12] == cfg.n_layers * (SERVE_STEPS - KV_PAGE),
+    hist_steps = pos0 + SERVE_STEPS - KV_PAGE
+    check(counts[b12] == cfg.n_layers * hist_steps,
           f"serve: {counts[b12]} B12 calls in (a), want "
-          f"{cfg.n_layers * (SERVE_STEPS - KV_PAGE)}")
-    closes = SERVE_STEPS // KV_PAGE
+          f"{cfg.n_layers * hist_steps}")
+    closes = (pos0 + SERVE_STEPS) // KV_PAGE
     check(pages["pages"] == 2 * closes * cfg.n_layers * SERVE_B
           * cfg.n_kv_heads, f"serve: {pages['pages']} pages closed")
     check(pages["violations"] == 0,
@@ -2475,11 +2547,11 @@ def serve_aligned(cfg, params, seed: int) -> tuple:
     transfer_s = time.time() - t0
     check(caches_equal(moved, qcache), "serve: transfer_cache is not exact")
     more = toks[SERVE_STEPS:]
-    la, _ = serve_steps(qstep, qcache, more, SERVE_STEPS)
-    lb, _ = serve_steps(qstep, moved, more, SERVE_STEPS)
+    la, _ = serve_steps(qstep, qcache, more, pos0 + SERVE_STEPS)
+    lb, _ = serve_steps(qstep, moved, more, pos0 + SERVE_STEPS)
     after = all(planes_equal(a, b) for a, b in zip(la, lb))
     check(after, "serve: steps on the received cache differ")
-    pos = [n_all]
+    pos = [pos0 + n_all]
 
     def one():
         qstep(qcache, toks[-1], pos[0])
@@ -2497,16 +2569,12 @@ def serve_aligned(cfg, params, seed: int) -> tuple:
                       device=DEV)
     row_b12 = b12_row("a", qs, kq0, vq0, lens, SERVE_SEQ, counts[b12])
     rows = [row_b12] + lc_rows(sel_args[0][:2], exp_args[0][:3], lc_counts)
-    hist_ms = statistics.median(q_ms[KV_PAGE:])
     line = {
         "phase": "serve", "part": "a", "arch": SERVE_ARCH,
         "layers": cfg.n_layers, "d_model": cfg.d_model,
         "batch": SERVE_B, "seq": SERVE_SEQ, "steps": SERVE_STEPS,
-        "step_ms_no_history": statistics.median(q_ms[:KV_PAGE]),
-        "step_ms_with_history": hist_ms,
-        "step_ms_page_close": [q_ms[KV_PAGE * (i + 1) - 1]
-                               for i in range(closes)],
-        "raw_step_ms": statistics.median(r_ms[KV_PAGE:]),
+        "steps_from": pos0, "steps_s": steps_s, **step_split(q_ms, pos0),
+        "raw_step_ms": statistics.median(r_ms[KV_PAGE - pos0:]),
         "device_ms_per_step": sum(dev_a.values()) or None,
         "b12_device_ms_per_step": sum(
             v for k, v in dev_a.items() if k.startswith("kv_")) or None,
@@ -2522,8 +2590,7 @@ def serve_aligned(cfg, params, seed: int) -> tuple:
         "b12_calls": counts[b12],
         # the wrapper's count of calls; each call launches the split and
         # the merge kernel (csrc/kv_attention.cu's C API)
-        "b12_calls_per_step_with_history":
-            counts[b12] / (SERVE_STEPS - KV_PAGE),
+        "b12_calls_per_step_with_history": counts[b12] / hist_steps,
         "b12_kernel_launches_per_step_traced": sum(
             v for k, v in traced_a.items() if k.startswith("kv_")) or None,
         "wire_bytes": acct, "wire_bytes_counted": measured,
@@ -2859,8 +2926,8 @@ def serve_phase(seed: int) -> list:
 MOE_ARCH = "olmoe-1b-7b"
 MOE_WIDE_ARCH, MOE_WIDE_LAYERS = "qwen3-moe-235b-a22b", 4
 D80_ARCH = "stablelm-3b"
-# past one page close (256, past two, do not fit the time aim)
-MOE_STEPS = 136
+# from SERVE_POS0, past one page close, as serve (a)
+MOE_STEPS = 16
 STREAM_PROMPT, STREAM_MORE = 300, 8
 PREFILL_LONG, PREFILL_CHECK, FLASH_S = 32_768, 256, 4096
 # flash_attention against a float32 softmax: p rounded to bfloat16 moves
@@ -2938,7 +3005,8 @@ def device_groups(dev_ms: dict) -> dict:
 
 def aligned_run(cfg, params, seed: int, steps: int, label: str) -> tuple:
     """SERVE_B requests of seeded tokens for `steps` steps at SERVE_SEQ
-    through serve_step with the quantized cache and with the raw one: the
+    from SERVE_POS0 (a seeded history before it, `seed_history`) through
+    serve_step with the quantized cache and with the raw one: the
     checks of serve (a) (every closed page within its bound, quantized
     logits within SERVE_QUANT_TOL of the raw ones' max, B12 with (m, l)
     within KV_TOL of its plain version on layer 0's real queries, no plain
@@ -2953,6 +3021,9 @@ def aligned_run(cfg, params, seed: int, steps: int, label: str) -> tuple:
                          generator=gen, device=DEV, dtype=torch.int32)
     qcache = S.make_quant_cache(cfg, SERVE_B, SERVE_SEQ, device=DEV)
     rcache = S.make_raw_cache(cfg, SERVE_B, SERVE_SEQ, device=DEV)
+    pos0 = SERVE_POS0
+    seed_history(cfg, params, qcache, rcache, torch.randint(
+        0, cfg.vocab, (SERVE_B, pos0), generator=gen, device=DEV))
 
     def qstep(c, t, pos):
         return S.serve_step(cfg, params, c, t, pos, None, kv_cfg)
@@ -2962,19 +3033,24 @@ def aligned_run(cfg, params, seed: int, steps: int, label: str) -> tuple:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    t_steps = time.time()
     reset_launches()
     with closed_pages() as kept, plain_calls(SERVE_PLAIN_FNS) as plain, \
             moe_dispatch_counts() as moe:
-        q_logits, q_ms = serve_steps(qstep, qcache, toks[:steps], 0)
+        q_logits, q_ms = serve_steps(qstep, qcache, toks[:steps], pos0)
         counts = launches()
-    r_logits, r_ms = serve_steps(rstep, rcache, toks[:steps], 0)
+    r_logits, r_ms = serve_steps(rstep, rcache, toks[:steps], pos0)
+    steps_s = time.time() - t_steps
+    print(f"chip_smoke: moe ({label}) {steps} steps from {pos0}, quantized "
+          f"and raw: {steps_s:.1f} s", file=sys.stderr, flush=True)
     pages = page_bound_tally(kept)
     del kept
     b12 = "_kv_decode_attention"
-    closes = steps // KV_PAGE
-    check(counts[b12] == cfg.n_layers * (steps - KV_PAGE),
+    closes = (pos0 + steps) // KV_PAGE
+    hist_steps = pos0 + steps - KV_PAGE
+    check(counts[b12] == cfg.n_layers * hist_steps,
           f"moe ({label}): {counts[b12]} B12 calls, want "
-          f"{cfg.n_layers * (steps - KV_PAGE)}")
+          f"{cfg.n_layers * hist_steps}")
     check(pages["pages"] == 2 * closes * cfg.n_layers * SERVE_B
           * cfg.n_kv_heads, f"moe ({label}): {pages['pages']} pages closed")
     check(pages["violations"] == 0,
@@ -2989,7 +3065,7 @@ def aligned_run(cfg, params, seed: int, steps: int, label: str) -> tuple:
           f"moe ({label}): quantized logits {max(rel)} of max|raw| from the "
           f"raw ones")
     del r_logits, rcache
-    pos = [steps]
+    pos = [pos0 + steps]
 
     def one():
         qstep(qcache, toks[-1], pos[0])
@@ -3010,18 +3086,15 @@ def aligned_run(cfg, params, seed: int, steps: int, label: str) -> tuple:
     eb = expert_bytes(params)
     routed = n_bytes - eb + (eb * disp["experts_used_per_call"]
                              / cfg.moe_experts if eb else 0)
-    hist_ms = statistics.median(q_ms[KV_PAGE:])
+    split = step_split(q_ms, pos0)
+    hist_ms = split["step_ms_with_history"]
     line = {"phase": "moe", "part": label[-1], "arch": cfg.name,
             "layers": cfg.n_layers, "d_model": cfg.d_model,
             "kv_heads": cfg.n_kv_heads, "hg": cfg.group_size,
             "head_dim": cfg.head_dim, "experts": cfg.moe_experts,
             "top_k": cfg.moe_top_k, "batch": SERVE_B, "seq": SERVE_SEQ,
-            "steps": steps,
-            "step_ms_no_history": statistics.median(q_ms[:KV_PAGE]),
-            "step_ms_with_history": hist_ms,
-            "step_ms_page_close": [q_ms[KV_PAGE * (i + 1) - 1]
-                                   for i in range(closes)],
-            "raw_step_ms": statistics.median(r_ms[KV_PAGE:]),
+            "steps": steps, "steps_from": pos0, "steps_s": steps_s,
+            **split, "raw_step_ms": statistics.median(r_ms[KV_PAGE - pos0:]),
             "step_bytes": n_bytes,
             "step_bound_ms": bound_from(n_bytes, ops)[0],
             "step_bound_routed_ms": routed / HBM_BYTES_PER_S * 1e3,
@@ -4578,11 +4651,16 @@ def fam_forced_run(bundle, params, seed: int) -> tuple:
     return fwd.float(), torch.stack(steps, 1)
 
 
+def position_gaps(fwd, steps) -> list:
+    """At each position, the largest |difference| over the largest |logit|
+    of `fwd` there."""
+    return [float((steps[:, p] - fwd[:, p]).abs().max()
+                  / fwd[:, p].abs().max()) for p in range(fwd.shape[1])]
+
+
 def forced_gap(fwd, steps) -> float:
-    """The largest |difference| over the largest |logit| of `fwd` at each
-    position, the worst position's."""
-    return max(float((steps[:, p] - fwd[:, p]).abs().max()
-                     / fwd[:, p].abs().max()) for p in range(fwd.shape[1]))
+    """The worst position's `position_gaps`."""
+    return max(position_gaps(fwd, steps))
 
 
 def fam_teacher_forced(bundle, params, seed: int) -> float:
@@ -4595,30 +4673,34 @@ def fam_teacher_forced(bundle, params, seed: int) -> float:
 
 
 @contextlib.contextmanager
-def ssm_float32():
-    """The ssm stack's activations in float32 (`xlstm_stack.DTYPE`)."""
-    from repro_torch.models import xlstm_stack as XS
-    real = XS.DTYPE
-    XS.DTYPE = torch.float32
+def float32_stack(*mods):
+    """Each module's DTYPE (the activations, and the caches it makes) set
+    to float32 while the block runs."""
+    real = [m.DTYPE for m in mods]
+    for m in mods:
+        m.DTYPE = torch.float32
     try:
         yield
     finally:
-        XS.DTYPE = real
+        for m, d in zip(mods, real):
+            m.DTYPE = d
 
 
 def fam_teacher_forced_deep(bundle, params, seed: int) -> dict:
     """The teacher-forced steps at full depth on the untrained weights, in
     bfloat16 and, as the witness of what bfloat16 rounding does there,
-    again in float32 (the weights cast, `ssm_float32`): the bfloat16 gap
-    within FAM_DEEP_TOL, the float32 one within FAM_F32_TOL; beside them
-    the largest |logit|, the largest |difference|, and how far each path
-    in bfloat16 lies from itself in float32."""
+    again in float32 (the weights cast, `xlstm_stack.DTYPE` float32 by
+    `float32_stack`): the bfloat16 gap within FAM_DEEP_TOL, the float32
+    one within FAM_F32_TOL; beside them the largest |logit|, the largest
+    |difference|, and how far each path in bfloat16 lies from itself in
+    float32."""
     from repro_torch import tree as T
+    from repro_torch.models import xlstm_stack as XS
     name = bundle.cfg.name
     fwd, steps = fam_forced_run(bundle, params, seed)
     p32 = T.tree_map(lambda t: t.float() if t.is_floating_point() else t,
                      params)
-    with ssm_float32():
+    with float32_stack(XS):
         fwd32, steps32 = fam_forced_run(bundle, p32, seed)
     del p32
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
@@ -4727,6 +4809,581 @@ def families_phase(seed: int) -> None:
         print(json.dumps(line), flush=True)
 
 
+# ------------------------------------------------------------ the hybrid --
+#
+# jamba-1.5-large-398b (src/repro/configs/registry.py:67-71) at full width:
+# d 8,192, 64 heads over 8 KV heads of 128, d_ff 24,576, 16 experts top 2,
+# Di 16,384, N 16; one period of its 9 (8 of 72 layers: 7 Mamba blocks and
+# an attention block, 4 dense and 4 MoE FFNs).  Its 4 MoE FFNs hold 77.3 GB
+# of experts, so the period (92.9 GB) does not fit one card: the four share
+# one seeded set of expert tensors (stride-0 views, `hybrid_params`), 34.9
+# GB resident; every width and every product stays, and each bound counts
+# the experts as if untied.
+HYB_ARCH = "jamba-1.5-large-398b"
+HYB_PREFILL = 4_096            # prefill_32k's 32,768 tokens cut x8
+HYB_B, HYB_STEPS, HYB_SEQ = 8, 64, 128
+HYB_LONG_S, HYB_LONG_STEPS = 524_288, 8       # long_500k: B = 1
+HYB_LONG_POS = HYB_LONG_S - HYB_STEPS         # K, V seeded below it
+HYB_TOL = 2e-2                 # of max |logit| (the serving limit)
+# (b)'s limit, with the state reaching the logits: sound runs read
+# 0.024-0.026 (bfloat16 rounding, (e) is the witness), a step that drops
+# h 0.48-0.58 and one that drops the conv tail 1.56-1.60 (PERF.md §6)
+HYB_DECODE_TOL = 2.0 ** -4
+HYB_F32_TOL = 1e-4             # (e)'s float32 witness, as FAM_F32_TOL
+HYB_FAULTS = ("tail", "h")     # (b)'s planted faults: the state zeroed
+HYB_BC_SCALE = 6.0             # bc_proj at U(-1, 1) HYB_BC_SCALE / sqrt(Di)
+HYB_CUT_STEPS, HYB_TRAIN_STEPS = 16, 6
+HYB_TRAIN_B, HYB_TRAIN_SEQ = 8, 64
+HYB_TIED = ("w1", "w3", "w2")
+
+
+def spec_bytes(specs) -> int:
+    """The bytes of a spec tree's weights (each leaf as if untied)."""
+    from repro_torch.models.params import tree_leaves
+    return sum(int(np.prod(s.shape)) * torch.empty((), dtype=s.dtype)
+               .element_size() for s in tree_leaves(specs))
+
+
+def hybrid_params(bundle, seed: int) -> dict:
+    """The bundle's weights on the card from the seed, but for the MoE
+    FFNs' experts: one seeded [E, D, F] (and [E, F, D]) set, given to
+    every MoE FFN of every period as a stride-0 view."""
+    from repro_torch.models.params import ParamSpec, materialize
+    specs = bundle.specs
+    moe = specs["periods"]["moe_ffn"]
+    rest = {**specs, "periods": {**specs["periods"], "moe_ffn": {
+        k: v for k, v in moe.items() if k not in HYB_TIED}}}
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params = materialize(rest, gen, DEV)
+    lead = len(moe["router"].shape) - 2
+    one = materialize({k: ParamSpec(moe[k].shape[lead:], moe[k].dtype,
+                                    moe[k].axes[lead:], moe[k].init_scale)
+                       for k in HYB_TIED}, gen, DEV)
+    got = params["periods"]["moe_ffn"]
+    params["periods"]["moe_ffn"] = {
+        k: one[k][(None,) * lead].expand(moe[k].shape) if k in HYB_TIED
+        else got[k] for k in moe}
+    state_mamba(params, gen)
+    return params
+
+
+def state_mamba(params: dict, gen: torch.Generator) -> None:
+    """Redraw every Mamba block's a_log, dt_bias, conv_w and bc_proj in
+    place as tests/test_torch_hybrid.py's STATE weights are drawn: A =
+    -(1 .. N) and dt log-uniform in [1e-3, 1e-1] (Mamba's own init), the
+    conv at Conv1d's U(-1/2, 1/2), bc_proj at U(-1, 1) HYB_BC_SCALE /
+    sqrt(Di).  At the port's init (A = -e, dt near 1.3) the state decays
+    by ~e^-3.6 a step and a block's output is its skip term u D, so no
+    check of the decode could see a step that drops the conv tail or h.
+    The tests' bc_proj scale, 64, gives B and C ~2.6 at d 128; at d 8,192
+    silu(conv) is ~5x larger (in_proj at 1 / sqrt(d) against 0.02), and
+    6 gives B and C ~1, the state's term of the size of the skip term
+    (64 makes it ~100x and (b) reads 0.124; PERF.md §6)."""
+    m = params["periods"]["mamba"]
+    n, di = m["a_log"].shape[-1], m["conv_w"].shape[-1]
+    m["a_log"].copy_(torch.log(torch.arange(1, n + 1, device=DEV,
+                                            dtype=torch.float32)))
+    dt = torch.empty(m["dt_bias"].shape, device=DEV).uniform_(
+        math.log(1e-3), math.log(1e-1), generator=gen).exp_()
+    m["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+    m["conv_w"].uniform_(-0.5, 0.5, generator=gen)
+    bc = torch.empty(m["bc_proj"].shape, device=DEV).uniform_(
+        -1.0, 1.0, generator=gen)
+    m["bc_proj"].copy_(bc.mul_(HYB_BC_SCALE / math.sqrt(di)))
+
+
+@contextlib.contextmanager
+def scan_timer():
+    """CUDA events around every Mamba scan (`mamba.chunked_scan`) while
+    the block runs: yields the list of (start, end) pairs."""
+    from repro_torch.models import mamba as MB
+    real, marks = MB.chunked_scan, []
+
+    def timed(*a, **kw):
+        s = cuda_mark()
+        out = real(*a, **kw)
+        marks.append((s, cuda_mark()))
+        return out
+
+    MB.chunked_scan = timed
+    try:
+        yield marks
+    finally:
+        MB.chunked_scan = real
+
+
+@contextlib.contextmanager
+def every_pair_kept():
+    """`models.moe.capacity` at N K slots an expert while the block runs:
+    no (token, expert) pair drops, in a forward over B T tokens as in a
+    step over B."""
+    from repro_torch.models import moe as M
+    real = M.capacity
+    M.capacity = lambda n, e, k, cf=1.0: n * k
+    try:
+        yield
+    finally:
+        M.capacity = real
+
+
+class GivenRoutes:
+    """A stand-in for `models.moe._top_k_experts`: keeps the expert
+    choices of the calls it sees while recording, then (`give`) gives
+    them back.  With `b` and `t` set, a call over b tokens (a decode
+    step) takes position `pos` of the recorded calls over b t tokens (a
+    forward), one layer after another; any other call takes the recorded
+    call at its place in the order.  Keeps how often a call's own choice
+    differs (`differ`) and the least of r and 1 / r at those tokens
+    (`tie`, 1 when none), r the ratio of the weakest given expert's
+    probability to the weakest own one's."""
+
+    def __init__(self, real, b: int = 0, t: int = 0):
+        self.real, self.b, self.t, self.seen = real, b, t, []
+        self.recording = True
+
+    def give(self):
+        """From now on give the recorded choices, from the first."""
+        self.recording, self.order, self.steps = False, 0, 0
+        self.differ, self.tie = 0, 1.0
+        return self
+
+    def __call__(self, probs, top_k):
+        own = self.real(probs, top_k)
+        if self.recording:
+            self.seen.append(own)
+            return own
+        if self.b and probs.shape[0] == self.b:
+            n = len(self.seen)
+            layer, pos = self.steps % n, self.steps // n
+            self.steps += 1
+            want = self.seen[layer].reshape(self.b, self.t, top_k)[:, pos]
+        else:
+            want = self.seen[self.order]
+            self.order += 1
+        want = want.to(own.device)
+        differ = (own != want).any(-1)
+        if bool(differ.any()):
+            r = (probs.gather(1, want).amin(-1)
+                 / probs.gather(1, own).amin(-1))[differ]
+            self.differ += int(differ.sum())
+            self.tie = min(self.tie, float(torch.minimum(r, 1 / r).min()))
+        return want
+
+
+@contextlib.contextmanager
+def routes_given(b: int = 0, t: int = 0):
+    """A `GivenRoutes` in place of `models.moe._top_k_experts` while the
+    block runs; yields it."""
+    from repro_torch.models import moe as M
+    real = M._top_k_experts
+    M._top_k_experts = GivenRoutes(real, b, t)
+    try:
+        yield M._top_k_experts
+    finally:
+        M._top_k_experts = real
+
+
+def hyb_steps(bundle, params, toks, fault=None) -> torch.Tensor:
+    """Teacher-forced `serve_step`s over toks [B, T] from position 0 on a
+    fresh `make_cache(B, HYB_SEQ)`: the logits [B, T, V] float32.  A
+    planted `fault` ("tail" or "h") zeroes every Mamba block's conv tail
+    or SSM state after each step."""
+    cache = bundle.make_cache(toks.shape[0], HYB_SEQ, device=DEV)
+    out = []
+    for pos in range(toks.shape[1]):
+        got, cache = bundle.serve_step(params, cache, toks[:, pos:pos + 1],
+                                       pos)
+        out.append(got)
+        if fault is not None:
+            cache[1][HYB_FAULTS.index(fault)].zero_()
+    return torch.stack(out, 1)
+
+
+def hyb_forced(bundle, params, toks, routes) -> tuple:
+    """`forward` over toks and the teacher-forced steps, every pair kept in
+    both, the steps given the forward's expert choices (`routes`, a
+    recording `GivenRoutes`): (forward's logits float32, the steps')."""
+    with every_pair_kept():
+        fwd, _ = bundle._forward(params, {"tokens": toks}, None, remat=False)
+        routes.give()
+        return fwd.float(), hyb_steps(bundle, params, toks)
+
+
+def hyb_bytes(bundle, params) -> dict:
+    """The weights' bytes: untied (every MoE FFN its own experts), those of
+    the experts alone untied, and resident on the card."""
+    from repro_torch import tree as T
+    moe = bundle.specs["periods"]["moe_ffn"]
+    return {"weights_untied": spec_bytes(bundle.specs),
+            "experts_untied": spec_bytes({k: moe[k] for k in HYB_TIED}),
+            "resident": sum(t.untyped_storage().nbytes() for t in {
+                t.untyped_storage().data_ptr(): t
+                for t in T.leaves(params)}.values())}
+
+
+def hyb_prefill(bundle, params, seed: int) -> dict:
+    """(a) `ModelBundle.prefill` of 1 x HYB_PREFILL seeded tokens: ms,
+    tokens/s, the Mamba scans' share (CUDA events around each), peak GB,
+    and the operations bound (2 N_active a token, every block of the
+    attention's scores and p v as the reference computes them)."""
+    cfg = bundle.cfg
+    gen = torch.Generator(device=DEV).manual_seed(seed + 110)
+    tokens = torch.randint(0, cfg.vocab, (1, HYB_PREFILL), generator=gen,
+                           device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), scan_timer() as marks:
+        torch.cuda.synchronize()
+        a = cuda_mark()
+        logits = bundle.prefill(params, {"tokens": tokens})
+        e = cuda_mark()
+        e.synchronize()
+    ms = a.elapsed_time(e)
+    check(bool(torch.isfinite(logits).all()), "hybrid (a): non-finite "
+                                              "prefill logits")
+    scan_ms = sum(s.elapsed_time(t) for s, t in marks)
+    # the lookup is free; the logits read the padded table
+    active = cfg.active_param_count() + (cfg.padded_vocab - cfg.vocab) \
+        * cfg.d_model
+    attn = 4 * HYB_PREFILL ** 2 * cfg.n_heads * cfg.head_dim \
+        * (cfg.n_layers // cfg.attn_period)
+    ops = 2 * active * HYB_PREFILL + attn
+    return {"tokens": HYB_PREFILL, "ms": ms,
+            "tokens_per_s": HYB_PREFILL / ms * 1e3, "scan_ms": scan_ms,
+            "scan_share": scan_ms / ms, "scans": len(marks),
+            "ops_bound_ms": ops / BF16_OPS_PER_S * 1e3,
+            "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def hyb_decode(bundle, params, seed: int, sizes: dict) -> tuple:
+    """(b) HYB_B requests, HYB_STEPS teacher-forced `serve_step`s from
+    position 0 on `make_cache(HYB_B, HYB_SEQ)`: step ms (CUDA events,
+    median) beside the bound (every weight read once as if untied, and
+    the state read and written), and beside it with the experts the steps
+    routed to; a profiled step's kernels and busy share.  Then the check:
+    `forward` over the same tokens and the steps again on a fresh cache,
+    every pair kept in both and forward's expert choices given to the
+    steps (`hyb_forced`): within HYB_DECODE_TOL of forward's max |logit|
+    at every position, and a step's own choice differs only at a near tie.
+    Then the planted faults: the steps again, each dropping the conv
+    tails or the SSM states (HYB_FAULTS), must each leave HYB_DECODE_TOL.
+    Returns (line, batch row 0 of the timed run's cache)."""
+    cfg = bundle.cfg
+    gen = torch.Generator(device=DEV).manual_seed(seed + 111)
+    toks = torch.randint(0, cfg.vocab, (HYB_B, HYB_STEPS), generator=gen,
+                         device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        cache = bundle.make_cache(HYB_B, HYB_SEQ, device=DEV)
+        marks = []
+        with moe_dispatch_counts() as moe:
+            for pos in range(HYB_STEPS):
+                a = cuda_mark()
+                logits, cache = bundle.serve_step(params, cache,
+                                                  toks[:, pos:pos + 1], pos)
+                marks.append((a, cuda_mark()))
+            torch.cuda.synchronize()
+        check(bool(torch.isfinite(logits).all()),
+              "hybrid (b): non-finite decode logits")
+        steps = [a.elapsed_time(e) for a, e in marks]
+        state_bytes = 2 * sum(t.numel() * t.element_size() for t in cache[1])
+        row0 = (tuple(t[:, 0:1].clone() for t in cache[0]),
+                tuple(t[:, :, 0:1].clone() for t in cache[1]))
+        n_k, dev_ms = device_kernels(
+            lambda: bundle.serve_step(params, cache, toks[:, -1:],
+                                      HYB_STEPS), reps=2)
+        del cache
+        with routes_given(HYB_B, HYB_STEPS) as routes:
+            fwd, forced = hyb_forced(bundle, params, toks, routes)
+            gaps = position_gaps(fwd, forced)
+            differ, tie = routes.differ, routes.tie
+            faults = {}
+            for fault in HYB_FAULTS:
+                routes.give()
+                with every_pair_kept():
+                    faults[fault] = forced_gap(fwd, hyb_steps(
+                        bundle, params, toks, fault))
+        del fwd, forced
+    check(max(gaps) <= HYB_DECODE_TOL, f"hybrid (b): teacher-forced "
+          f"steps {max(gaps)} of max |logit| from forward")
+    check(tie >= 1.0 - NEAR_TIE, f"hybrid (b): a step's own expert "
+          f"choice differs from forward's at ratio {tie}")
+    for fault, gap in faults.items():
+        check(gap > HYB_DECODE_TOL, f"hybrid (b): a step that drops the "
+              f"{fault} reads {gap}, within {HYB_DECODE_TOL} of forward")
+    disp = dispatch_summary(moe, HYB_STEPS)
+    kv = 2 * 2 * HYB_B * HYB_STEPS * cfg.n_kv_heads * cfg.head_dim \
+        * (cfg.n_layers // cfg.attn_period)        # K, V read at the end
+    w, ex = sizes["weights_untied"], sizes["experts_untied"]
+    med = statistics.median(steps[1:])
+    bound = (w + state_bytes + kv) / HBM_BYTES_PER_S * 1e3
+    routed = (w - ex + ex * disp["experts_used_per_call"] / cfg.moe_experts
+              + state_bytes + kv) / HBM_BYTES_PER_S * 1e3
+    return {"batch": HYB_B, "steps": HYB_STEPS, "cache_seq": HYB_SEQ,
+            "step_ms_median": med, "step_ms_first": steps[0],
+            "bound_ms": bound, "bound_by": "bytes", "share": bound / med,
+            "bound_routed_ms": routed, "state_bytes": state_bytes,
+            "kernels_per_step": n_k,
+            "device_busy_ms": sum(dev_ms.values()) or None,
+            "busy_share": (sum(dev_ms.values()) / med) if dev_ms else None,
+            "device_ms_by_kind": device_groups(dev_ms),
+            "teacher_forced_rel_max": max(gaps),
+            "tolerance": HYB_DECODE_TOL,
+            "teacher_forced_rel_at": {p: gaps[p] for p in (
+                0, 1, 7, 15, 31, HYB_STEPS - 1)},
+            "teacher_forced_worst_pos": int(np.argmax(gaps)),
+            "own_choices_differ": differ, "near_tie_ratio": tie,
+            "planted_rel_max": faults,
+            **disp, "peak_device_GB": torch.cuda.max_memory_allocated()
+            / 1e9}, row0
+
+
+def hyb_long(bundle, params, seed: int, row0, sizes: dict) -> dict:
+    """(c) long_500k: B = 1 at S = HYB_LONG_S, the attention cache's K and
+    V N(0,1)*0.7 below HYB_LONG_POS, the Mamba states those of batch row
+    0 after (b)'s 64 steps; HYB_LONG_STEPS steps from HYB_LONG_POS: step
+    ms (CUDA events, median) against the bound (the weights as if untied
+    plus the K and V the length needs) and against it with only the
+    experts the steps routed to (the port reads all 16, ROADMAP B' 10),
+    finite logits."""
+    cfg = bundle.cfg
+    gen = torch.Generator(device=DEV).manual_seed(seed + 112)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with torch.no_grad():
+        cache = bundle.make_cache(1, HYB_LONG_S, device=DEV)
+        for plane in cache[0]:
+            for p in range(plane.shape[0]):
+                plane[p, :, :HYB_LONG_POS] = (torch.randn(
+                    plane[p, :, :HYB_LONG_POS].shape, generator=gen,
+                    device=DEV) * 0.7).to(plane.dtype)
+        for dst, src in zip(cache[1], row0[1]):
+            dst.copy_(src)
+        torch.cuda.synchronize()
+        fill_s = time.time() - t0
+        toks = torch.randint(0, cfg.vocab, (HYB_LONG_STEPS, 1, 1),
+                             generator=gen, device=DEV)
+        marks, outs = [], []
+        with moe_dispatch_counts() as moe:
+            for i in range(HYB_LONG_STEPS):
+                a = cuda_mark()
+                logits, cache = bundle.serve_step(params, cache, toks[i],
+                                                  HYB_LONG_POS + i)
+                marks.append((a, cuda_mark()))
+                outs.append(logits)
+            torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(t).all()) for t in outs)
+    check(finite, "hybrid (c): a logit is not finite")
+    ms = [a.elapsed_time(e) for a, e in marks]
+    kv = sum(t.numel() * t.element_size() for t in cache[0])
+    need = kv * (HYB_LONG_POS + HYB_LONG_STEPS) // HYB_LONG_S
+    med = statistics.median(ms[1:])
+    w, ex = sizes["weights_untied"], sizes["experts_untied"]
+    disp = dispatch_summary(moe, HYB_LONG_STEPS)
+    bound = (w + need) / HBM_BYTES_PER_S * 1e3
+    routed = (w - ex + ex * disp["experts_used_per_call"]
+              / bundle.cfg.moe_experts + need) / HBM_BYTES_PER_S * 1e3
+    del cache
+    return {"batch": 1, "seq": HYB_LONG_S, "pos": HYB_LONG_POS,
+            "steps": HYB_LONG_STEPS, "fill_s": fill_s, "step_ms": med,
+            "step_ms_all": ms, "kv_bytes": kv, "bound_ms": bound,
+            "bound_by": "bytes", "share": bound / med,
+            "bound_routed_ms": routed, "share_routed": routed / med, **disp,
+            "logits_finite": finite,
+            "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def hyb_cut_vs_cpu(seed: int) -> dict:
+    """(d) The reduced jamba (models' `.reduced()`: one period, d 128) on
+    the same weights on the card and on the CPU: the loss (within 1e-3 of
+    itself + 1e-3), the prefill logits and HYB_CUT_STEPS decode steps
+    (within HYB_TOL of the CPU's max |logit|), the card's expert choices
+    given to the CPU run (a near tie may round apart; where the CPU's own
+    choice differs it must be one); then HYB_TRAIN_STEPS AdamW steps on
+    the card, the loss finite and falling."""
+    from repro_torch import tree as T
+    from repro_torch.configs.registry import get
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import train as TL
+    from repro_torch.models import build
+    from repro_torch.optim import optimizer as O
+    cfg = get(HYB_ARCH).reduced()
+    bundle = build(cfg)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 113)
+    params = bundle.init(gen, device=DEV)
+    state_mamba(params, gen)
+    cpu = T.tree_map(lambda t: t.cpu(), params)
+    gen = torch.Generator().manual_seed(seed + 114)
+    tok = torch.randint(0, cfg.vocab, (2, 33), generator=gen)
+    host = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    card = {k: v.to(DEV) for k, v in host.items()}
+    tie = {"differ": 0, "ratio": 1.0}
+
+    def rel(a, b):
+        return float((a.cpu().float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    def both(fn):
+        with routes_given() as routes:
+            on_card = fn(params, card)
+            routes.give()
+            on_cpu = fn(cpu, host)
+        tie["differ"] += routes.differ
+        tie["ratio"] = min(tie["ratio"], routes.tie)
+        return on_card, on_cpu
+
+    with torch.no_grad():
+        lc, lh = both(lambda p, b: bundle.loss(p, b)[0])
+        pre = rel(*both(lambda p, b: bundle.prefill(p, b)))
+
+        def steps(p, b):
+            c = bundle.make_cache(2, HYB_CUT_STEPS, device=b["tokens"].device)
+            out = []
+            for pos in range(HYB_CUT_STEPS):
+                o, c = bundle.serve_step(p, c, b["tokens"][:, pos:pos + 1],
+                                         pos)
+                out.append(o)
+            return out
+
+        oc, oh = both(steps)
+        step_rel = [rel(a, b) for a, b in zip(oc, oh)]
+    d_loss = abs(float(lc) - float(lh))
+    check(d_loss <= 1e-3 * abs(float(lh)) + 1e-3,
+          f"hybrid (d): loss {float(lc)} on the card, {float(lh)} on the CPU")
+    check(pre <= HYB_TOL and max(step_rel) <= HYB_TOL,
+          f"hybrid (d): card vs CPU prefill {pre}, steps {max(step_rel)}")
+    check(tie["ratio"] >= 1.0 - NEAR_TIE, f"hybrid (d): the CPU's own "
+          f"expert choice differs from the card's at ratio {tie['ratio']}")
+    ocfg = O.AdamWConfig(lr=1e-3, warmup_steps=2,
+                         total_steps=HYB_TRAIN_STEPS)
+    pipe = TokenPipeline(DataConfig(cfg.vocab, HYB_TRAIN_SEQ, HYB_TRAIN_B,
+                                    seed))
+    state = (params, O.init(params, ocfg))
+    step = TL.make_train_step(bundle, None, ocfg)
+    losses = []
+    for i in range(HYB_TRAIN_STEPS):
+        b = {k: torch.from_numpy(v).to(DEV) for k, v in pipe.batch(i).items()}
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"hybrid (d): AdamW losses {losses}")
+    return {"config": "reduced", "loss_card": float(lc),
+            "loss_cpu": float(lh), "prefill_rel": pre,
+            "steps": HYB_CUT_STEPS, "steps_rel_max": max(step_rel),
+            "cpu_own_choices_differ": tie["differ"],
+            "near_tie_ratio": tie["ratio"], "tolerance": HYB_TOL,
+            "train_losses": losses}
+
+
+def hyb_witness(seed: int) -> dict:
+    """(e) The witness of what bfloat16 rounding does to (b)'s check: a cut
+    of the period at full width, one Mamba block (its dense FFN after it)
+    and the attention block (a MoE FFN after it), with (b)'s tokens and
+    state weights: the teacher-forced steps against `forward` as in (b),
+    in bfloat16 and again in float32 (the weights cast, and the DTYPE of
+    `models.transformer`, `models.serve` and `models.model`),
+    all on the bfloat16 forward's expert choices.  The float32 gap within
+    HYB_F32_TOL; beside the two gaps, how far each path in bfloat16 lies
+    from itself in float32."""
+    import dataclasses
+    from repro_torch.configs.registry import get
+    from repro_torch.models import build
+    from repro_torch.models import model as MD
+    from repro_torch.models import serve as S
+    from repro_torch.models import transformer as TT
+    cfg = dataclasses.replace(get(HYB_ARCH), n_layers=2, attn_period=2)
+    bundle = build(cfg)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 115)
+    torch.cuda.reset_peak_memory_stats()
+    params = bundle.init(gen, device=DEV)
+    state_mamba(params, gen)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 111)
+    toks = torch.randint(0, cfg.vocab, (HYB_B, HYB_STEPS), generator=gen,
+                         device=DEV)
+    with torch.no_grad(), routes_given(HYB_B, HYB_STEPS) as routes:
+        fwd, steps = hyb_forced(bundle, params, toks, routes)
+        differ, tie = routes.differ, routes.tie
+        to_float32(params)
+        with float32_stack(TT, S, MD), every_pair_kept():
+            routes.give()
+            fwd32 = bundle._forward(params, {"tokens": toks}, None,
+                                    remat=False)[0]
+            steps32 = hyb_steps(bundle, params, toks)
+    del params
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    out = {"layers": cfg.n_layers, "blocks": "mamba+dense, attention+moe",
+           "bf16_rel_max": forced_gap(fwd, steps),
+           "f32_rel_max": forced_gap(fwd32, steps32),
+           "max_abs_logit": float(fwd.abs().max()),
+           "forward_bf16_vs_f32": rel(fwd, fwd32),
+           "steps_bf16_vs_f32": rel(steps, steps32),
+           "own_choices_differ": differ, "near_tie_ratio": tie,
+           "f32_tolerance": HYB_F32_TOL,
+           "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+    check(out["f32_rel_max"] <= HYB_F32_TOL, f"hybrid (e): float32 "
+          f"teacher-forced steps {out['f32_rel_max']} of max |logit|")
+    return out
+
+
+def to_float32(tree: dict) -> None:
+    """Every floating leaf of a nested dict cast to float32 in place, one
+    leaf at a time (each bfloat16 leaf freed as its copy is made)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            to_float32(v)
+        elif v.is_floating_point():
+            tree[k] = v.float()
+
+
+def hybrid_phase(seed: int) -> None:
+    """A13's hybrid: jamba-1.5-large-398b at full width on one period
+    (the experts tied and the Mamba blocks' state weights redrawn,
+    `hybrid_params`): (a) prefill, (b) teacher-forced decode against
+    forward, with two planted faults, (c) long_500k, then (d) the reduced
+    config on the card against the CPU, and its training, and (e) the
+    float32 witness of (b) on a cut of the period.  One JSON line a part;
+    no kernel of the port runs here (the reference's hybrid reaches no
+    Pallas kernel)."""
+    import dataclasses
+    from repro_torch.configs.registry import get
+    from repro_torch.models import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get(HYB_ARCH)
+    cfg = dataclasses.replace(full, n_layers=full.attn_period)
+    bundle = build(cfg)
+    t0 = time.time()
+    params = hybrid_params(bundle, seed + 109)
+    torch.cuda.synchronize()
+    sizes = hyb_bytes(bundle, params)
+    head = {"phase": "hybrid", "arch": HYB_ARCH, "layers": cfg.n_layers,
+            "full_layers": full.n_layers, "d_model": cfg.d_model,
+            "d_inner": 2 * cfg.d_model, "ssm_state": cfg.ssm_state,
+            "experts": cfg.moe_experts, "top_k": cfg.moe_top_k,
+            "init_s": time.time() - t0, **sizes,
+            "resident_GB": torch.cuda.memory_allocated() / 1e9}
+    for part, fn in (("a", lambda: hyb_prefill(bundle, params, seed)),
+                     ("b", lambda: hyb_decode(bundle, params, seed, sizes))):
+        t1 = time.time()
+        out = fn()
+        if part == "b":
+            out, row0 = out
+        print(json.dumps({**head, "part": part, **out,
+                          "part_s": time.time() - t1}), flush=True)
+    t1 = time.time()
+    line = hyb_long(bundle, params, seed, row0, sizes)
+    print(json.dumps({**head, "part": "c", **line,
+                      "part_s": time.time() - t1}), flush=True)
+    del params, row0
+    for part, fn in (("d", hyb_cut_vs_cpu), ("e", hyb_witness)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.time()
+        line = fn(seed)
+        print(json.dumps({"phase": "hybrid", "part": part, "arch": HYB_ARCH,
+                          **line, "part_s": time.time() - t1}), flush=True)
+
+
 def phase_timed(name: str, fn, *args):
     """fn(*args), its wall time on stderr."""
     t0 = time.time()
@@ -4803,6 +5460,7 @@ def main(argv=None) -> int:
     rows += phase_timed("grads", grads_phase, args.seed)
     rows += phase_timed("train", train_phase, args.seed)
     phase_timed("families", families_phase, args.seed)
+    phase_timed("hybrid", hybrid_phase, args.seed)
     check(set(KERNELS) <= {r["name"] for r in rows},
           "a kernel has no main-path row")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -26,7 +26,7 @@ from ..core.pipeline import resolve_device
 from . import layers as L
 from .params import ParamSpec
 from .serve import RawCache
-from .transformer import DTYPE
+from .transformer import DTYPE, _index
 
 MAX_DEC_LEN = 32_768          # covers the decode_32k / prefill_32k shapes
 
@@ -87,12 +87,6 @@ def _block_ln(p: dict, x, eps: float):
     return L.layer_norm(x, p["w"], p["b"], eps)
 
 
-def _layer(lay: dict, i: int) -> dict:
-    """Layer i's slice of a stacked (nested) parameter tree."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in lay.items()}
-
-
 def _enc_layer(cfg: ArchConfig, lp: dict, h):
     hn = _block_ln(lp["self"]["ln"], h, cfg.norm_eps)
     h = h + _mha(cfg, lp["self"], hn, hn, causal=False)
@@ -121,7 +115,7 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor):
     x = frames.to(DTYPE) + params["enc_pos"][None].to(DTYPE)
     for i in range(cfg.enc_layers):
         x = _run_layer(lambda lp, h: _enc_layer(cfg, lp, h), True,
-                       _layer(params["enc"], i), x)
+                       _index(params["enc"], i), x)
     return _block_ln(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -136,7 +130,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     x = (params["emb"][tokens] + params["dec_pos"][:s][None]).to(DTYPE)
     for i in range(cfg.n_layers):
         x = _run_layer(lambda lp, h, e: _dec_layer(cfg, lp, h, e), remat,
-                       _layer(params["dec"], i), x, enc_out)
+                       _index(params["dec"], i), x, enc_out)
     x = _block_ln(params["final_norm"], x, cfg.norm_eps)
     logits = x @ params["emb"].T.to(DTYPE)
     return logits, torch.zeros((), device=logits.device)
@@ -187,7 +181,7 @@ def serve_step(cfg: ArchConfig, params: dict, cache, tokens, pos: int,
     lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=dev)
     full = torch.full((b,), cfg.enc_context, dtype=torch.int32, device=dev)
     for i in range(cfg.n_layers):
-        lp = _layer(params["dec"], i)
+        lp = _index(params["dec"], i)
         kc, vc = self_kv.k[i], self_kv.v[i]
         hn = _block_ln(lp["self"]["ln"], x, cfg.norm_eps)
         q = (hn @ lp["self"]["wq"]).reshape(b, 1, h, hd)

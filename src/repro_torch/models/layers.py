@@ -146,34 +146,39 @@ def decode_attention(q, k_cache, v_cache, lengths):
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
-def chunked_scan(step, carry: tuple, xs: torch.Tensor, chunk: int = 64,
+def chunked_scan(step, carry: tuple, xs, chunk: int = 64,
                  remat: bool = True):
-    """A scan over time in chunks: step(carry, xs[t]) -> (carry, y_t) for t
+    """A scan over time in chunks: step(carry, x_t) -> (carry, y_t) for t
     in order; returns (carry, ys stacked on a leading T axis).  carry is a
-    tuple of tensors, xs a tensor [T, ...].  The chunk is min(chunk, T),
-    or 1 where it does not divide T (the reference's rule).  While autograd
-    records (and remat), each chunk runs under `torch.utils.checkpoint`:
-    the backward pass keeps the carry only at chunk boundaries and replays
-    the steps inside, which changes no value."""
-    t = xs.shape[0]
+    tuple of tensors; xs a tensor [T, ...], or a tuple of them (the
+    reference's pytree), and x_t is then the tuple of their slices at t.
+    The chunk is min(chunk, T), or 1 where it does not divide T (the
+    reference's rule).  While autograd records (and remat), each chunk
+    runs under `torch.utils.checkpoint`: the backward pass keeps the carry
+    only at chunk boundaries and replays the steps inside, which changes
+    no value."""
+    one = torch.is_tensor(xs)
+    xs = (xs,) if one else tuple(xs)
+    n_x, t = len(xs), xs[0].shape[0]
     chunk = min(chunk, t)
     if t % chunk:
         chunk = 1
 
-    def run(xc, *c):
+    def run(*args):
+        xc, c = args[:n_x], args[n_x:]
         ys = []
-        for i in range(xc.shape[0]):
-            c, y = step(c, xc[i])
+        for i in range(xc[0].shape[0]):
+            c, y = step(c, xc[0][i] if one else tuple(a[i] for a in xc))
             ys.append(y)
         return (*c, torch.stack(ys))
 
     ys = []
     for start in range(0, t, chunk):
-        xc = xs[start:start + chunk]
+        xc = tuple(a[start:start + chunk] for a in xs)
         if remat and torch.is_grad_enabled():
-            *carry, y = checkpoint(run, xc, *carry, use_reentrant=False)
+            *carry, y = checkpoint(run, *xc, *carry, use_reentrant=False)
         else:
-            *carry, y = run(xc, *carry)
+            *carry, y = run(*xc, *carry)
         carry = tuple(carry)
         ys.append(y)
     return carry, torch.cat(ys)

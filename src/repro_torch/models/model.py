@@ -1,8 +1,7 @@
 """Family dispatcher: ArchConfig -> parameter specs, weights, the training
 loss, caches, the forward pass's prefill, the decode step and the input
-specs (counterpart of `repro.models.model`, for the dense, vlm, MoE,
-encdec and ssm families; the hybrid has its specs, and its forward,
-caches and decode step raise, naming ROADMAP A13).
+specs (counterpart of `repro.models.model`, for every family: dense,
+vlm, MoE, hybrid, encdec and ssm).
 
 `mesh` is a `launch.mesh.Mesh` of the calling rank: the MoE layers then
 run expert parallel over its "model" axis (`models.moe`), with `params`
@@ -15,8 +14,7 @@ from typing import NamedTuple
 import torch
 
 from ..configs.base import ArchConfig, ShapeConfig
-from ..core.pipeline import not_ported
-from . import encdec, serve, transformer, xlstm_stack
+from . import encdec, mamba, serve, transformer, xlstm_stack
 from .params import abstract, axes_tree, count_params, materialize
 from .transformer import DTYPE
 
@@ -73,13 +71,30 @@ class ModelBundle(NamedTuple):
 
     def make_cache(self, batch: int, seq: int, quantized: bool = False, *,
                    device="cuda"):
+        """A zero decode cache of `batch` rows over `seq` tokens: raw or
+        (quantized=True) a QuantCache for the decoder stacks; the ssm
+        family's recurrent state, encdec's self-attention cache (its
+        cross K/V comes from `encdec.cross_kv`), and for the hybrid
+        (RawCache over its periods' attention layers, (conv tails [P,
+        n_mamba, B, K-1, Di] bfloat16, ssm states [P, n_mamba, B, Di, N]
+        float32)) whatever `quantized` says, as the reference gives."""
         cfg = self.cfg
         if cfg.family == "ssm":
             return xlstm_stack.make_cache(cfg, batch, seq, device=device)
         if cfg.family == "encdec":
             return encdec.make_cache(cfg, batch, seq, device=device)
         if cfg.family == "hybrid":
-            raise not_ported("the hybrid family's cache", "ROADMAP A13")
+            # the reference's: a raw cache whatever `quantized` says
+            periods = cfg.n_layers // cfg.attn_period
+            n_mamba, di = cfg.attn_period - 1, 2 * cfg.d_model
+            attn = serve.make_raw_cache(cfg, batch, seq, n_layers=periods,
+                                        device=device)
+            dev = attn.k.device
+            tails = torch.zeros((periods, n_mamba, batch, mamba.CONV_K - 1,
+                                 di), dtype=DTYPE, device=dev)
+            hs = torch.zeros((periods, n_mamba, batch, di, cfg.ssm_state),
+                             dtype=torch.float32, device=dev)
+            return (attn, (tails, hs))
         if quantized:
             return serve.make_quant_cache(cfg, batch, seq, device=device)
         return serve.make_raw_cache(cfg, batch, seq, device=device)

@@ -1,9 +1,9 @@
 """Decode-step (serving) paths over a KV cache: raw bfloat16, or quantized
 with a guaranteed error bound (counterpart of `repro.models.serve`, the
-dense, vlm and MoE families).  A MoE layer's FFN is the reference's
-`moe_ffn_local` over the step's B tokens (capacity max(1, int(K B / E))
-slots per expert, so an aligned batch can drop (token, k) pairs, as the
-reference's step does).
+dense, vlm, MoE and hybrid families).  A MoE layer's FFN is the
+reference's `moe_ffn_local` over the step's B tokens (capacity max(1,
+int(K B / E)) slots per expert, so an aligned batch can drop (token, k)
+pairs, as the reference's step does).
 
 Quantized cache layout per layer (`compression.kv`):
     bins   int8 [L, B, G, S, hd]       4x smaller than bf16 K+V
@@ -25,6 +25,11 @@ and the outliers are bfloat16 values, so B12 attends to the same values.
 Where the history is empty (pos < page) the kernel is not called and the
 merge takes the hot part alone, with the reference's arithmetic.
 
+The hybrid (jamba) decodes over a raw cache of its periods' attention
+layers and each Mamba block's conv tail and SSM state (`_serve_hybrid`,
+the reference's `_serve_hybrid`); it has no QuantCache path, engine or
+`stream_prefill`, as the reference has none.
+
 Caches are updated in place: `serve_step` returns the cache it was given
 (the reference returns a new one).
 
@@ -43,12 +48,13 @@ import torch
 from ..compression import kv as KVC
 from ..configs.base import ArchConfig
 from ..core.config import QuantizerConfig
-from ..core.pipeline import not_ported, resolve_device
+from ..core.pipeline import resolve_device
 from ..core.transport import TRANSPORT, Transport
 from ..kernels import kv_attention as KA
 from . import layers as L
 from .moe import moe_ffn_rows
-from .transformer import DTYPE, _ffn_block
+from . import mamba as M
+from .transformer import DTYPE, _ffn_block, _index, _project, hybrid_blocks
 
 PAGE = KVC.PAGE
 CAP = KVC.CAP
@@ -141,36 +147,32 @@ def transfer_cache(cache: QuantCache, src: int, dst: int, axis, *,
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    """This step, the engine and `stream_prefill` serve the decoder stack.
-    encdec and ssm decode through their own `serve_step` (by
-    `ModelBundle.serve_step`); the reference's engine does not run them
-    either (its prefill reads params["layers"]).  The hybrid is not
-    ported."""
+    """The QuantCache path (`serve_step` over a QuantCache,
+    `serve_step_rows`), the engine and `stream_prefill` serve the dense,
+    vlm and MoE decoder stacks.  encdec and ssm decode through their own
+    `serve_step` (by `ModelBundle.serve_step`), the hybrid through
+    `serve_step` over `ModelBundle.make_cache`'s raw cache and states; the
+    reference's engine does not run them either (it asserts the hybrid
+    away, engine.py:125; its prefill reads params["layers"])."""
     if cfg.family in ("encdec", "ssm"):
         raise NotImplementedError(
             f"the {cfg.family} family has no QuantCache serve path: the "
             "reference's DecodeEngine fails on it too (its prefill reads "
             "params['layers']); decode it with ModelBundle.serve_step")
-    if cfg.family not in ("dense", "vlm", "moe"):
-        raise not_ported(f"serving the {cfg.family} family",
-                         "ROADMAP A13 (mamba/hybrid serve)")
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            "the hybrid family has no QuantCache serve path: the "
+            "reference's DecodeEngine refuses it (engine.py:125, \"engine "
+            "serves the QuantCache path\"); decode it with serve_step over "
+            "ModelBundle.make_cache's (RawCache, (conv tails, ssm states))")
 
 
 def _project_token(cfg: ArchConfig, p: dict, x: torch.Tensor, pos):
     """x: [B, 1, D] -> q [B, 1, H, hd], k/v [B, 1, G, hd], rope at pos (a
     host int, or int32 positions [B, 1], one a row)."""
-    b = x.shape[0]
-    h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    hx = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = (hx @ p["wq"]).reshape(b, 1, h, hd)
-    kv = (hx @ p["wkv"]).reshape(b, 1, 2, g, hd)
-    k, v = kv[:, :, 0], kv[:, :, 1]
     positions = pos if torch.is_tensor(pos) else torch.full(
         (1, 1), pos, dtype=torch.int32, device=x.device)
-    cos, sin = L.rope_tables(positions,
-                             hd if cfg.rope == "full" else hd // 2)
-    return (L.apply_rope(q, cos, sin, cfg.rope),
-            L.apply_rope(k, cos, sin, cfg.rope), v)
+    return _project(cfg, p, x, positions)
 
 
 def _attn_decode_raw(cfg: ArchConfig, p: dict, x, kc, vc, pos: int):
@@ -288,10 +290,6 @@ def _attn_decode_quant(cfg: ArchConfig, p: dict, x, qk, qv, hot_k, hot_v,
     return x + o @ p["wo"]
 
 
-def _layer(tree: dict, i: int) -> dict:
-    return {k: v[i] for k, v in tree.items()}
-
-
 def _qkv_layer(qkv: KVC.QuantizedKV, i: int) -> KVC.QuantizedKV:
     return KVC.QuantizedKV(*(t[i] for t in qkv))
 
@@ -303,33 +301,74 @@ def serve_step(cfg: ArchConfig, params: dict, cache, tokens, pos: int,
     updated in place.  `mesh`: the calling rank's (`launch.mesh`); the MoE
     layers then take the expert-parallel decode path over its "model"
     axis, every other layer runs replicated."""
-    _check_family(cfg)
     pos = int(pos)
     x = params["emb"][tokens].to(DTYPE)
-    lay = params["layers"]
-    if isinstance(cache, QuantCache):
+    if cfg.family == "hybrid":
+        x = _serve_hybrid(cfg, params, cache, x, pos, mesh)
+    elif isinstance(cache, QuantCache):
+        _check_family(cfg)
         if kv_cfg is None:
             raise ValueError("a quantized cache needs kv_cfg")
         if cache.k.bins.shape[3] <= pos:
             raise ValueError(f"pos {pos} is past the cache's "
                              f"{cache.k.bins.shape[3]} tokens")
+        lay = params["layers"]
         for i in range(cfg.n_layers):
-            lp = _layer(lay, i)
+            lp = _index(lay, i)
             x = _attn_decode_quant(cfg, lp, x, _qkv_layer(cache.k, i),
                                    _qkv_layer(cache.v, i), cache.hot_k[i],
                                    cache.hot_v[i], pos, kv_cfg)
             x, _ = _ffn_block(cfg, lp, x, mesh)
     else:
+        _check_family(cfg)
         if cache.k.shape[2] <= pos:
             raise ValueError(f"pos {pos} is past the cache's "
                              f"{cache.k.shape[2]} tokens")
+        lay = params["layers"]
         for i in range(cfg.n_layers):
-            lp = _layer(lay, i)
+            lp = _index(lay, i)
             x = _attn_decode_raw(cfg, lp, x, cache.k[i], cache.v[i], pos)
             x, _ = _ffn_block(cfg, lp, x, mesh)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["emb"].T.to(DTYPE))[:, 0].to(torch.float32)
     return logits, cache
+
+
+def _serve_hybrid(cfg: ArchConfig, params: dict, cache, x, pos: int,
+                  mesh=None) -> torch.Tensor:
+    """The jamba decode step's stack over cache = (RawCache over the
+    periods' attention layers [P, B, S, G, hd], (conv_tail [P, n_mamba, B,
+    K-1, Di] bfloat16, ssm_h [P, n_mamba, B, Di, N] float32)), every plane
+    written in place: the attention block through `_attn_decode_raw`, each
+    Mamba block from its state (`mamba.mamba_block` at T = 1), the FFNs
+    as the decoder stack's."""
+    if not (isinstance(cache, tuple) and len(cache) == 2
+            and isinstance(cache[0], RawCache)):
+        raise TypeError("the hybrid decodes over ModelBundle.make_cache's "
+                        "(RawCache, (conv tails, ssm states)); it has no "
+                        "QuantCache path (the reference's engine refuses it, "
+                        "engine.py:125)")
+    attn, (tails, hs) = cache
+    if attn.k.shape[2] <= pos:
+        raise ValueError(f"pos {pos} is past the cache's "
+                         f"{attn.k.shape[2]} tokens")
+    periods = params["periods"]
+    for per in range(cfg.n_layers // cfg.attn_period):
+        pp = _index(periods, per)
+        for _, mi, ffn, fi in hybrid_blocks(cfg):
+            if mi is None:
+                x = _attn_decode_raw(cfg, pp["attn"], x, attn.k[per],
+                                     attn.v[per], pos)
+            else:
+                mp = _index(pp["mamba"], mi)
+                hn = L.rms_norm(x, mp["ln1"], cfg.norm_eps)
+                y, (tail, h) = M.mamba_block(
+                    mp, hn, state=(tails[per, mi], hs[per, mi]))
+                x = x + y
+                tails[per, mi].copy_(tail)
+                hs[per, mi].copy_(h)
+            x, _ = _ffn_block(cfg, _index(pp[ffn], fi), x, mesh)
+    return x
 
 
 # ------------------------------------------------- one position a row --
@@ -445,7 +484,7 @@ def serve_step_rows(cfg: ArchConfig, params: dict, cache: QuantCache,
     x = params["emb"][tokens].to(DTYPE)
     lay = params["layers"]
     for i in range(cfg.n_layers):
-        lp = _layer(lay, i)
+        lp = _index(lay, i)
         x = _attn_decode_rows(cfg, lp, x, _qkv_layer(cache.k, i),
                               _qkv_layer(cache.v, i), cache.hot_k[i],
                               cache.hot_v[i], st, kv_cfg, pages_per_split)

@@ -1,5 +1,6 @@
 """The decoder stack: parameter specs, blocks and the forward pass for the
-dense, vlm and MoE families (counterpart of `repro.models.transformer`).
+dense, vlm, MoE and hybrid (jamba) families (counterpart of
+`repro.models.transformer`).
 
 Per-layer parameters are stacked on a leading layer axis, as in the
 reference, so its parameter tree carries across as it is
@@ -8,9 +9,13 @@ grouped remat (`jax.checkpoint`); the port loops over the layers in
 Python (as `serve_step` does) and, with remat while autograd records,
 wraps each layer in `torch.utils.checkpoint.checkpoint`: the backward
 pass recomputes the layer from its input instead of keeping its
-activations, which changes no value.  encdec and ssm have stacks of
-their own (`models.encdec`, `models.xlstm_stack`); the jamba hybrid has
-its parameter specs here, and its stack is not ported (ROADMAP A13).
+activations, which changes no value.  The jamba hybrid's stack walks
+its periods the same way (`_period`: seven Mamba blocks and an
+attention block, each followed by its dense or MoE FFN), each period
+one checkpoint, inside which `mamba.mamba_block`'s scan checkpoints its
+chunks (the reference's `scan_grouped_remat(..., max_group=1)` over
+`chunked_scan`).  encdec and ssm have stacks of their own
+(`models.encdec`, `models.xlstm_stack`).
 
 With a `launch.mesh.Mesh` of the calling rank the MoE layers run expert
 parallel over its "model" axis (`moe.moe_ffn`); every other layer runs
@@ -23,9 +28,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from ..core.pipeline import not_ported
 from ..launch.mesh import data_axes
 from . import layers as L
+from . import mamba as M
 from .moe import moe_ffn
 from .params import ParamSpec
 
@@ -36,14 +41,14 @@ OWN_STACK = {"encdec": "models.encdec", "ssm": "models.xlstm_stack"}
 
 
 def _check_decoder(cfg: ArchConfig, what: str) -> None:
-    """The decoder stack runs the dense, vlm and MoE families; encdec and
-    ssm have stacks of their own, the hybrid's is not ported."""
+    """The decoder stack runs the dense, vlm, MoE and hybrid families;
+    encdec and ssm have stacks of their own."""
     if cfg.family in OWN_STACK:
         raise ValueError(f"the {cfg.family} family's {what} lives in "
                          f"{OWN_STACK[cfg.family]} (models.build dispatches "
                          "to it)")
-    if cfg.family not in ("dense", "vlm", "moe"):
-        raise not_ported(f"the {cfg.family} family's {what}", "ROADMAP A13")
+    if cfg.family not in ("dense", "vlm", "moe", "hybrid"):
+        raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def _attn_specs(cfg: ArchConfig, lead=()):
@@ -88,8 +93,6 @@ def _moe_specs(cfg: ArchConfig, lead=()):
     }
 
 
-MAMBA_CONV_K = 4                  # the reference's models/mamba.py CONV_K
-
 _MAMBA_AXES = {
     "in_proj": ("embed", "mlp"),
     "conv_w": (None, "mlp"),
@@ -103,18 +106,13 @@ _MAMBA_AXES = {
 
 
 def _mamba_specs(cfg: ArchConfig, lead=()):
-    """One Mamba block's parameters (the reference's mamba_params_shape)."""
-    d, n = cfg.d_model, cfg.ssm_state
-    di = 2 * d
-    f32 = torch.float32
-    shapes = {"in_proj": ((d, 2 * di), DTYPE),
-              "conv_w": ((MAMBA_CONV_K, di), f32),
-              "a_log": ((di, n), f32), "d_skip": ((di,), f32),
-              "bc_proj": ((di, 2 * n), DTYPE), "dt_proj": ((di, di), DTYPE),
-              "dt_bias": ((di,), f32), "out_proj": ((di, d), DTYPE)}
+    """One Mamba block's parameters (`mamba.mamba_params_shape`) and its
+    norm."""
     ax = tuple(None for _ in lead)
-    out = {"ln1": ParamSpec(lead + (d,), f32, ax + (None,), -1.0)}
-    for name, (shape, dt) in shapes.items():
+    out = {"ln1": ParamSpec(lead + (cfg.d_model,), torch.float32,
+                            ax + (None,), -1.0)}
+    for name, (shape, dt) in M.mamba_params_shape(
+            cfg.d_model, cfg.ssm_state, DTYPE).items():
         scale = -1.0 if name in ("a_log", "d_skip", "dt_bias") else 0.02
         out[name] = ParamSpec(lead + shape, dt, ax + _MAMBA_AXES[name], scale)
     return out
@@ -147,10 +145,11 @@ def param_specs(cfg: ArchConfig) -> dict:
     return specs
 
 
-def _attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
-               positions: torch.Tensor, *, causal: bool = True):
-    """The attention sublayer over a whole sequence, with its residual:
-    x [B, S, D] -> x + wo(flash_attention(rope(q), rope(k), v))."""
+def _project(cfg: ArchConfig, p: dict, x: torch.Tensor,
+             positions: torch.Tensor):
+    """The attention sublayer's projections: x [B, S, D] -> q [B, S, H,
+    hd], k, v [B, S, G, hd] of rms_norm(x), q and k roped at `positions`
+    ([1, S], or [B, S] one row each)."""
     b, s, _ = x.shape
     h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     hx = L.rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -158,8 +157,17 @@ def _attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
     kv = (hx @ p["wkv"]).reshape(b, s, 2, g, hd)
     k, v = kv[:, :, 0], kv[:, :, 1]
     cos, sin = L.rope_tables(positions, hd if cfg.rope == "full" else hd // 2)
-    q = L.apply_rope(q, cos, sin, cfg.rope)
-    k = L.apply_rope(k, cos, sin, cfg.rope)
+    return (L.apply_rope(q, cos, sin, cfg.rope),
+            L.apply_rope(k, cos, sin, cfg.rope), v)
+
+
+def _attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
+               positions: torch.Tensor, *, causal: bool = True):
+    """The attention sublayer over a whole sequence, with its residual:
+    x [B, S, D] -> x + wo(flash_attention(rope(q), rope(k), v))."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    q, k, v = _project(cfg, p, x, positions)
     k = L.repeat_kv(k, cfg.group_size)
     v = L.repeat_kv(v, cfg.group_size)
     o = L.flash_attention(q, k, v, causal=causal)
@@ -193,26 +201,71 @@ def _layer(cfg: ArchConfig, lp: dict, x: torch.Tensor,
     return _ffn_block(cfg, lp, x, mesh, moe_data_axes)
 
 
+def _index(tree: dict, i: int) -> dict:
+    """Layer i of a stacked parameter tree (dicts of tensors)."""
+    return {k: _index(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def hybrid_blocks(cfg: ArchConfig):
+    """A period's blocks in order: (block, mamba index or None for the
+    attention block, "moe_ffn" or "dense_ffn", the FFN's index)."""
+    n_per, out = cfg.attn_period, []
+    mamba_i = dense_i = moe_i = 0
+    for blk in range(n_per):
+        mi = None if blk == n_per - 1 else mamba_i
+        mamba_i += mi is not None
+        if blk % cfg.moe_every == cfg.moe_every - 1:
+            out.append((blk, mi, "moe_ffn", moe_i))
+            moe_i += 1
+        else:
+            out.append((blk, mi, "dense_ffn", dense_i))
+            dense_i += 1
+    return out
+
+
+def _period(cfg: ArchConfig, pp: dict, x: torch.Tensor,
+            positions: torch.Tensor, mesh=None, moe_data_axes=None):
+    """One jamba period: blocks 0 .. n_per - 2 are rms_norm + Mamba with
+    the residual, the last is attention; after each block its FFN (MoE
+    every moe_every-th block).  Returns (x, the period's aux loss)."""
+    aux = 0.0
+    for _, mi, ffn, fi in hybrid_blocks(cfg):
+        if mi is None:
+            x = _attention(cfg, pp["attn"], x, positions)
+        else:
+            mp = _index(pp["mamba"], mi)
+            y, _ = M.mamba_block(mp, L.rms_norm(x, mp["ln1"], cfg.norm_eps))
+            x = x + y
+        x, a = _ffn_block(cfg, _index(pp[ffn], fi), x, mesh, moe_data_axes)
+        aux = aux + a
+    return x, aux
+
+
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, mesh=None,
             remat: bool = True, moe_data_axes=None):
     """tokens: int [B, S] -> (logits bfloat16 [B, S, V_padded], aux float32
     []), the sum of the layers' load-balance losses.  `mesh`: the calling
     rank's (MoE layers expert parallel; the tokens are the rank's);
-    `remat` checkpoints each layer while autograd records;
-    `moe_data_axes`: the axes the MoE aux is averaged over besides the
-    model axis (default: the mesh's data axes)."""
+    `remat` checkpoints each layer (the hybrid: each period) while
+    autograd records; `moe_data_axes`: the axes the MoE aux is averaged
+    over besides the model axis (default: the mesh's data axes)."""
     _check_decoder(cfg, "forward pass")
     x = params["emb"][tokens].to(DTYPE)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
-    lay = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = {k: v[i] for k, v in lay.items()}
+    if cfg.family == "hybrid":
+        stack, fn, n = params["periods"], _period, (
+            cfg.n_layers // cfg.attn_period)
+    else:
+        stack, fn, n = params["layers"], _layer, cfg.n_layers
+    for i in range(n):
+        lp = _index(stack, i)
         if remat and torch.is_grad_enabled():
-            x, a = checkpoint(_layer, cfg, lp, x, positions, mesh,
+            x, a = checkpoint(fn, cfg, lp, x, positions, mesh,
                               moe_data_axes, use_reentrant=False)
         else:
-            x, a = _layer(cfg, lp, x, positions, mesh, moe_data_axes)
+            x, a = fn(cfg, lp, x, positions, mesh, moe_data_axes)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["emb"].T.to(DTYPE), aux

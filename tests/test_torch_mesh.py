@@ -128,16 +128,12 @@ def _shape_pairs():
 def test_input_specs_equal_the_reference(name, shape):
     """Every input of every (arch, shape) cell: the same tree of shapes and
     dtypes as the reference's ShapeDtypeStructs, quantized and raw KV for
-    the decode shapes, on the meta device.  The hybrid's decode cache is
-    not ported (ROADMAP A13) and raises."""
+    the decode shapes, on the meta device (the hybrid's decode cache is
+    raw either way, as the reference's)."""
     jb, tb = j_build(JR.get(name)), t_build(TR.get(name))
     jshape, tshape = JB.SHAPES[shape], TB.SHAPES[shape]
     for quantized in ((False, True) if jshape.kind == "decode" else (False,)):
         want = jb.input_specs(jshape, quantized_kv=quantized)
-        if jshape.kind == "decode" and JR.get(name).family == "hybrid":
-            with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-                tb.input_specs(tshape, quantized_kv=quantized)
-            continue
         got = tb.input_specs(tshape, quantized_kv=quantized)
         assert sorted(got) == sorted(want)
         j_leaves = jax.tree.leaves(want)
@@ -174,6 +170,29 @@ def test_batch_cache_and_replicated_shardings_equal_the_reference(multi_pod):
         got_b, _ = T.flatten(TM.batch_shardings_for(tmesh, tc))
         assert [s.spec for s in got_b] == [tuple(jax.sharding.PartitionSpec(
             dp, *(None,) * (a.ndim - 1))) for a in jax.tree.leaves(jc)]
+
+
+@pytest.mark.parametrize("multi_pod", MULTI)
+def test_hybrid_cache_shardings_take_dim_1(multi_pod):
+    """`cache_shardings` over the hybrid's cache keeps the reference's rule:
+    dim 1 over the data axes for every leaf of 2 or more dims.  For the
+    attention K/V ([P, B, S, G, hd]) that is the batch; for the conv tails
+    and SSM states ([P, n_mamba, B, ...]) it is the Mamba block axis, and
+    the reference's docstring leaves their batch dim (2) to the caller.
+    Pinned as the reference gives it."""
+    tmesh = TM.make_production_mesh(multi_pod=multi_pod)
+    dp = JM.data_axes(_ref_mesh(multi_pod))
+    cfg = JR.get("jamba-1.5-large-398b").reduced()
+    jc = jax.eval_shape(lambda: j_build(cfg).make_cache(2, 256))
+    tc = t_build(TR.get("jamba-1.5-large-398b").reduced()).make_cache(
+        2, 256, device="meta")
+    want = [tuple(jax.sharding.PartitionSpec(None, dp, *(None,) * (
+        a.ndim - 2))) for a in jax.tree.leaves(jc)]
+    got, _ = T.flatten(TM.cache_shardings(tmesh, tc))
+    assert [s.spec for s in got] == want
+    assert [t.ndim for t in T.leaves(tc)] == [5, 5, 5, 5]
+    assert got[2].spec[2] is None and got[3].spec[2] is None   # B: not
+    assert tc[1][0].shape[1] == cfg.attn_period - 1      # n_mamba, not B
 
 
 def test_local_views_tile_the_tensor_and_share_its_storage():

@@ -23,7 +23,6 @@ experts and of the port's are within a factor 1 - NEAR_TIE (ROADMAP
 C-port-6 records such a difference); a planted fault in the gates fails
 the limit, and one in the choice fails the near-tie check.
 """
-import contextlib
 import dataclasses
 
 import numpy as np
@@ -57,6 +56,8 @@ from repro_torch.models import serve as TS
 from repro_torch.models import transformer as TT
 from repro_torch.models.params import params_from_numpy
 
+from reference_jobs import reference_routes
+
 RNG = np.random.default_rng(2027)
 LOGIT_TOL = 2e-2          # of max |reference logit| (tests/test_torch_serve.py)
 GATE_RTOL = 2.0 ** -21    # four float32 ulps
@@ -72,6 +73,18 @@ CONFIGS = {"tiny-moe": (JArch(**TINY_MOE), TArch(**TINY_MOE)),
                                    TR.get("qwen3-moe-235b-a22b").reduced())}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one thread in a module that uses it (this one, and those
+    that import it): their tensors are small, and with test workers
+    sharing the cores, threads of small ops only wait on one another
+    (each worker's torch takes every core by default)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     """{name: (reference cfg, port cfg, reference params, port params)}."""
@@ -81,25 +94,6 @@ def models():
         tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
         out[name] = (jc, tc, jp, tp)
     return out
-
-
-@contextlib.contextmanager
-def reference_routes():
-    """Record every expert choice the reference makes (its `_route`'s
-    gate_idx, in call order, inside jit and scan too) into a list."""
-    real, got = JM._route, []
-
-    def route(x_flat, router_w, top_k):
-        out = real(x_flat, router_w, top_k)
-        jax.debug.callback(lambda gi: got.append(np.asarray(gi)), out[1],
-                           ordered=True)
-        return out
-
-    JM._route = route
-    try:
-        yield got
-    finally:
-        JM._route = real
 
 
 class forced_routes:
@@ -573,15 +567,22 @@ def test_params_carry_moe_tree_across(models):
 
 
 def test_hybrid_forward_and_prefill_raise():
-    """The hybrid has its parameter specs (tests/test_torch_mesh.py holds
-    them against the reference); its forward and prefill raise."""
+    """The hybrid's forward and prefill run (tests/test_torch_hybrid.py
+    holds them against the reference): on the port's own weights, finite
+    bfloat16 logits of the reference's shape, and prefill the last of
+    them bit for bit.  What raises is the decoder stack called for a
+    family with a stack of its own (ssm)."""
     cfg = TR.get("jamba-1.5-large-398b").reduced()
     bundle = t_build(cfg)
     assert "periods" in bundle.specs
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        TT.forward(cfg, {}, torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        bundle.prefill({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    params = bundle.init(torch.Generator().manual_seed(3), device="cpu")
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab, (2, 16)))
+    logits, aux = TT.forward(cfg, params, toks, remat=False)
+    assert logits.dtype == torch.bfloat16
+    assert tuple(logits.shape) == (2, 16, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
+    last = bundle.prefill(params, {"tokens": toks})
+    assert torch.equal(last, logits[:, -1].float())
     # the ssm family has a stack of its own: the decoder stack names it
     dense = dataclasses.replace(TR.get("internlm2-20b").reduced(),
                                 family="ssm")

@@ -44,6 +44,8 @@ from repro_torch.models import layers as TL
 from repro_torch.models import serve as TS
 from repro_torch.models.params import params_from_numpy
 
+from test_torch_moe import one_thread  # noqa: F401
+
 RNG = np.random.default_rng(2026)
 LOGIT_TOL = 2e-2            # of max |reference logit|, per step
 TINY = dict(name="tiny-engine", family="dense", n_layers=2, d_model=64,
@@ -101,19 +103,26 @@ def test_port_init_draws_its_own_weights():
 
 @pytest.mark.parametrize("family", ["hybrid", "ssm", "encdec"])
 def test_other_families_raise(family):
-    """The hybrid's caches and decode are not ported (ROADMAP A13; it has
-    its parameter specs).  ssm and encdec build and
-    decode through their own steps (tests/test_torch_xlstm.py,
-    test_torch_encdec.py), but not through the decoder stack's QuantCache
-    path (this step, the engine, stream_prefill): the reference's engine
-    fails on them too."""
+    """The hybrid, ssm and encdec decode through their own caches and
+    steps (tests/test_torch_hybrid.py, test_torch_xlstm.py,
+    test_torch_encdec.py), not through the decoder stack's QuantCache path
+    (this step, the engine, stream_prefill): the reference's engine
+    refuses the hybrid (engine.py:125) and fails on the other two.  The
+    hybrid's `make_cache` gives the reference's tree, quantized or not."""
     name = {"hybrid": "jamba-1.5-large-398b", "ssm": "xlstm-350m",
             "encdec": "whisper-base"}[family]
     if family == "hybrid":
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            t_build(TR.get(name).reduced()).make_cache(1, 128, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        with pytest.raises(NotImplementedError, match="engine.py:125"):
             TS._check_family(TR.get(name))
+        for quantized in (False, True):
+            want = jax.eval_shape(lambda: j_build(
+                JR.get(name).reduced()).make_cache(1, 128, quantized))
+            got = t_build(TR.get(name).reduced()).make_cache(
+                1, 128, quantized, device="cpu")
+            assert isinstance(got[0], TS.RawCache)
+            assert [(a.shape, str(a.dtype)) for a in jax.tree.leaves(want)] \
+                == [(tuple(t.shape), str(t.dtype).replace("torch.", ""))
+                    for t in (*got[0], *got[1])]
         return
     assert t_build(TR.get(name).reduced()).n_params() > 0
     with pytest.raises(NotImplementedError, match="DecodeEngine"):

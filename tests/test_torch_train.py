@@ -308,16 +308,21 @@ def test_remat_changes_no_value(models, name):
 def test_encdec_and_ssm_loss_raise():
     """encdec and ssm have their loss (tests/test_torch_encdec.py,
     test_torch_xlstm.py); what raises is an encdec batch without its
-    frames, and the hybrid's loss (ROADMAP A13)."""
+    frames.  The hybrid's loss runs (tests/test_torch_hybrid.py holds it
+    and its gradient against the reference): finite, its aux the MoE
+    FFNs' load-balance loss."""
     cfg = TR.get("whisper-base").reduced()
     bundle = t_build(cfg)
     params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(KeyError, match="frames"):
         bundle.loss(params, {"tokens": tok, "labels": tok})
-    hybrid = ModelBundle(TR.get("jamba-1.5-large-398b").reduced(), {})
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        hybrid.loss({}, {"tokens": tok, "labels": tok})
+    hybrid = t_build(TR.get("jamba-1.5-large-398b").reduced())
+    hp = hybrid.init(torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        loss, (ce, aux) = hybrid.loss(hp, {"tokens": tok, "labels": tok})
+    assert bool(torch.isfinite(loss)) and float(aux) > 0
+    assert torch.equal(loss, ce + 0.01 * aux)
 
 
 # ------------------------------------------------------------- the steps --

@@ -210,12 +210,22 @@ def test_param_counts_and_archs_match_reference():
 
 
 def test_hybrid_still_raises():
-    """The hybrid builds its parameter specs only: its loss and cache
-    raise (ROADMAP A13)."""
+    """The hybrid's loss, cache and decode step run (tests/test_torch_hybrid.py
+    holds them against the reference); what still raises is its QuantCache
+    path, which the reference's engine refuses (engine.py:125)."""
+    from repro_torch.compression import kv as TKV
+    from repro_torch.models import serve as TS
     cfg = TR.get("jamba-1.5-large-398b").reduced()
     bundle = t_build(cfg)
+    params = bundle.init(torch.Generator().manual_seed(1), device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        bundle.loss({}, {"tokens": tok, "labels": tok})
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        bundle.make_cache(1, 128, device="cpu")
+    with torch.no_grad():
+        loss = bundle.loss(params, {"tokens": tok, "labels": tok})[0]
+        cache = bundle.make_cache(1, 128, device="cpu")
+        logits, cache = bundle.serve_step(params, cache, tok[:, :1], 0)
+    assert bool(torch.isfinite(loss)) and bool(torch.isfinite(logits).all())
+    assert bool(cache[1][1].abs().sum() > 0)           # the SSM state moved
+    with pytest.raises(NotImplementedError, match="engine.py:125"):
+        TS.serve_step_rows(cfg, params, TS.make_quant_cache(
+            cfg, 1, 128, device="cpu"), tok[:, :1], [0],
+            TKV.kv_quantizer_config())
