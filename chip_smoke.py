@@ -275,6 +275,19 @@ reduced jamba on the same weights on the card and on the CPU (loss,
 prefill logits, 16 steps, the card's expert choices given to the CPU),
 then 6 AdamW steps on the card, the loss finite and falling.
 
+The dry-run against the card (`launch.dryrun`, `launch.cost`): before
+one more step of serve (c) and of the train phase's full-precision and
+grad-wire-8 runs, the same step (the same factory, flags and shapes) runs
+on the meta device; the card's step is then counted: its kernel
+launches (a pod's) and FLOPs (`FlopCounterMode`, pod 0's) must equal
+the meta count, and its max_memory_allocated after
+reset_peak_memory_stats lie within 15 % of the meta peak (with 2 pods
+as threads sharing one state: the held bytes plus both pods'
+transients); each line's `meta_vs_card` holds both.  The audit phase's
+detection matrix also takes a `grad-wire` selector wire, the one that
+carries a chain id (`chainid_swap`).  Every kernel row has, beside its
+one-call `ms`, `batched_ms`: 10 calls in a row by CUDA events.
+
 Output: the card's name and power limit, one JSON line per chain, one
 JSON line per phase (dense, sweep, audit, code sweep, kv, serve a/b/c,
 moe a-g, grads, train, families, hybrid a-d),
@@ -309,6 +322,7 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
@@ -553,6 +567,52 @@ def reset_launches():
         m.reset_launches()
 
 
+# ----------------------------------------- the dry-run against the card --
+
+META_PEAK_TOL = 0.15       # the meta peak against max_memory_allocated
+
+
+def meta_count(fn, held: dict, recorder=None) -> dict:
+    """fn() on the meta device as `launch.dryrun.measure` counts it, with
+    the trees in `held` (meta tensors) as the bytes the step holds and
+    `recorder` the one its MetaAxis axes record into."""
+    from repro_torch.launch import cost
+    from repro_torch.launch import dryrun as DR
+    rec = cost.Recorder() if recorder is None else recorder
+    with torch.device("meta"):
+        _, c, by_b = DR.measure(fn, held, rec)
+    return {"launches": by_b, "flops": c.flops,
+            "held_bytes": cost.tree_bytes(held), "peak_bytes": c.peak_bytes,
+            "collective_bytes": c.collective_bytes, "seconds": c.seconds}
+
+
+def meta_vs_card(label: str, meta: dict, launches_: dict, flops: int,
+                 peak: int, pods: int = 1) -> dict:
+    """Hold the card's count of one step against the meta count: launches
+    (a pod's) and FLOPs (pod 0's) equal; the peak within META_PEAK_TOL.
+    With pods (threads on one card sharing the state) the prediction is
+    the held bytes plus every pod's transient (the meta peak's excess)."""
+    want_peak = meta["held_bytes"] + pods * (meta["peak_bytes"]
+                                             - meta["held_bytes"])
+    gap = (peak - want_peak) / peak
+    out = {"meta": meta, "card": {
+        "launches": launches_, "flops": flops, "max_memory_allocated": peak,
+        "total_memory": torch.cuda.get_device_properties(0).total_memory},
+           "predicted_peak_bytes": want_peak, "peak_gap": gap,
+           "pods": pods}
+    print(f"chip_smoke: meta_vs_card {label} {json.dumps(out)}",
+          file=sys.stderr, flush=True)
+    check(launches_ == meta["launches"],
+          f"{label}: launches {launches_} on the card, {meta['launches']} "
+          f"on meta")
+    check(flops == meta["flops"],
+          f"{label}: {flops} FLOPs on the card, {meta['flops']} on meta")
+    check(abs(gap) <= META_PEAK_TOL,
+          f"{label}: peak {peak} on the card, {want_peak} predicted "
+          f"({gap:+.3f})")
+    return out
+
+
 def stage_codes(pipe, enc, n: int):
     """Per word stage, from its header plane: the int32 chunk codes of a
     zero/narrow stage, the chunk modes of an ent stage, None for shuffle."""
@@ -778,6 +838,7 @@ def kernel_row(name, label, chain, bits, size, hist, kern, plain, count):
     check(match, f"{chain}: {name} ({label}) differs from its plain version")
     bound_ms, bound_by = bound_of(name, size, bits, hist)
     ms = time_ms(kern)
+    batched_ms = time_ms(kern, reps=10, batch=KV_BATCH_CALLS)
     _, dev_ms = device_kernels(kern, reps=10)
     src, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": CSRC + src,
@@ -788,7 +849,8 @@ def kernel_row(name, label, chain, bits, size, hist, kern, plain, count):
             "device_ms_by_kernel": dev_ms,
             "plain_ms": time_ms(plain, reps=10, warm=1),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "share": bound_ms / ms, "library_ms": None,
+            "share": bound_ms / ms, "batched_ms": batched_ms,
+            "batched_share": bound_ms / batched_ms, "library_ms": None,
             "bytes": kernel_bytes(name, size, bits, hist)}
 
 
@@ -1329,9 +1391,22 @@ def audit_phase(f) -> list:
         check(clean[name], f"audit: clean {name} wire fails its checksum")
         check(len(detection[name]) == 4 and all(detection[name].values()),
               f"audit: {name} misses a fault class: {detection[name]}")
+    # a selector wire carries a chain id: the row that holds chainid_swap
+    from repro_torch.core.select import get_selector
+    sel = get_selector("grad-wire")
+    x = f["grad"][:m].contiguous()
+    enc = sel.encode(x, rms_eb(x), device=DEV, integrity=True)
+    name = "auto:grad-wire"
+    clean[name] = bool(A.verify_wire(enc))
+    detection[name] = G.detection_matrix(enc, suite=name,
+                                         n_chains=len(sel.chains))
+    check(clean[name], f"audit: clean {name} wire fails its checksum")
+    check("chainid_swap" in detection[name]
+          and all(detection[name].values()),
+          f"audit: {name} misses a fault class: {detection[name]}")
     print(json.dumps({"phase": "audit", "chains": chains, "detection_n": m,
                       "detection": detection, "clean_wire_passes": clean,
-                      "presets": len(detection)}), flush=True)
+                      "presets": len(PIPELINES)}), flush=True)
     return rows
 
 
@@ -2832,7 +2907,7 @@ def serve_long(cfg, params, seed: int, phase: str = "serve",
                                * 0.7).to(hot.dtype)
     torch.cuda.synchronize()
     fill_s = time.time() - t0
-    toks = torch.randint(0, cfg.vocab, (LONG_STEPS + 3, LONG_B, 1),
+    toks = torch.randint(0, cfg.vocab, (LONG_STEPS + 4, LONG_B, 1),
                          generator=gen, device=DEV, dtype=torch.int32)
 
     def qstep(c, t, pos):
@@ -2859,6 +2934,25 @@ def serve_long(cfg, params, seed: int, phase: str = "serve",
     b12_dev = sum(v for k, v in dev_ms.items() if k.startswith("kv_"))
     gemm_dev = sum(v for k, v in dev_ms.items()
                    if re.search(r"gemm|gemv|nvjet|sm90|cutlass|splitK", k, re.I))
+    # the next step: the dry-run's count on meta, then counted on the card
+    from repro_torch.models import build
+    mp = build(cfg).abstract_params()
+    mcache = S.make_quant_cache(cfg, LONG_B, LONG_SEQ, device="meta")
+    mtok = torch.empty((LONG_B, 1), dtype=torch.int32, device="meta")
+    nxt = pos[0]
+    meta = meta_count(lambda: S.serve_step(cfg, mp, mcache, mtok, nxt, None,
+                                           kv_cfg),
+                      {"params": mp, "cache": mcache, "batch": mtok})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with FlopCounterMode(display=False) as fc:
+        one()
+    torch.cuda.synchronize()
+    from repro_torch.launch.dryrun import launches_by_b
+    vs_meta = meta_vs_card(f"{phase} (c)", meta, launches_by_b(launches()),
+                           fc.get_total_flops(),
+                           torch.cuda.max_memory_allocated())
     lens = torch.full((LONG_B,), LONG_POS - in_page, dtype=torch.int32,
                       device=DEV)
     n_bytes = step_bytes(params, lens, LONG_B, cfg.group_size, LONG_SEQ,
@@ -2885,7 +2979,7 @@ def serve_long(cfg, params, seed: int, phase: str = "serve",
             "b12_kernel_launches_per_step_traced": sum(
                 v for k, v in traced.items() if k.startswith("kv_")) or None,
             "device_ms_by_kernel": dev_ms,
-            "logits_finite": finite,
+            "logits_finite": finite, "meta_vs_card": vs_meta,
             "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
     del cache
     return line, row
@@ -3851,6 +3945,64 @@ def train_bound(n_params: int, pods: int) -> dict:
             "bytes": n_bytes, "rate": "989 TFLOP/s bf16 dense, 3.35 TB/s"}
 
 
+TRAIN_META = (None, "grad-wire-8")     # the steps held against meta
+
+
+def train_meta(bundle, spec, ocfg, gcfg, batch) -> dict:
+    """The dry-run's count of `train_run`'s step on meta: the same step
+    factory and flags, its state and batch as meta tensors, the pods'
+    axis a MetaAxis (rank 0's program)."""
+    from repro_torch.core.axis import MetaAxis
+    from repro_torch.launch import cost
+    from repro_torch.launch import train as TL
+    from repro_torch.optim import optimizer as O
+    mp = bundle.abstract_params()
+    mo = O.init(mp, ocfg)
+    mb = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+          for k, v in batch.items()}
+    if spec is None:
+        step = TL.make_train_step(bundle, None, ocfg, donate=True)
+        return meta_count(lambda: step((mp, mo), mb),
+                          {"params": mp, "opt": mo, "batch": mb})
+    step = TL.make_train_step_compressed(bundle, None, ocfg, gcfg,
+                                         donate=True, shared_state=True)
+    mr = TL.init_residuals(mp, TRAIN_PODS)
+    rec = cost.Recorder()
+    ax = MetaAxis(TRAIN_PODS, rec)
+    return meta_count(lambda: step((mp, mo, mr), mb, ax),
+                      {"params": mp, "opt": mo, "resid": mr, "batch": mb},
+                      rec)
+
+
+def train_vs_meta(label: str, meta: dict, step, state, batch,
+                  pods: int) -> dict:
+    """One more step on the card, counted (FLOPs per pod thread, launches
+    a pod, max_memory_allocated), held against `meta`."""
+    from repro_torch.core.axis import run_threads
+    from repro_torch.launch.dryrun import launches_by_b
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    if pods == 1:
+        with FlopCounterMode(display=False) as fc:
+            step(state, batch)
+        flops = fc.get_total_flops()
+    else:
+        per = [0] * pods
+
+        def pod(ax):
+            with FlopCounterMode(display=False) as fc:
+                step(state, batch, ax)
+            per[ax.rank] = fc.get_total_flops()
+
+        run_threads(pods, pod)
+        flops = per[0]
+    torch.cuda.synchronize()
+    return meta_vs_card(f"train {label}", meta,
+                        launches_by_b(launches(), pods), flops,
+                        torch.cuda.max_memory_allocated(), pods)
+
+
 def train_run(bundle, label: str, spec, fresh, batches, keep: dict):
     """TRAIN_STEPS steps of one configuration from fresh weights: spec None
     is `make_train_step` on the whole batch; else the compressed step
@@ -3869,6 +4021,10 @@ def train_run(bundle, label: str, spec, fresh, batches, keep: dict):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     pods = 1 if spec is None else TRAIN_PODS
+    gcfg = None if spec is None else G.GradCompressionConfig(
+        eb_rel=GRAD_EB_REL, pipeline=get_pipeline(spec))
+    meta = (train_meta(bundle, spec, ocfg, gcfg, batches[TRAIN_STEPS])
+            if spec in TRAIN_META else None)
     params = fresh()
     state = (params, O.init(params, ocfg))
     if spec is None:
@@ -3877,9 +4033,7 @@ def train_run(bundle, label: str, spec, fresh, batches, keep: dict):
         def run_step(b):
             return step(state, b)[1]
     else:
-        gc = G.GradCompressionConfig(eb_rel=GRAD_EB_REL,
-                                     pipeline=get_pipeline(spec))
-        step = TL.make_train_step_compressed(bundle, None, ocfg, gc,
+        step = TL.make_train_step_compressed(bundle, None, ocfg, gcfg,
                                              donate=True, shared_state=True)
         state = (*state, TL.init_residuals(params, TRAIN_PODS))
 
@@ -3921,6 +4075,8 @@ def train_run(bundle, label: str, spec, fresh, batches, keep: dict):
               "device_busy_ms": sum(dev_ms.values()) or None,
               "device_ms": {b: dev_ms.get(k, 0.0)
                             for k, b in TRAIN_TRACE.items()}}
+    vs_meta = None if meta is None else train_vs_meta(
+        label, meta, step, state, batches[TRAIN_STEPS], pods)
     free = [t for t in times if not t["held"]]
     med = {k: statistics.median(t[k] for t in free)
            for k in free[0] if k != "held"}
@@ -3931,6 +4087,7 @@ def train_run(bundle, label: str, spec, fresh, batches, keep: dict):
             "steps": TRAIN_STEPS, "loss": losses, "step_ms": times,
             "median_ms": med, **train_bound(bundle.n_params(), pods),
             "peak_device_GB": peak, "profiled_step": traced,
+            "meta_vs_card": vs_meta,
             "launches_per_step": {k: counts.get(k, 0) / TRAIN_STEPS for k in (
                 "_quantize_abs", "_lc_select", "_lc_expand", "_abs_unpack",
                 "_dequantize_abs")}}

@@ -200,8 +200,11 @@ def compressed_mean(g, cfg: GradCompressionConfig, axis, *,
     dev = q.recon.device
     flat = torch.as_tensor(g).to(dev).reshape(-1).to(torch.float32)
     n, p = flat.shape[0], axis.size
-    # every pod must take the same branch: agreed by pmax, read once
-    any_overflow = bool(axis.pmax(shard.enc.overflow.to(torch.int32)) > 0)
+    # every pod must take the same branch: agreed by pmax, read once; on
+    # the meta device (`launch.dryrun`) no value is known, and the step
+    # takes the compressed branch, a sound gradient's
+    flag = axis.pmax(shard.enc.overflow.to(torch.int32))
+    any_overflow = flag.device.type != "meta" and bool(flag > 0)
     if any_overflow:
         # the lossless branch ships everything: no residual
         mean = axis.psum(flat) / p

@@ -44,7 +44,8 @@ from ..core import select as SEL
 from ..core.bitops import pow2_floor
 from ..core.config import QuantizerConfig
 from ..core.pipeline import (decode_page_stages, encode_page_stages,
-                             parse_word_stages, word_stage_sizes)
+                             kernel_device, parse_word_stages,
+                             word_stage_sizes)
 
 PAGE = 128       # tokens per page (the reference's models/serve.py)
 CAP = 8          # exact outlier slots per page
@@ -269,9 +270,9 @@ class PackedKV:
 
 
 def _use_kernels(t: torch.Tensor) -> bool:
-    """The chunk coder's kernels (B6/B7) for a CUDA tensor, the plain
-    coder for a CPU one: the same wire."""
-    return t.device.type == "cuda"
+    """The chunk coder's kernels (B6/B7) for a CUDA (or meta) tensor, the
+    plain coder for a CPU one: the same wire."""
+    return kernel_device(t.device)
 
 
 def _pred_rows(pred, bins, page: int, d: int, encode: bool):

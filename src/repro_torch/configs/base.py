@@ -159,3 +159,10 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
+
+
+def runnable(arch: ArchConfig, shape: ShapeConfig) -> bool:
+    """Assignment skip rules: long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not arch.is_subquadratic:
+        return False
+    return True

@@ -24,6 +24,10 @@ Two implementations run the same per-rank code:
     mesh, and what lets p ranks share one card (NCCL refuses two ranks on
     one device).  `run_threads(p, fn)` runs fn(axis) once per rank.
 
+A third, `MetaAxis`, is one rank of an axis whose tensors live on the
+"meta" device: its collectives return empty tensors of these shapes and
+record the bytes they would move (`launch.dryrun`, `launch.cost`).
+
 Both reduce in rank order (`psum` folds ranks 0, 1, ... left to right;
 `pmax` takes the maximum with NaN propagating; `pmean` sums pairwise,
 ((r0 + r1) + (r2 + r3)), and divides by the size, so the mean of a value
@@ -291,3 +295,84 @@ class DistAxis(_RankOrder):
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         return self._from_wire(buf, t).reshape(t.shape)
+
+
+# ------------------------------------------------------------- meta axis --
+
+class _MetaCollective(torch.autograd.Function):
+    """A collective's result as an empty tensor of its shape; its backward
+    is the transposed collective (recorded too): the inverse all-to-all, a
+    psum of the gradients, the own-input gradient of pmean."""
+
+    @staticmethod
+    def forward(ctx, axis, kind, t, shape, back):
+        ctx.axis, ctx.back = axis, back
+        axis._record(kind, t, shape)
+        return t.new_empty(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = ctx.back
+        if back is None:
+            return None, None, None, None, None
+        kind, shape = back
+        if kind is not None:
+            ctx.axis._record(kind, g, shape)
+        return None, None, g.new_empty(shape), None, None
+
+
+class MetaAxis:
+    """Rank 0 of an axis of `size` ranks whose tensors live on the "meta"
+    device: each collective returns an empty tensor of
+    the shape `ThreadAxis` returns and adds the bytes it moves to
+    `recorder(kind, nbytes)` under XLA's collective names: an all-reduce
+    (psum, pmean, pmax) at its payload, an all-gather, all-to-all or
+    collective-permute (ppermute) at its result, as
+    `benchmarks/roofline.py` reads the reference's HLO.  It lets a rank's
+    program run with nothing allocated (`launch.dryrun`)."""
+
+    rank = 0
+
+    def __init__(self, size: int, recorder=None):
+        if size < 1:
+            raise ValueError(f"axis size must be >= 1, got {size}")
+        self.size, self.recorder = size, recorder
+
+    def axis_index(self) -> int:
+        return self.rank
+
+    def _record(self, kind: str, t: torch.Tensor, shape) -> None:
+        if self.recorder is not None and self.size > 1:
+            n = 1
+            for d in (t.shape if kind == "all-reduce" else shape):
+                n *= int(d)
+            self.recorder(kind, n * t.element_size())
+
+    def _apply(self, kind, t, shape, back=None):
+        return _MetaCollective.apply(self, kind, t, tuple(shape), back)
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        return self._apply("all-reduce", t, t.shape,
+                           ("all-reduce", tuple(t.shape)))
+
+    def pmean(self, t: torch.Tensor) -> torch.Tensor:
+        return self._apply("all-reduce", t, t.shape, (None, tuple(t.shape)))
+
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        return self._apply("all-reduce", t.detach(), t.shape)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        return self._apply("all-gather", t.detach(),
+                           (self.size, *t.shape))
+
+    def ppermute(self, t: torch.Tensor, perm) -> torch.Tensor:
+        return self._apply("collective-permute", t.detach(), t.shape)
+
+    def all_to_all(self, t: torch.Tensor, split_axis: int,
+                   concat_axis: int) -> torch.Tensor:
+        _check_split(t, split_axis, self.size)
+        shape = list(t.shape)
+        shape[split_axis] //= self.size
+        shape[concat_axis] *= self.size
+        return self._apply("all-to-all", t, shape,
+                           ("all-to-all", tuple(t.shape)))

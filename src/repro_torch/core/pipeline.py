@@ -53,6 +53,13 @@ def not_ported(what: str, item: str) -> NotImplementedError:
                                f"({item})")
 
 
+def kernel_device(dev) -> bool:
+    """Whether work on `dev` takes the kernels: on the card, and on the
+    meta device (`launch.dryrun`), which follows the card's path (the
+    wrappers count a launch and return empty outputs)."""
+    return torch.device(dev).type in ("cuda", "meta")
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on; "cuda" without a card raises."""
     dev = torch.device(device)
@@ -511,7 +518,7 @@ class Pipeline:
         if pred_shape is None:
             pred_shape = tuple(x.shape)
         cfg = self.qcfg()
-        use_k = dev.type == "cuda" if kernels is None else kernels
+        use_k = kernel_device(dev) if kernels is None else kernels
         transform = self._bin_transform(pred_shape, n)
         enc, qt = None, None
         if use_k and (self.pred or return_quantized or verify):
@@ -563,7 +570,7 @@ class Pipeline:
         if verify and not bool(A.verify_wire(enc)):
             raise A.WireIntegrityError(
                 f"Encoded[{self.spec()}]: checksum mismatch on decode")
-        use_k = dev.type == "cuda" if kernels is None else kernels
+        use_k = kernel_device(dev) if kernels is None else kernels
         words = self.decode_words(enc.headers, enc.payload, self.n_words(n),
                                   use_k)
         ep = C.EncodedPacked(words, enc.out_idx, enc.out_payload,

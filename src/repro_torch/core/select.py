@@ -55,8 +55,8 @@ from . import predict as P
 from . import quantizer as Q
 from .pipeline import (ChunkStage, Encoded, EntStage, Pipeline,
                        _to_device, decode_page_stages, encode_page_stages,
-                       parse_pipeline, parse_word_stages, resolve_device,
-                       word_stage_sizes)
+                       kernel_device, parse_pipeline, parse_word_stages,
+                       resolve_device, word_stage_sizes)
 
 CHAIN_ID_BITS = 8          # the transmitted chain-id header
 MAX_CHAINS = 1 << CHAIN_ID_BITS
@@ -337,7 +337,7 @@ class Selector:
         x = torch.as_tensor(x).to(dev)
         if pred_shape is None:
             pred_shape = tuple(x.shape)
-        use_k = dev.type == "cuda" if kernels is None else kernels
+        use_k = kernel_device(dev) if kernels is None else kernels
         flat = x.reshape(-1)
         words, bins = self._stats_words(flat, eb, use_k)
         return self._costs(words, bins, flat.shape[0], pred_shape)
@@ -396,7 +396,7 @@ class Selector:
         n = flat.shape[0]
         if pred_shape is None:
             pred_shape = tuple(x.shape)
-        use_k = dev.type == "cuda" if kernels is None else kernels
+        use_k = kernel_device(dev) if kernels is None else kernels
         words, bins = self._stats_words(flat, eb, use_k)
         costs = self._costs(words, bins, n, pred_shape)
         del words, bins

@@ -209,13 +209,15 @@ class Transport:
 
     def _ring_compat(self, enc, axis) -> bool:
         # run-time agreement: the same pow2 grid everywhere and no
-        # outliers anywhere; one host read of the agreed flag
+        # outliers anywhere; one host read of the agreed flag (on the meta
+        # device, `launch.dryrun`, no value is known: the gather, which
+        # pods with their own bounds take)
         compat = axis.pmax(enc.n_outliers) == 0
         if enc.eb is not None:
             eb_hi = axis.pmax(enc.eb)
             eb_lo = -axis.pmax(-enc.eb)
             compat = compat & (eb_hi == eb_lo)
-        return bool(compat)
+        return compat.device.type != "meta" and bool(compat)
 
     def uses_ring(self, enc, pipe, axis) -> bool:
         """Whether a reduce of `enc` over `axis` takes the packed-domain

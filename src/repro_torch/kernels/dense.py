@@ -14,7 +14,9 @@ computes float32 only).
 
 A wrapper takes its plain version only for a tensor on the CPU.  For a CUDA
 tensor it launches the kernel (built from source at first use) or raises;
-nothing falls back.  Each launch adds one to `LAUNCHES[name]`.
+nothing falls back.  On the "meta" device it returns empty outputs of the
+kernel's shapes and computes nothing.  Each launch adds one to
+`LAUNCHES[name]`.
 
 `encode_packed`/`decode_packed` put B8-B11 on the pipeline's main path:
 the chains with a predictor stage, and `verify=`/`return_quantized=`
@@ -30,7 +32,7 @@ from ..core import quantizer as q
 from ..core.bitops import bits_to_float
 from ..core.config import QuantizerConfig
 from ..core.quantizer import Quantized
-from .pack import _launch, rel_constants_f32
+from .pack import DEVICES, _launch, rel_constants_f32
 
 KERNELS = ("_quantize_abs", "_quantize_rel", "_dequantize_abs",
            "_dequantize_rel")
@@ -48,7 +50,7 @@ def _flat(t: torch.Tensor, dtype, what: str) -> torch.Tensor:
     if t.dtype != dtype:
         err = NotImplementedError if dtype == torch.float32 else TypeError
         raise err(f"{what}: expected {dtype}, got {t.dtype}")
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in DEVICES:
         raise ValueError(f"{what}: unsupported device {t.device}")
     return t.reshape(-1).contiguous()
 

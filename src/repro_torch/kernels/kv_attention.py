@@ -27,7 +27,9 @@ own tolerance: the sums are taken in another order).
 
 A wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel (built from source at first use) or raises;
-nothing falls back.  Each launch adds one to `LAUNCHES[name]`.
+nothing falls back.  On the "meta" device it returns empty outputs of the
+kernel's shapes and computes nothing.  Each launch adds one to
+`LAUNCHES[name]`.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from ..compression.kv import CAP, PAGE, QuantizedKV, dequantize_kv
-from .pack import _launch
+from .pack import DEVICES, _launch
 
 KERNELS = ("_kv_decode_attention",)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -85,8 +87,9 @@ def _check(q, kq: QuantizedKV, vq: QuantizedKV, lengths, page: int,
     if kq.bins.shape != vq.bins.shape:
         raise ValueError("kq and vq must have one shape")
     devs = {t.device for t in (q, lengths, *kq[:4], *vq[:4])}
-    if len(devs) != 1 or next(iter(devs)).type not in ("cpu", "cuda"):
-        raise ValueError(f"all operands on one cpu or cuda device, got {devs}")
+    if len(devs) != 1 or next(iter(devs)).type not in DEVICES:
+        raise ValueError(f"all operands on one cpu, cuda or meta device, "
+                         f"got {devs}")
 
 
 # ----------------------------------------------------------- the split --

@@ -11,7 +11,9 @@ to words.
 
 A wrapper takes its plain version only for a tensor on the CPU.  For a CUDA
 tensor it launches the kernel (built from source at first use) or raises;
-nothing falls back.  Each launch adds one to `LAUNCHES[name]`.
+nothing falls back.  On the "meta" device it returns empty outputs of the
+kernel's shapes and computes nothing.  Each launch adds one to
+`LAUNCHES[name]`.
 
 Outside the kernels, as in the reference, stay torch ops: NOA's finite
 min/max, the outlier table, the compaction of the chunk image to its true

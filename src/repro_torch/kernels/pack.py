@@ -9,7 +9,10 @@ the words (and signs) and writes the reconstruction.
 
 A wrapper takes its plain version only for a tensor on the CPU.  For a CUDA
 tensor it launches the kernel (built from source at first use) or raises;
-nothing falls back.  Each launch adds one to `LAUNCHES[name]`.
+nothing falls back.  For a tensor on the "meta" device it checks the
+operands as for the card and returns empty outputs of the kernel's shapes,
+computing nothing.  Each launch (a meta one too) adds one to
+`LAUNCHES[name]`.
 
 Outside the kernels, as in the reference, stay torch ops: NOA's finite
 min/max, the outlier table (`nonzero_static`), and the decode scatter.
@@ -28,6 +31,8 @@ from ..core.config import QuantizerConfig
 LANES = 128        # lane width of the packed tile (the §4 layout)
 assert LANES == C.PACK_LANES, "kernel tile width must match the wire layout"
 
+DEVICES = ("cpu", "cuda", "meta")   # the devices a wrapper takes
+
 KERNELS = ("_abs_pack", "_rel_pack", "_abs_unpack", "_rel_unpack")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 _COUNT_LOCK = threading.Lock()
@@ -39,12 +44,12 @@ def reset_launches() -> None:
 
 
 def _check_input(t: torch.Tensor, dtype, what: str) -> str:
-    """Validate a kernel operand; returns 'cpu' or 'cuda'."""
+    """Validate a kernel operand; returns 'cpu', 'cuda' or 'meta'."""
     if t.dtype != dtype:
         raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
     if t.dim() != 1 or not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous 1-d tensor")
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in DEVICES:
         raise ValueError(f"{what}: unsupported device {t.device}")
     return t.device.type
 
@@ -58,7 +63,13 @@ def _eb_operand(eb: torch.Tensor, device) -> torch.Tensor:
 def _launch(counts: dict, name: str, fn: str, device, *args) -> None:
     """Call C function `fn` of the kernel library on `device`'s current
     stream; raise if the launch failed, else add one to counts[name] (under
-    a lock: ranks on threads launch concurrently)."""
+    a lock: ranks on threads launch concurrently).  On the "meta" device
+    nothing runs: the launch is counted, and the caller's outputs stay the
+    empty tensors it made (`launch.dryrun`)."""
+    if torch.device(device).type == "meta":
+        with _COUNT_LOCK:
+            counts[name] += 1
+        return
     from . import _build
     lib = _build.load()
     with torch.cuda.device(device):

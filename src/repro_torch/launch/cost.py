@@ -1,0 +1,176 @@
+"""What a rank's program costs, counted while it runs (the port's
+counterpart of `repro.launch.hlo_analysis`, which reads the same three
+things from XLA's HLO text).
+
+  * FLOPs: `torch.utils.flop_counter.FlopCounterMode` over the
+    matmul-class ops (mm, addmm, bmm, baddbmm, convolutions, attention),
+    the counterpart of `hlo_analysis.dot_flops`.  The port's loops are
+    Python loops, run in full, so no trip counts are needed.
+  * The peak of live tensor bytes (`PeakTracker`): every new storage an op
+    makes is added when it appears and taken off when it is freed; views
+    and in-place results add nothing, and storages made before the count
+    (the program's inputs) are the caller's `base`.  The counterpart of
+    the compiled program's `temp_bytes` (+ its arguments).
+  * Collective bytes by kind (`Recorder`, filled by `core.axis.MetaAxis`),
+    the counterpart of `hlo_analysis.collective_bytes`.
+
+All three run on any device: on "meta" (`launch.dryrun`, nothing
+allocated) and on the card (`chip_smoke.py` holds the dry-run's numbers
+against the card's own run of the same step).
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+from torch.utils.flop_counter import FlopCounterMode
+
+ALLOC_GRANULE = 512   # the CUDA caching allocator rounds every block to it
+
+
+def granule_bytes(n: int) -> int:
+    """n bytes as the CUDA caching allocator counts them: at least one
+    512-byte granule, rounded up to a whole number of granules."""
+    return max(1, -(-int(n) // ALLOC_GRANULE)) * ALLOC_GRANULE
+
+
+def tree_bytes(tree, leaf_bytes=None) -> int:
+    """Bytes of every tensor leaf of a tree (dicts, lists, tuples and
+    NamedTuples), each leaf through `leaf_bytes` (default: numel times
+    element size)."""
+    leaves = [t for t in tree_flatten(tree)[0] if torch.is_tensor(t)]
+    if leaf_bytes is None:
+        return sum(t.numel() * t.element_size() for t in leaves)
+    return sum(leaf_bytes(t) for t in leaves)
+
+
+class Recorder:
+    """Collective bytes by kind ("all-reduce", "all-gather", "all-to-all",
+    "collective-permute"); a `core.axis.MetaAxis` calls it per
+    collective.  Thread-safe."""
+
+    def __init__(self):
+        self.bytes: dict = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, kind: str, nbytes: int) -> None:
+        with self._lock:
+            self.bytes[kind] = self.bytes.get(kind, 0) + int(nbytes)
+
+
+class TraceBudgetExceeded(RuntimeError):
+    """A counted program ran past its time budget (`counting(budget_s=)`)."""
+
+
+class PeakTracker(TorchDispatchMode):
+    """The live bytes of the storages made inside it, and their peak.
+
+    Each op's outputs are looked at: a storage not seen before (not an
+    input's, not a view of one made inside) adds its bytes, rounded up to
+    the caching allocator's 512-byte granule; a weak reference to the
+    storage takes them off when it is freed.  `peak` is the largest live
+    total, `live` the total at exit; `base` (set by the caller: the bytes
+    of the inputs the program holds) is added to both by `peak_bytes`.
+    With a `deadline` (time.perf_counter()), an op past it raises
+    TraceBudgetExceeded."""
+
+    def __init__(self, base: int = 0, deadline=None):
+        super().__init__()
+        self.base, self.live, self.peak = int(base), 0, 0
+        self.deadline, self.ops = deadline, 0
+        self._ours: dict = {}        # storage key -> finalizer
+        self._theirs: dict = {}      # storages made before the count
+        self._lock = threading.Lock()
+
+    @property
+    def peak_bytes(self) -> int:
+        return self.base + self.peak
+
+    def _drop(self, table: dict, key: int, n: int) -> None:
+        with self._lock:
+            if table.pop(key, None) is not None and table is self._ours:
+                self.live -= n
+
+    def _storage(self, t):
+        try:
+            return t.untyped_storage()
+        except (NotImplementedError, RuntimeError):
+            return None          # tensors with no storage (sparse, ...)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        self.ops += 1
+        if (self.deadline is not None and self.ops % 256 == 0
+                and time.perf_counter() > self.deadline):
+            raise TraceBudgetExceeded(f"the program ran past its budget "
+                                      f"after {self.ops} ops (at {func})")
+        for t in tree_flatten((args, kwargs))[0]:
+            if torch.is_tensor(t):
+                st = self._storage(t)
+                if st is None:
+                    continue
+                key = st._cdata
+                with self._lock:
+                    known = key in self._ours or key in self._theirs
+                if not known:
+                    fin = weakref.finalize(st, self._drop, self._theirs,
+                                           key, 0)
+                    with self._lock:
+                        self._theirs[key] = fin
+        out = func(*args, **kwargs)
+        for t in tree_flatten(out)[0]:
+            if torch.is_tensor(t):
+                st = self._storage(t)
+                if st is None:
+                    continue
+                key = st._cdata
+                with self._lock:
+                    if key in self._ours or key in self._theirs:
+                        continue
+                n = granule_bytes(st.nbytes())
+                fin = weakref.finalize(st, self._drop, self._ours, key, n)
+                with self._lock:
+                    self._ours[key] = fin
+                    self.live += n
+                    self.peak = max(self.peak, self.live)
+        return out
+
+
+class Count:
+    """What `counting` measured: flops, peak_bytes (base + the transient
+    peak), live_bytes at the end (base + what the program left alive),
+    seconds, and the collective bytes by kind."""
+
+    def __init__(self, recorder: Recorder):
+        self.recorder = recorder
+        self.flops = self.peak_bytes = self.live_bytes = 0
+        self.seconds = 0.0
+
+    @property
+    def collective_bytes(self) -> dict:
+        return dict(self.recorder.bytes)
+
+
+@contextlib.contextmanager
+def counting(base: int = 0, recorder: Recorder | None = None,
+             budget_s=None):
+    """Count FLOPs, the peak of live bytes over `base`, and (through the
+    recorder a program's `MetaAxis` axes were given) collective bytes of
+    the code run inside; yields a `Count`, filled at exit.  With
+    `budget_s`, the code is stopped (TraceBudgetExceeded) once it has run
+    that many seconds."""
+    rec = recorder if recorder is not None else Recorder()
+    c = Count(rec)
+    flops = FlopCounterMode(display=False)
+    t0 = time.perf_counter()
+    peak = PeakTracker(base, None if budget_s is None else t0 + budget_s)
+    with flops, peak:
+        yield c
+    c.seconds = time.perf_counter() - t0
+    c.flops = int(flops.get_total_flops())
+    c.peak_bytes, c.live_bytes = peak.peak_bytes, peak.base + peak.live

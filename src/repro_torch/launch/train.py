@@ -2,9 +2,12 @@
 `repro.launch.train`).
 
 Two step variants:
-  * make_train_step            - the baseline: the whole batch's gradient,
-    then AdamW (the reference's full-precision all-reduce is one card's
-    sum here).
+  * make_train_step            - the baseline: the batch's gradient
+    (`micro` slices accumulated in float32, the reference dry-run's
+    MICROBATCHES), then AdamW.  On a rank's mesh the batch is the rank's
+    rows and the gradient is averaged over the data axes in place
+    (`data_mean`: the reference's full-precision all-reduce, which XLA
+    inserts); with one card it is that card's sum.
   * make_train_step_compressed - the paper's technique on the wire: the
     step runs per pod, over a collective axis (`core.axis`), as
     `compression.grads.compressed_mean_tree` does.  Each pod takes its
@@ -38,7 +41,9 @@ from ..core.pipeline import resolve_device
 from ..data.pipeline import DataConfig, TokenPipeline
 from ..models import build
 from ..optim import optimizer as opt
-from .mesh import run_mesh_threads
+from ..core.axis import _tree_sum
+from .mesh import (batch_shardings_for, data_axes, local_views,
+                   run_mesh_threads)
 
 
 def _device_of(params) -> torch.device:
@@ -51,21 +56,28 @@ def _to_device(batch: dict, dev: torch.device) -> dict:
 
 
 def value_and_grad(bundle, params, batch: dict, mesh=None,
-                   moe_data_axes=None):
+                   moe_data_axes=None, mean_axes=None):
     """(loss, (ce, aux)) of `bundle.loss` and its gradient tree, like
     params.  The gradient is `torch.autograd.grad` with respect to
     detached aliases of the params, so no `.grad` field is written: pods
     that share a card (threads) each take their own graph.
 
-    With a mesh description (`launch.mesh.Mesh` with no rank axes, its
-    axes other than "model" of size 1) the forward runs on every rank of
-    the mesh as threads on the params' device, the MoE layers expert
-    parallel, each rank on the whole batch; the loss is rank 0's (every
-    rank's is the same: the tokens are replicated over "model"), and one
+    With a mesh description (`launch.mesh.Mesh` with no rank axes) the
+    forward runs on every rank of the mesh as threads on the params'
+    device, the MoE layers expert parallel, each rank on its block of the
+    batch's rows over the data axes (the whole batch where they have size
+    1); the loss is the mean of the data blocks' losses (each block's
+    rank at "model" 0: the tokens are replicated over "model"), and one
     backward over the graph the ranks share (their collectives join it)
-    gives the gradient, each expert's from the rank that holds it.  The
-    layers are not rematerialized there: a recomputed layer would call a
-    collective inside the backward."""
+    gives the gradient of that mean, each expert's from the rank that
+    holds it.  The layers are not rematerialized there: a recomputed
+    layer would call a collective inside the backward.
+
+    With a rank's mesh (`mesh.axes` set: thread ranks, `dist_mesh`, or
+    `core.axis.MetaAxis` axes in `launch.dryrun`) `batch` is the rank's
+    own rows; the loss and the gradient are then averaged over
+    `mean_axes` (default: the mesh's data axes), as the reference's train
+    step averages the gradient over the devices that split its batch."""
     flat, tdef = T.flatten(params)
     xs = [p.detach().requires_grad_(True) for p in flat]
     tree = T.unflatten(tdef, xs)
@@ -78,35 +90,110 @@ def value_and_grad(bundle, params, batch: dict, mesh=None,
                                           moe_data_axes=moe_data_axes)
         gs = torch.autograd.grad(loss, xs, allow_unused=True,
                                  materialize_grads=True)
-    return ((loss.detach(), (ce.detach(), torch.as_tensor(aux).detach())),
-            T.unflatten(tdef, list(gs)))
+    metrics = (loss.detach(), (ce.detach(), torch.as_tensor(aux).detach()))
+    grads = T.unflatten(tdef, list(gs))
+    if mesh is not None and mesh.axes is not None:
+        metrics, grads = data_mean((metrics, grads), mesh, mean_axes)
+    return metrics, grads
+
+
+def data_mean(tree, mesh, axes=None):
+    """Every tensor leaf of `tree` averaged over the rank mesh's `axes`
+    (default: its data axes; an axis of size 1 is skipped), written into
+    the leaf in place (one leaf's copy and mean are held at a time): the
+    gradient mean of data parallelism.  The ranks read a copy, so a
+    thread rank that writes its leaf early changes no other's mean.
+    Returns the tree."""
+    names = data_axes(mesh) if axes is None else tuple(axes)
+    axes_ = [mesh.axis(n) for n in names
+             if n in mesh.axis_names and mesh.sizes[n] > 1]
+    if axes_:
+        for t in T.leaves(tree):
+            m = t.clone()
+            for ax in axes_:
+                m = ax.pmean(m)
+            t.copy_(m)
+            del m
+    return tree
 
 
 def _mesh_loss(bundle, params, batch: dict, mesh, moe_data_axes):
-    """Rank 0's loss of a forward on every rank of `mesh` (threads)."""
-    if any(n > 1 for a, n in mesh.sizes.items() if a != "model"):
-        raise ValueError(f"{mesh!r}: the batch is replicated over the "
-                         "mesh, so its axes besides 'model' must have size "
-                         "1")
+    """The mean over the data blocks of the loss of a forward on every
+    rank of `mesh` (threads), each rank on its block of the rows; ce and
+    aux likewise.  The blocks' values are summed pairwise in block order,
+    as `pmean` sums."""
+    dp = tuple(a for a in data_axes(mesh) if a in mesh.axis_names)
+    n_blocks = int(np.prod([mesh.sizes[a] for a in dp])) if dp else 1
 
     def rank(m):
+        rows = batch
+        if n_blocks > 1:
+            rows = local_views(batch, batch_shardings_for(m, batch),
+                               m.coords())
         with torch.enable_grad():
-            return bundle.loss(params, batch, m, remat=False,
+            return bundle.loss(params, rows, m, remat=False,
                                moe_data_axes=moe_data_axes)
 
-    return run_mesh_threads(mesh.shape, mesh.axis_names, rank)[0]
+    out = run_mesh_threads(mesh.shape, mesh.axis_names, rank)
+    if n_blocks == 1:
+        return out[0]
+    # row-major ranks: the data blocks' ranks at "model" 0, in block order
+    per = mesh.size // n_blocks
+    firsts = out[::per]
+
+    def mean(vals):
+        return _tree_sum([torch.as_tensor(v) for v in vals]) / n_blocks
+
+    return (mean([o[0] for o in firsts]),
+            (mean([o[1][0] for o in firsts]), mean([o[1][1] for o in firsts])))
+
+
+def accumulate(bundle, params, batch: dict, mesh, micro: int):
+    """`value_and_grad` over `micro` sequential slices of the batch's rows
+    (gradient accumulation): the float32 sum of the slices' gradients
+    divided by `micro`, the slices' mean loss (the reference dry-run's
+    `MICROBATCHES` scan); then the data mean on a rank's mesh."""
+    if micro == 1:
+        return value_and_grad(bundle, params, batch, mesh)
+    rows = next(iter(batch.values())).shape[0]
+    if rows % micro:
+        raise ValueError(f"a batch of {rows} rows does not split into "
+                         f"{micro} microbatches")
+    per = rows // micro
+    rank_mesh = mesh is not None and mesh.axes is not None
+    acc, metrics = None, []
+    for i in range(micro):
+        mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+        m, g = value_and_grad(bundle, params, mb, mesh,
+                              mean_axes=() if rank_mesh else None)
+        g = T.tree_map(lambda t: t.to(torch.float32), g)
+        if acc is None:
+            acc = g
+        else:
+            flat, tdef = T.flatten(acc)
+            acc = T.unflatten(tdef, [a.add_(b) for a, b in
+                                     zip(flat, T.leaves(g))])
+        metrics.append(m)
+        del g
+    grads = T.tree_map(lambda t: t / micro, acc)
+    loss, ce, aux = (torch.stack(v).mean() for v in zip(
+        *[(m[0], m[1][0], m[1][1]) for m in metrics]))
+    out = ((loss, (ce, aux)), grads)
+    return data_mean(out, mesh) if rank_mesh else out
 
 
 def make_train_step(bundle, mesh, opt_cfg: opt.AdamWConfig, *,
-                    donate: bool = False):
+                    donate: bool = False, micro: int = 1):
     """step(state=(params, opt_state), batch) -> (state, metrics).  With
     donate=True the update is written into the state's tensors
-    (`optimizer.apply`)."""
+    (`optimizer.apply`).  micro > 1 accumulates the gradient over that
+    many slices of the batch (`accumulate`).  On a rank's mesh `batch` is
+    the rank's rows, and the gradient is averaged over the data axes."""
     def step(state, batch):
         params, ostate = state
         batch = _to_device(batch, _device_of(params))
-        (loss, (ce, aux)), grads = value_and_grad(bundle, params, batch,
-                                                  mesh)
+        (loss, (ce, aux)), grads = accumulate(bundle, params, batch, mesh,
+                                              micro)
         params, ostate, metrics = opt.apply(params, grads, ostate, opt_cfg,
                                             donate=donate)
         metrics.update(loss=loss, ce=ce, aux=aux)
@@ -158,7 +245,8 @@ def make_train_step_compressed(bundle, mesh, opt_cfg: opt.AdamWConfig,
         local = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
         row = T.tree_map(lambda t: t[r], resid)
         (loss, (ce, aux)), grads = value_and_grad(
-            bundle, params, local, mesh, moe_data_axes=("data",))
+            bundle, params, local, mesh, moe_data_axes=("data",),
+            mean_axes=("data",))
         grads, new_row = G.compressed_mean_tree(
             grads, row, gc_cfg, axis, device=dev,
             out=row if donate else None)

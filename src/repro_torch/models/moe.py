@@ -206,10 +206,18 @@ def moe_ffn_rows(x, router_w, w1, w3, w2, *, top_k: int,
     return y.reshape(r, 1, d)
 
 
-def _expert_block(w: torch.Tensor, axis) -> torch.Tensor:
-    """The rank's block of a global stacked expert weight [E, ...]: a view
-    (the param sharding's "experts" -> "model")."""
+def _expert_block(w: torch.Tensor, axis, n_experts=None) -> torch.Tensor:
+    """The rank's block of a stacked expert weight: a view of the global
+    [E, ...] (the param sharding's "experts" -> "model"), or w itself
+    where it already holds E / size experts of `n_experts` (a rank that
+    holds only its block, as `launch.dryrun`'s does)."""
     e = w.shape[0]
+    if n_experts is not None and e != n_experts:
+        if e * axis.size != n_experts:
+            raise ValueError(f"an expert weight of {e} experts is neither "
+                             f"the {n_experts} nor a block of them over a "
+                             f"model axis of {axis.size}")
+        return w
     if e % axis.size:
         raise ValueError(f"{e} experts do not split over a model axis of "
                          f"{axis.size}")
@@ -219,7 +227,8 @@ def _expert_block(w: torch.Tensor, axis) -> torch.Tensor:
 
 def moe_ffn(x, router_w, w1, w3, w2, *, top_k: int, mesh=None,
             capacity_factor: float = 1.0, act: str = "swiglu",
-            data_axes=("data",), model_axis: str = "model"):
+            data_axes=("data",), model_axis: str = "model",
+            n_experts=None):
     """The global entry point (the reference's): the global weights (w1/w3
     [E, D, F], w2 [E, F, D]) and the calling rank's tokens.  Without a
     mesh, `moe_ffn_local` over every expert; with one (a
@@ -227,12 +236,13 @@ def moe_ffn(x, router_w, w1, w3, w2, *, top_k: int, mesh=None,
     `model_axis`, each rank on its block of the experts: a call over one
     token a row (x.shape[-2] == 1) takes the decode path, any other the
     all-to-all path with aux averaged over `data_axes` and the model
-    axis."""
+    axis.  With `n_experts` given, a rank may hold only its block of the
+    experts (E / ep stacked) in place of the global weights."""
     if mesh is None:
         return moe_ffn_local(x, router_w, w1, w3, w2, top_k=top_k,
                              capacity_factor=capacity_factor, act=act)
     axis = mesh.axis(model_axis)
-    w1, w3, w2 = (_expert_block(w, axis) for w in (w1, w3, w2))
+    w1, w3, w2 = (_expert_block(w, axis, n_experts) for w in (w1, w3, w2))
     if x.dim() >= 2 and x.shape[-2] == 1:                 # decode step
         return moe_ffn_decode_local(x, router_w, w1, w3, w2, top_k=top_k,
                                     act=act, model_axis=axis)

@@ -188,7 +188,8 @@ def _ffn_block(cfg: ArchConfig, p: dict, x: torch.Tensor, mesh=None,
             moe_data_axes = ("data",) if mesh is None else data_axes(mesh)
         y, aux = moe_ffn(hx, p["router"], p["w1"], p["w3"], p["w2"],
                          top_k=cfg.moe_top_k, mesh=mesh,
-                         data_axes=moe_data_axes, act=cfg.act)
+                         data_axes=moe_data_axes, act=cfg.act,
+                         n_experts=cfg.moe_experts)
         return x + y, aux
     y = L.ffn(hx, p["w1"], p.get("w3"), p["w2"], cfg.act)
     return x + y, 0.0

@@ -9,8 +9,18 @@ cost seconds.
     processes while its other tests run:
 
     python tests/reference_jobs.py {f32,bf16} OUT.npz
+
+  * the reference dry-run's layouts (`dryrun_layouts`: every param, batch
+    and cache leaf's spec and per-device block on both production meshes,
+    compiling nothing; run with XLA_FLAGS=
+    --xla_force_host_platform_device_count=512) and the dot FLOPs of two
+    jitted steps on one CPU device (`dryrun_flops`), for
+    tests/test_torch_dryrun.py:
+
+    python tests/reference_jobs.py {layouts,flops} OUT.json
 """
 import contextlib
+import json
 import sys
 
 import numpy as np
@@ -105,5 +115,119 @@ def hybrid_grads(name: str, out: str) -> None:
              routes=np.stack(routes), **leaves)
 
 
+def _spec(ns, ndim: int) -> list:
+    """A NamedSharding's spec as a list of ndim entries (None, a name, or
+    a list of names)."""
+    spec = list(ns.spec) + [None] * (ndim - len(ns.spec))
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
+
+
+def _leaves_layout(tree, shardings) -> list:
+    return [[_spec(ns, len(a.shape)), list(ns.shard_shape(a.shape))]
+            for a, ns in zip(jax.tree.leaves(tree),
+                             jax.tree.leaves(shardings))]
+
+
+def dryrun_layouts(out: str) -> None:
+    """{mesh kind: {"params": {arch: leaves}, "cells": {"arch shape":
+    {"batch": leaves, "cache": leaves, "cache_kvq": leaves}}}}, each leaf
+    [spec, block shape], from the reference dry-run's own
+    `_batch_shardings`, `_greedy_sharding` and `mesh.param_shardings` on
+    the production meshes (`all_cells`)."""
+    from repro.configs.base import SHAPES
+    from repro.launch import dryrun as RD
+    from repro.launch import mesh as RM
+
+    doc = {}
+    for kind in ("single", "multi"):
+        mesh = RM.make_production_mesh(multi_pod=kind == "multi")
+        params, cells = {}, {}
+        for arch in sorted(JR.ARCHS):
+            bundle = j_build(JR.get(arch))
+            ab = bundle.abstract_params()
+            params[arch] = _leaves_layout(
+                ab, RM.param_shardings(mesh, bundle.axes(), ab))
+        for arch, shape_name in RD.all_cells():
+            bundle = j_build(JR.get(arch))
+            shape = SHAPES[shape_name]
+            rec = {}
+            if shape.kind in ("train", "prefill"):
+                batch = bundle.input_specs(shape)
+                rec["batch"] = _leaves_layout(
+                    batch, RD._batch_shardings(mesh, batch))
+            else:
+                for key, q in (("cache", False), ("cache_kvq", True)):
+                    ins = bundle.input_specs(shape, quantized_kv=q)
+                    rec[key] = _leaves_layout(ins["cache"], jax.tree.map(
+                        lambda s: RD._greedy_sharding(
+                            mesh, s, skip_dims=(0,),
+                            batch_size=shape.global_batch), ins["cache"]))
+                rec["batch"] = _leaves_layout(
+                    [ins["tokens"]], [RD._greedy_sharding(mesh,
+                                                          ins["tokens"])])
+            cells[f"{arch} {shape_name}"] = rec
+        doc[kind] = {"params": params, "cells": cells}
+    doc["all_cells"] = [list(c) for c in RD.all_cells()]
+    doc["microbatches"] = RD.MICROBATCHES
+    with open(out, "w") as f:
+        json.dump(doc, f)
+
+
+FLOPS_TRAIN = ("internlm2-20b", 2, 64)      # arch (reduced), batch, seq
+FLOPS_DECODE = ("olmoe-1b-7b", 2, 256)      # arch (reduced), batch, cache
+
+
+def dryrun_flops(out: str) -> None:
+    """`hlo_analysis.dot_flops` of the reference's jitted train step
+    (loss, gradient, AdamW), its loss alone and its loss and gradient
+    without remat, on the reduced FLOPS_TRAIN, and its decode step on the
+    reduced FLOPS_DECODE (raw cache), one CPU device."""
+    from repro.configs.base import ShapeConfig
+    from repro.launch import hlo_analysis
+    from repro.optim import optimizer as opt
+
+    name, b, s = FLOPS_TRAIN
+    bundle = j_build(JR.get(name).reduced())
+    params = bundle.abstract_params()
+    opt_cfg = opt.AdamWConfig(total_steps=1000)
+    ostate = jax.eval_shape(lambda p: opt.init(p, opt_cfg), params)
+    tok = jax.ShapeDtypeStruct((b, s), jnp.int32)
+    batch = {"tokens": tok, "labels": tok}
+
+    def train_step(params, ostate, batch):
+        (loss, _), grads = jax.value_and_grad(bundle.loss, has_aux=True)(
+            params, batch, None)
+        params, ostate, _ = opt.apply(params, grads, ostate, opt_cfg)
+        return params, ostate, loss
+
+    def flops(fn, *args):
+        return int(hlo_analysis.dot_flops(
+            jax.jit(fn).lower(*args).compile().as_text()))
+
+    train = flops(train_step, params, ostate, batch)
+    forward = flops(lambda p, bt: bundle.loss(p, bt, None), params, batch)
+    no_remat = flops(lambda p, bt: jax.value_and_grad(
+        lambda q: bundle.loss(q, bt, None, remat=False), has_aux=True)(p),
+        params, batch)
+    name, b, s = FLOPS_DECODE
+    bundle = j_build(JR.get(name).reduced())
+    ins = bundle.input_specs(ShapeConfig("flops", s, b, "decode"))
+
+    def serve_step(params, cache, tokens, pos):
+        return bundle.serve_step(params, cache, tokens, pos, None)
+
+    decode = flops(serve_step, bundle.abstract_params(), ins["cache"],
+                   ins["tokens"], ins["pos"])
+    with open(out, "w") as f:
+        json.dump({"train": train, "forward": forward,
+                   "no_remat": no_remat, "decode": decode}, f)
+
+
 if __name__ == "__main__":
-    hybrid_grads(*sys.argv[1:])
+    job, path = sys.argv[1:]
+    if job == "layouts":
+        dryrun_layouts(path)
+    elif job == "flops":
+        dryrun_flops(path)
+    else:
+        hybrid_grads(job, path)

@@ -438,7 +438,7 @@ def test_ep_training_step_bit_equal_to_one_rank():
     one backward over their graph) for a 2-layer MoE: the loss, every
     gradient leaf and the updated parameters bit-equal to the one-rank
     step's (the load-balance loss's pmean differentiates as the value
-    every rank holds)."""
+    every rank holds).  On a (2, 2) mesh the data blocks' mean."""
     from repro_torch.configs.base import ArchConfig as TArch
     from repro_torch.launch import train as TL
     from repro_torch.launch.mesh import Mesh
@@ -467,9 +467,20 @@ def test_ep_training_step_bit_equal_to_one_rank():
                                                                 ocfg)), batch)
     for a, b in zip(T.leaves(ep[0][0]), T.leaves(one[0][0])):
         np.testing.assert_array_equal(_bits(a), _bits(b))
-    with pytest.raises(ValueError, match="size"):
-        TL.value_and_grad(bundle, params, batch, Mesh((2, 2), ("data",
-                                                               "model")))
+    # a data axis: each block of rows on its ranks, the blocks' mean
+    # (tests/test_torch_dryrun.py holds it against one rank per block)
+    (l22, _), g22 = TL.value_and_grad(bundle, params, batch,
+                                      Mesh((2, 2), ("data", "model")))
+    halves = [TL.value_and_grad(bundle, params,
+                                {k: v[i:i + 1] for k, v in batch.items()},
+                                None) for i in range(2)]
+    assert abs(float(l22) - float(halves[0][0][0] + halves[1][0][0]) / 2
+               ) <= 1e-6
+    for g, a, b in zip(T.leaves(g22), T.leaves(halves[0][1]),
+                       T.leaves(halves[1][1])):
+        want = (a.float() + b.float()) / 2
+        assert torch.allclose(g.float(), want, rtol=0, atol=2.0 ** -7 * max(
+            want.abs().max().item(), 1e-30))
 
 
 # ---------------------------------------------------------- the MoE FFN --
