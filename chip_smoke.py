@@ -283,14 +283,20 @@ launches (a pod's) and FLOPs (`FlopCounterMode`, pod 0's) must equal
 the meta count, and its max_memory_allocated after
 reset_peak_memory_stats lie within 15 % of the meta peak (with 2 pods
 as threads sharing one state: the held bytes plus both pods'
-transients); each line's `meta_vs_card` holds both.  The audit phase's
+transients); each line's `meta_vs_card` holds both.  The hybrid holds
+two more, with the Mamba scans counted on meta as the dry-run counts
+them (chunks 0 and 1 run, the rest stand in and credit chunk 1's
+cost): (a)'s prefill of 4,096 tokens (64 chunks a block; the held bytes
+by storage, the tied experts once) and (f), one loss + gradient +
+AdamW step of the reduced jamba at T = 256 (4 chunks a block).  The
+audit phase's
 detection matrix also takes a `grad-wire` selector wire, the one that
 carries a chain id (`chainid_swap`).  Every kernel row has, beside its
 one-call `ms`, `batched_ms`: 10 calls in a row by CUDA events.
 
 Output: the card's name and power limit, one JSON line per chain, one
 JSON line per phase (dense, sweep, audit, code sweep, kv, serve a/b/c,
-moe a-g, grads, train, families, hybrid a-d),
+moe a-g, grads, train, families, hybrid a-f),
 one JSON line
 {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.  On stderr: the build log, a summary of
@@ -3975,9 +3981,10 @@ def train_meta(bundle, spec, ocfg, gcfg, batch) -> dict:
 
 
 def train_vs_meta(label: str, meta: dict, step, state, batch,
-                  pods: int) -> dict:
+                  pods: int, resident: int = 0) -> dict:
     """One more step on the card, counted (FLOPs per pod thread, launches
-    a pod, max_memory_allocated), held against `meta`."""
+    a pod, max_memory_allocated less `resident`, the bytes the card held
+    before the step's state was made), held against `meta`."""
     from repro_torch.core.axis import run_threads
     from repro_torch.launch.dryrun import launches_by_b
     torch.cuda.synchronize()
@@ -4000,7 +4007,7 @@ def train_vs_meta(label: str, meta: dict, step, state, batch,
     torch.cuda.synchronize()
     return meta_vs_card(f"train {label}", meta,
                         launches_by_b(launches(), pods), flops,
-                        torch.cuda.max_memory_allocated(), pods)
+                        torch.cuda.max_memory_allocated() - resident, pods)
 
 
 def train_run(bundle, label: str, spec, fresh, batches, keep: dict):
@@ -4991,6 +4998,7 @@ HYB_FAULTS = ("tail", "h")     # (b)'s planted faults: the state zeroed
 HYB_BC_SCALE = 6.0             # bc_proj at U(-1, 1) HYB_BC_SCALE / sqrt(Di)
 HYB_CUT_STEPS, HYB_TRAIN_STEPS = 16, 6
 HYB_TRAIN_B, HYB_TRAIN_SEQ = 8, 64
+HYB_META_SEQ = 256             # (f): 4 chunks a Mamba scan
 HYB_TIED = ("w1", "w3", "w2")
 
 
@@ -5197,6 +5205,9 @@ def hyb_prefill(bundle, params, seed: int) -> dict:
     ms = a.elapsed_time(e)
     check(bool(torch.isfinite(logits).all()), "hybrid (a): non-finite "
                                               "prefill logits")
+    del logits
+    peak = torch.cuda.max_memory_allocated()
+    vs_meta = hyb_prefill_vs_meta(bundle, params, tokens)
     scan_ms = sum(s.elapsed_time(t) for s, t in marks)
     # the lookup is free; the logits read the padded table
     active = cfg.active_param_count() + (cfg.padded_vocab - cfg.vocab) \
@@ -5208,7 +5219,91 @@ def hyb_prefill(bundle, params, seed: int) -> dict:
             "tokens_per_s": HYB_PREFILL / ms * 1e3, "scan_ms": scan_ms,
             "scan_share": scan_ms / ms, "scans": len(marks),
             "ops_bound_ms": ops / BF16_OPS_PER_S * 1e3,
-            "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_device_GB": peak / 1e9, "meta_vs_card": vs_meta}
+
+
+def storage_bytes(tree) -> int:
+    """The bytes of a tree's distinct storages, each rounded to the
+    allocator's granule: the hybrid's tied experts (stride-0 views of one
+    set) count once, where `cost.tree_bytes` counts every view whole."""
+    from repro_torch import tree as T
+    from repro_torch.launch import cost
+    seen = {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+            for t in T.leaves(tree) if torch.is_tensor(t)}
+    return sum(cost.granule_bytes(n) for n in seen.values())
+
+
+def meta_params_tied(bundle) -> dict:
+    """The bundle's params on meta with the MoE FFNs' experts one set, as
+    `hybrid_params` gives them to the card."""
+    mp = bundle.abstract_params()
+    moe = mp["periods"]["moe_ffn"]
+    lead = moe["router"].dim() - 2
+    for k in HYB_TIED:
+        one = torch.empty(moe[k].shape[lead:], dtype=moe[k].dtype,
+                          device="meta")
+        moe[k] = one[(None,) * lead].expand(moe[k].shape)
+    return mp
+
+
+def hyb_prefill_vs_meta(bundle, params, tokens) -> dict:
+    """(a)'s prefill counted on meta (the Mamba scans scaled: 64 chunks a
+    block) and once more on the card: launches and FLOPs equal, the peak
+    within META_PEAK_TOL (`meta_vs_card`)."""
+    from repro_torch.launch import cost
+    from repro_torch.launch.dryrun import launches_by_b
+    mp = meta_params_tied(bundle)
+    mt = torch.empty(tokens.shape, dtype=tokens.dtype, device="meta")
+    base = storage_bytes({"params": mp, "tokens": mt})
+    reset_launches()
+    with torch.no_grad(), cost.counting(base) as c:
+        bundle.prefill(mp, {"tokens": mt})
+    meta = {"launches": launches_by_b(launches()), "flops": c.flops,
+            "held_bytes": base, "peak_bytes": c.peak_bytes,
+            "collective_bytes": c.collective_bytes, "seconds": c.seconds}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        bundle.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    return meta_vs_card("hybrid (a) prefill", meta, launches_by_b(
+        launches()), fc.get_total_flops(), torch.cuda.max_memory_allocated())
+
+
+def hyb_step_vs_meta(seed: int) -> dict:
+    """(f) One loss + gradient + AdamW step of the reduced jamba at B =
+    HYB_TRAIN_B, T = HYB_META_SEQ (HYB_META_SEQ / 64 chunks a Mamba
+    block; (d) trains at 64, one chunk), `make_train_step` as the
+    dry-run's train cells take it: counted on meta (`train_meta`), then
+    after a first step one more on the card (`train_vs_meta`)."""
+    from repro_torch.configs.registry import get
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import train as TL
+    from repro_torch.models import build
+    from repro_torch.optim import optimizer as O
+    cfg = get(HYB_ARCH).reduced()
+    bundle = build(cfg)
+    ocfg = O.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=4)
+    pipe = TokenPipeline(DataConfig(cfg.vocab, HYB_META_SEQ, HYB_TRAIN_B,
+                                    seed))
+    batches = [{k: torch.from_numpy(v).to(DEV)
+                for k, v in pipe.batch(i).items()} for i in range(2)]
+    meta = train_meta(bundle, None, ocfg, None, batches[1])
+    gc.collect()
+    resident = torch.cuda.memory_allocated() - sum(
+        t.untyped_storage().nbytes() for b in batches for t in b.values())
+    params = bundle.init(torch.Generator(device=DEV).manual_seed(seed + 115),
+                         device=DEV)
+    state = (params, O.init(params, ocfg))
+    step = TL.make_train_step(bundle, None, ocfg, donate=True)
+    loss = float(step(state, batches[0])[1]["loss"])
+    check(np.isfinite(loss), f"hybrid (f): loss {loss}")
+    out = train_vs_meta("hybrid (f)", meta, step, state, batches[1], 1,
+                        resident)
+    return {"config": "reduced", "batch": HYB_TRAIN_B, "seq": HYB_META_SEQ,
+            "chunks_per_scan": HYB_META_SEQ // 64, "loss": loss,
+            "resident_before_GB": resident / 1e9, "meta_vs_card": out}
 
 
 def hyb_decode(bundle, params, seed: int, sizes: dict) -> tuple:
@@ -5497,7 +5592,9 @@ def hybrid_phase(seed: int) -> None:
     `hybrid_params`): (a) prefill, (b) teacher-forced decode against
     forward, with two planted faults, (c) long_500k, then (d) the reduced
     config on the card against the CPU, and its training, and (e) the
-    float32 witness of (b) on a cut of the period.  One JSON line a part;
+    float32 witness of (b) on a cut of the period, and (f) the reduced
+    config's train step counted on meta and on the card (as (a)'s
+    prefill is, in its line).  One JSON line a part;
     no kernel of the port runs here (the reference's hybrid reaches no
     Pallas kernel)."""
     import dataclasses
@@ -5532,7 +5629,8 @@ def hybrid_phase(seed: int) -> None:
     print(json.dumps({**head, "part": "c", **line,
                       "part_s": time.time() - t1}), flush=True)
     del params, row0
-    for part, fn in (("d", hyb_cut_vs_cpu), ("e", hyb_witness)):
+    for part, fn in (("d", hyb_cut_vs_cpu), ("e", hyb_witness),
+                     ("f", hyb_step_vs_meta)):
         gc.collect()
         torch.cuda.empty_cache()
         t1 = time.time()

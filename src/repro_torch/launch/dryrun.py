@@ -47,7 +47,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmoe-1b-7b \\
       --shape decode_32k --mesh single --variant kvq
   PYTHONPATH=src python -m repro_torch.launch.dryrun --variant all \\
-      --jobs 4 --budget-s 2400      # every cell, mesh and variant
+      --jobs 6                      # every cell, mesh and variant
   PYTHONPATH=src python -m repro_torch.launch.dryrun --list
 Records go to results/dryrun_torch/<mesh>.<arch>.<shape>[.<variant>].json
 (cached; --force runs again).  `fits` holds peak_bytes against the card's
@@ -329,13 +329,8 @@ def cell_program(arch_name: str, shape_name: str, desc: M.Mesh,
 
 # ------------------------------------------------------------- records --
 
-def _kernel_modules():
-    from ..kernels import dense, kv_attention, lossless, pack
-    return pack, lossless, dense, kv_attention
-
-
 def _reset_launches() -> None:
-    for m in _kernel_modules():
+    for m in cost.kernel_modules():
         m.reset_launches()
 
 
@@ -344,10 +339,6 @@ def launches_by_b(counts: dict, per: int = 1) -> dict:
     kernels that ran only."""
     return {B_NUMBERS[k]: n / per if per > 1 else n
             for k, n in counts.items() if n}
-
-
-def _launches() -> dict:
-    return {k: n for m in _kernel_modules() for k, n in m.LAUNCHES.items()}
 
 
 def stop_site(exc: BaseException) -> dict:
@@ -387,7 +378,7 @@ def measure(fn, held: dict, recorder, budget_s=None) -> tuple:
     _reset_launches()
     with cost.counting(base, recorder, budget_s=budget_s) as c:
         out = fn()
-    return out, c, launches_by_b(_launches())
+    return out, c, launches_by_b(cost.launch_counts())
 
 
 def cell_tag(arch: str, shape: str, mesh_kind: str, variant: str) -> str:

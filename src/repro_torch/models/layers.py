@@ -13,10 +13,14 @@ block loops (the reference's `jax.grad` through its scans).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+from torch.autograd.graph import get_gradient_edge
 from torch.utils.checkpoint import checkpoint
 
+from ..launch import cost
 from .params import _trunc_normal_
 
 NEG_BIG = -1e30
@@ -156,7 +160,12 @@ def chunked_scan(step, carry: tuple, xs, chunk: int = 64,
     reference's rule).  While autograd records (and remat), each chunk
     runs under `torch.utils.checkpoint`: the backward pass keeps the carry
     only at chunk boundaries and replays the steps inside, which changes
-    no value."""
+    no value.
+
+    On the meta device under `launch.cost.counting`, a scan of three
+    chunks or more runs only the chunks that measure one and stands in
+    for the others (`_scaled_scan`); on any other device every chunk
+    runs."""
     one = torch.is_tensor(xs)
     xs = (xs,) if one else tuple(xs)
     n_x, t = len(xs), xs[0].shape[0]
@@ -172,16 +181,379 @@ def chunked_scan(step, carry: tuple, xs, chunk: int = 64,
             ys.append(y)
         return (*c, torch.stack(ys))
 
-    ys = []
-    for start in range(0, t, chunk):
-        xc = tuple(a[start:start + chunk] for a in xs)
+    def run_chunk(xc: tuple, carry: tuple) -> tuple:
         if remat and torch.is_grad_enabled():
             *carry, y = checkpoint(run, *xc, *carry, use_reentrant=False)
         else:
             *carry, y = run(*xc, *carry)
-        carry = tuple(carry)
+        return tuple(carry), y
+
+    if xs[0].device.type == "meta" and t // chunk >= 3:
+        meter = cost.meter()
+        if meter is not None:
+            return _scaled_scan(meter, step, run_chunk, tuple(carry), xs,
+                                chunk, remat)
+    ys = []
+    for start in range(0, t, chunk):
+        carry, y = run_chunk(tuple(a[start:start + chunk] for a in xs),
+                             carry)
         ys.append(y)
     return carry, torch.cat(ys)
+
+
+# ------------------------------------------- the scan on the meta device --
+#
+# The dry-run counts a scan as the reference's HLO count does: one chunk's
+# cost times the number of chunks.  Chunk 0 (its carry comes from outside
+# the scan) and chunk 1 each run once between `Meter.open` and `close`
+# (`_measure`); every other chunk, and both of them in later scans of the
+# same step, shapes and mode (`Meter.memo`), is a stand-in
+# (`_stand_in`): it notes the live bytes plus the measured chunk's
+# transient as a peak, credits its FLOPs, launches and collective bytes,
+# and makes one storage for each the chunk leaves alive (its carry, its
+# stacked y block).  While autograd records it is `_StandIn`, which keeps
+# what the chunk's graph keeps: under remat its inputs and its step, as
+# `checkpoint` does (so an enclosing checkpoint's recompute may meet a
+# stand-in where the first pass ran the chunk), without remat the inputs,
+# outputs and intermediates its steps saved (`_Saves`).  Its backward
+# credits the measured chunk's backward and makes the input gradients.  A
+# measured chunk's backward runs after its stand-ins' (they come later in
+# the scan), so it is measured between two `_Mark`s and what the
+# stand-ins owe is credited then.
+
+def _skey(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
+def _signature(obj, tensors: list, depth: int = 0):
+    """What a chunk's cost depends on, hashable: a tensor's shape, dtype,
+    strides and requires_grad, plain values, a function's code and
+    closure (the tensors met appended to `tensors`, in order); None
+    where it reaches anything else."""
+    if torch.is_tensor(obj):
+        tensors.append(obj)
+        return (tuple(obj.shape), obj.dtype, obj.stride(), obj.requires_grad)
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return (obj,)
+    if isinstance(obj, (tuple, list)):
+        out = tuple(_signature(o, tensors, depth) for o in obj)
+        return None if None in out else out
+    code = getattr(obj, "__code__", None)
+    if code is not None and depth < 4:
+        try:
+            cells = [c.cell_contents for c in obj.__closure__ or ()]
+        except ValueError:                   # an empty cell
+            return None
+        out = tuple(_signature(c, tensors, depth + 1) for c in cells)
+        return None if None in out else (code, out)
+    return None
+
+
+def _closure_tensors(step) -> list:
+    """The tensors a step reaches through its closure."""
+    out = []
+    _signature(step, out)
+    return out
+
+
+def _exits(outs, ins, params) -> list | None:
+    """Which of `params` a chunk's backward sends gradients to: the
+    chunk's graph, from its outputs down to the nodes made before it
+    (`ins`, its inputs, passed through a `_Mark`, were the last), must
+    leave only to `ins` and `params`; their indices, or None."""
+    edges = lambda ts: {(id(e.node), e.output_nr) for e in
+                        (get_gradient_edge(t) for t in ts if t.requires_grad)}
+    s0 = max(t.grad_fn._sequence_nr() for t in ins if t.requires_grad)
+    seen, todo, out = set(), [o.grad_fn for o in outs
+                              if o.grad_fn is not None], set()
+    while todo:
+        node = todo.pop()
+        for nxt, nr in node.next_functions:
+            if nxt is None:
+                continue
+            if nxt._sequence_nr() <= s0 or type(nxt).__name__ == \
+                    "AccumulateGrad":
+                out.add((id(nxt), nr))
+            elif id(nxt) not in seen:
+                seen.add(id(nxt))
+                todo.append(nxt)
+    out -= edges(ins)
+    used = [i for i, t in enumerate(params)
+            if t.requires_grad and edges([t]) <= out]
+    if out - edges([params[i] for i in used]):
+        return None
+    return used
+
+
+class _Fwd:
+    """A measured chunk's forward: its Spend, its outputs' layout (`outs`:
+    per output (shape, stride, dtype, requires_grad)), the indices of the
+    step's closure tensors its backward sends gradients to (`params`),
+    the bytes of the intermediates its graph keeps (`extras`), and which
+    of its inputs (xs and carry) and outputs its graph keeps (`keep_in`,
+    `keep_out`; None: every input, as `checkpoint` keeps them)."""
+
+    def __init__(self, spend, outs, params=(), extras=(), keep_in=None,
+                 keep_out=None):
+        self.spend, self.outs, self.extras = spend, outs, tuple(extras)
+        self.params = tuple(params)
+        self.keep_in, self.keep_out = keep_in, keep_out
+        self.differentiable = any(o[3] for o in outs)
+
+
+class _Plan:
+    """A measured chunk (chunk 0, or chunk 1 for the chunks after it):
+    `fwd` (`_Fwd`), `bwd` (the Spend of its backward) and its input
+    gradients' strides, and the stand-ins' backward credits owed until
+    `bwd` is measured (`owed`, and the most live bytes at any of them)."""
+
+    def __init__(self):
+        self.fwd = self.bwd = self.token = self.grad_strides = None
+        self.owed, self.owed_live = 0, 0
+
+
+def _outs_layout(outs, made: dict):
+    """Each output's (shape, stride, dtype, requires_grad), or None where
+    an output is not the whole of a storage of its own made in the
+    measured chunk."""
+    keys = [_skey(o) for o in outs]
+    if len(set(keys)) < len(keys):
+        return None
+    for o, k in zip(outs, keys):
+        if (k not in made or o.storage_offset()
+                or o.untyped_storage().nbytes() != _span(o)):
+            return None
+    return [(tuple(o.shape), o.stride(), o.dtype, o.requires_grad)
+            for o in outs]
+
+
+def _span(t: torch.Tensor) -> int:
+    """The bytes `torch.empty_strided` allocates for t's shape and
+    strides."""
+    if t.numel() == 0:
+        return 0
+    return (1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride()))) \
+        * t.element_size()
+
+
+class _Saves(torch.autograd.graph.saved_tensors_hooks):
+    """Records the storage of every tensor autograd saves inside it, and
+    saves each as it is (used only where no other hooks are active)."""
+
+    def __init__(self):
+        self.keys = set()
+
+        def pack(x):
+            self.keys.add(_skey(x))
+            return x
+
+        super().__init__(pack, lambda x: x)
+
+
+def _measure(meter, plan: _Plan, step, run_chunk, xc: tuple, carry: tuple,
+             remat: bool):
+    """Run a chunk between `Meter.open` and `close` and fill plan.fwd
+    (left None where the chunk cannot stand in for others); while
+    autograd records, its backward is measured between two `_Mark`s.
+    Returns (carry, y)."""
+    grad = torch.is_grad_enabled()
+    n_x = len(xc)
+    in_keys = [_skey(t) for t in xc + carry]
+    saves = _Saves() if grad and not remat else contextlib.nullcontext()
+    tok = meter.open()
+    with saves:
+        ins = xc + carry
+        if grad:
+            ins = _Mark.apply(plan, False, *ins)
+        carry, y = run_chunk(ins[:n_x], ins[n_x:])
+        raw = carry + (y,)
+        outs = _Mark.apply(plan, True, *raw) if grad else raw
+    spend, made = meter.close(tok)
+    layout = _outs_layout(outs, made)
+    kept = getattr(saves, "keys", set())
+    left = set(made) - {_skey(o) for o in outs}
+    params = ()
+    if any(o.requires_grad for o in outs):
+        params = (_exits(raw, ins, _closure_tensors(step))
+                  if any(t.requires_grad for t in ins) else None)
+    if layout is not None and not left - kept and params is not None:
+        if grad and not remat:
+            plan.fwd = _Fwd(spend, layout, params, [made[k] for k in left],
+                            tuple(k in kept for k in in_keys),
+                            tuple(_skey(o) in kept for o in outs))
+        else:
+            plan.fwd = _Fwd(spend, layout, params)
+    return tuple(outs[:-1]), outs[-1]
+
+
+def _scaled_scan(meter, step, run_chunk, carry: tuple, xs: tuple,
+                 chunk: int, remat: bool):
+    """`chunked_scan` on meta under a count.  Chunk 0 (its carry comes
+    from outside the scan) and chunk 1 each run and are measured, unless
+    a measurement of the same step, shapes and mode is at hand; the other
+    chunks are stand-ins.  A chunk that cannot stand in for the others
+    makes the chunks after it run.  Without remat while autograd records,
+    a scan inside another's saved-tensor hooks (an enclosing checkpoint)
+    runs every chunk: its chunk's saves cannot be told apart there."""
+    grad = torch.is_grad_enabled()
+    hooks = torch._C._autograd._top_saved_tensors_default_hooks(
+        False) is not None
+    n = xs[0].shape[0] // chunk
+    plans, key = (None, None), None
+    if not (grad and not remat and hooks):
+        sig = _signature((step, carry, xs), []) if remat or not grad \
+            else None
+        key = None if sig is None else (sig, chunk, remat, grad, hooks)
+        plans = meter.memo.get(key) or (_Plan(), _Plan())
+    ys = []
+    for i in range(n):
+        plan = plans[min(i, 1)]
+        xc = tuple(a[i * chunk:(i + 1) * chunk] for a in xs)
+        if plan is None:
+            carry, y = run_chunk(xc, carry)
+        elif plan.fwd is None:
+            carry, y = _measure(meter, plan, step, run_chunk, xc, carry,
+                                remat)
+            if plan.fwd is None:
+                plans = (None, None)
+        else:
+            *carry, y = _stand_in(meter, plan, step, xc, carry, grad)
+            carry = tuple(carry)
+        ys.append(y)
+    # (a chunk that records nothing saves its inputs through an enclosing
+    # checkpoint's hooks only when it runs: such a scan measures afresh)
+    if key is not None and None not in plans and not (grad and hooks and not
+                                                      all(p.fwd.differentiable
+                                                          for p in plans)):
+        meter.memo[key] = plans
+    return carry, torch.cat(ys)
+
+
+def _dense(shape) -> tuple:
+    """Contiguous strides of `shape`."""
+    out, n = [], 1
+    for d in reversed(shape):
+        out.append(n)
+        n *= max(int(d), 1)
+    return tuple(reversed(out))
+
+
+def _remake(layout) -> list:
+    return [torch.empty_strided(shape, stride, dtype=dtype, device="meta")
+            for shape, stride, dtype, _ in layout]
+
+
+def _stand_in(meter, plan: _Plan, step, xc: tuple, carry: tuple,
+              grad: bool):
+    """One chunk that is not run: (*carry, y)."""
+    fwd = plan.fwd
+    if not (grad and fwd.differentiable):
+        meter.credit(fwd.spend)
+        return _remake(fwd.outs)
+    if not any(t.requires_grad for t in xc + carry):
+        raise RuntimeError("chunked_scan on meta: a chunk whose outputs "
+                           "need a gradient has no input that does")
+    params = _closure_tensors(step)
+    live = meter.tracker.live
+    out = _StandIn.apply(plan, step, len(xc), *xc, *carry,
+                         *[params[i] for i in fwd.params])
+    # credited once its inputs are saved, as `checkpoint` saves them
+    # before it runs the chunk (an enclosing checkpoint's recompute may
+    # stop at that save)
+    meter.credit(fwd.spend, live=live)
+    return out
+
+
+class _StandIn(torch.autograd.Function):
+    """A chunk that is not run, while autograd records (see above)."""
+
+    @staticmethod
+    def forward(ctx, plan, step, n_x, *ins):
+        fwd = plan.fwd
+        outs = _remake(fwd.outs)
+        keep = list(ins[:n_x + len(fwd.outs) - 1])
+        if fwd.keep_in is not None:
+            keep = [t for t, k in zip(keep, fwd.keep_in) if k]
+            keep += [o for o, k in zip(outs, fwd.keep_out) if k]
+            keep += [torch.empty(n, dtype=torch.uint8, device="meta")
+                     for n in fwd.extras]
+        ctx.save_for_backward(*keep)
+        ctx.set_materialize_grads(False)
+        ctx.plan = plan
+        # under remat the chunk's checkpoint holds the step (and what its
+        # closure holds) until the chunk's backward
+        ctx.step = step if fwd.keep_in is None else None
+        ctx.specs = [(tuple(t.shape), t.dtype) for t in ins]
+        ctx.mark_non_differentiable(*[o for o, l in zip(outs, fwd.outs)
+                                      if not l[3]])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        kept = ctx.saved_tensors    # held, as the chunk's replay holds them
+        plan, meter = ctx.plan, cost.meter()
+        if plan.bwd is None:
+            plan.owed += 1
+            plan.owed_live = max(plan.owed_live, meter.tracker.live)
+            meter.deferred += 1
+        else:
+            meter.credit(plan.bwd)
+        strides = plan.grad_strides or {}
+        grads = tuple(
+            torch.empty_strided(shape, strides.get(i, _dense(shape)),
+                                dtype=dtype, device="meta") if need else None
+            for i, (need, (shape, dtype)) in enumerate(zip(
+                ctx.needs_input_grad[3:], ctx.specs)))
+        del kept
+        ctx.step = None
+        return (None, None, None) + grads
+
+
+class _Mark(torch.autograd.Function):
+    """Passes its inputs on as views; in backward, the one on a measured
+    chunk's outputs (`opens`) opens a window and the one on its inputs
+    closes it: the chunk's backward is the plan's `bwd`, the input
+    gradients must be what the stand-ins make, and what the stand-ins
+    owe is credited."""
+
+    @staticmethod
+    def forward(ctx, plan, opens, *ts):
+        ctx.plan, ctx.opens = plan, opens
+        ctx.set_materialize_grads(False)
+        ctx.inputs = [(tuple(t.shape), t.dtype, t.requires_grad) for t in ts]
+        out = tuple(t.view_as(t) for t in ts)
+        ctx.mark_non_differentiable(*[o for o, t in zip(out, ts)
+                                      if not t.requires_grad])
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plan, meter = ctx.plan, cost.meter()
+        if ctx.opens:
+            plan.token = meter.open()
+            return (None, None) + grads
+        spend, made = meter.close(plan.token)
+        keys, strides = set(), {}
+        for i, (g, (shape, dtype, rg)) in enumerate(zip(grads, ctx.inputs)):
+            fresh = (g is not None and tuple(g.shape) == shape
+                     and g.dtype == dtype and not g.storage_offset()
+                     and _skey(g) in made and _skey(g) not in keys
+                     and g.untyped_storage().nbytes() == _span(g)
+                     == g.numel() * g.element_size())
+            if rg and not fresh or not rg and g is not None:
+                raise RuntimeError(
+                    "chunked_scan on meta: a chunk's input gradient is not "
+                    f"a dense tensor of its own ({shape}, {dtype}); the "
+                    "stand-in chunks cannot make it")
+            if g is not None:
+                keys.add(_skey(g))
+                strides[i] = g.stride()
+        plan.bwd, plan.grad_strides = spend, strides
+        if plan.owed:
+            meter.credit(spend, plan.owed, plan.owed_live)
+            meter.deferred -= plan.owed
+            plan.owed = plan.owed_live = 0
+        return (None, None) + grads
 
 
 class _Silu(torch.autograd.Function):

@@ -175,13 +175,16 @@ def dryrun_layouts(out: str) -> None:
 
 FLOPS_TRAIN = ("internlm2-20b", 2, 64)      # arch (reduced), batch, seq
 FLOPS_DECODE = ("olmoe-1b-7b", 2, 256)      # arch (reduced), batch, cache
+FLOPS_HYBRID = (NAME, 2, 256)               # the Mamba scans: 4 chunks
 
 
 def dryrun_flops(out: str) -> None:
     """`hlo_analysis.dot_flops` of the reference's jitted train step
     (loss, gradient, AdamW), its loss alone and its loss and gradient
-    without remat, on the reduced FLOPS_TRAIN, and its decode step on the
-    reduced FLOPS_DECODE (raw cache), one CPU device."""
+    without remat, on the reduced FLOPS_TRAIN, its decode step on the
+    reduced FLOPS_DECODE (raw cache), and the loss alone on the reduced
+    FLOPS_HYBRID (its scans counted by their trip counts), one CPU
+    device."""
     from repro.configs.base import ShapeConfig
     from repro.launch import hlo_analysis
     from repro.optim import optimizer as opt
@@ -218,9 +221,15 @@ def dryrun_flops(out: str) -> None:
 
     decode = flops(serve_step, bundle.abstract_params(), ins["cache"],
                    ins["tokens"], ins["pos"])
+    name, b, s = FLOPS_HYBRID
+    bundle = j_build(JR.get(name).reduced())
+    tok = jax.ShapeDtypeStruct((b, s), jnp.int32)
+    hybrid = flops(lambda p, bt: bundle.loss(p, bt, None),
+                   bundle.abstract_params(), {"tokens": tok, "labels": tok})
     with open(out, "w") as f:
         json.dump({"train": train, "forward": forward,
-                   "no_remat": no_remat, "decode": decode}, f)
+                   "no_remat": no_remat, "decode": decode,
+                   "hybrid_forward": hybrid}, f)
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@
       `param_shardings`, `_batch_shardings` and `_greedy_sharding` (a
       subprocess with 512 forced host devices, compiling nothing);
   (b) FLOPs counted on meta against `hlo_analysis.dot_flops` of the
-      reference's jitted steps on one CPU device;
+      reference's jitted steps on one CPU device (the hybrid's forward
+      with its scans scaled: tests/test_torch_scan_count.py);
   (c) what MetaAxis returns and records against what ThreadAxis moves;
   (d) the peak tracker against a hand count;
   (e) whole cells at full width on meta (whisper-base, olmoe-1b-7b at
@@ -180,6 +181,30 @@ def test_flops_against_the_reference_hlo(reference_dryrun_jobs):
     assert abs(no_remat - ref["no_remat"]) <= 0.02 * ref["no_remat"]
     step = _port_train_flops("step")
     assert no_remat < step < ref["train"]
+
+
+def test_hybrid_forward_flops_against_the_reference_hlo(
+        reference_dryrun_jobs, monkeypatch):
+    """The reduced jamba's loss forward at FLOPS_HYBRID (T 256: four
+    chunks a Mamba block), counted on meta with its scans scaled (chunks
+    0 and 1 of the first block run and are measured, every other chunk of
+    the seven blocks stands in), is the reference's HLO count exactly:
+    `hlo_analysis.computation_multipliers` scales each scan body by its
+    trip count, the stand-ins credit the measured chunk."""
+    from repro_torch.models import layers as L
+    ref = _reference(reference_dryrun_jobs, "flops")
+    stood = []
+    real = L._stand_in
+    monkeypatch.setattr(L, "_stand_in", lambda *a, **k: stood.append(1)
+                        or real(*a, **k))
+    name, b, s = RJ.FLOPS_HYBRID
+    bundle = build(TR.get(name).reduced())
+    tok = torch.empty((b, s), dtype=torch.int32, device="meta")
+    with cost.counting() as c:
+        bundle.loss(bundle.abstract_params(), {"tokens": tok,
+                                               "labels": tok}, remat=False)
+    assert len(stood) == 2 + 4 * 6
+    assert c.flops == ref["hybrid_forward"]
 
 
 # ------------------------------------------------------- (c) collectives --
