@@ -364,7 +364,9 @@ KERNELS = {
 # ABS unpack a conversion and a mul; the REL unpack a conversion, a mul and
 # pow2approx.  The chunk select adds integer work the fused kernels hide
 # under their float32 count; alone it is a max, 3 compares and 4
-# shift/masks per word, the expand 4 shift/masks per word.  The dense
+# shift/masks per word (its chunk placement, the scan and the header are
+# a few operations a chunk of 512 words), the expand 4 shift/masks per
+# word.  The dense
 # kernels count as the pack ones, plus the recon (a conversion and a mul,
 # REL also pow2approx) and the payload select.  Integer operations are
 # counted against the float32 rate.  The bound is set by bytes whenever
@@ -463,28 +465,42 @@ def violations(x, y, eb64: float, rel: bool) -> int:
     return int((~(same | within)).sum())
 
 
-def kernel_bytes(name: str, n: int, bits: int = 32, hist=None) -> int:
+def lc_used_words(hist) -> int:
+    """Payload words the chunks of a code histogram occupy."""
+    from repro_torch.core import codec as C
+    return sum(h * ln for h, ln in zip(hist, C._LC_LENS))
+
+
+def kernel_bytes(name: str, n: int, bits: int = 32, hist=None,
+                 rows: int = 1, image: bool = False) -> int:
     """Least bytes: each input read once, each output written once.  n is
     the element count for the pack and unpack kernels and the word count
-    entering the stage for _lc_select and _lc_expand; `hist` (the chunk
-    code counts of this run) gives the rows _lc_expand must read."""
+    entering the stage (all `rows` streams) for _lc_select and _lc_expand;
+    `hist` (the chunk code counts of this run) gives the payload words
+    _lc_expand reads and, with `image` (B5's image compacted), those
+    _lc_select reads.  _lc_select writes each row's payload (512 words a
+    chunk), 2-bit header plane and length; _lc_expand reads the header
+    plane and the used payload words and writes the words."""
     from repro_torch.core import codec as C
     words = 4 * C.packed_word_count(n, bits)
     signs = 4 * C.packed_word_count(n, 1)
     chunks = C.lc_chunk_count(C.packed_word_count(n, bits))
-    image = 4 * chunks * C.LC_CHUNK + 4 * chunks      # sel + int32 codes
-    stage_chunks = C.lc_chunk_count(n)
+    image_bytes = 4 * chunks * C.LC_CHUNK + 4 * chunks   # sel + int32 codes
+    n_in = n // rows
+    stage_chunks = rows * C.lc_chunk_count(n_in)
+    header = 4 * rows * C.lc_header_words(n_in)
     if name == "_lc_select":
-        return 4 * n + 4 * stage_chunks * C.LC_CHUNK + 4 * stage_chunks
+        read = (4 * lc_used_words(hist) + 4 * stage_chunks if image
+                else 4 * n)
+        return read + 4 * stage_chunks * C.LC_CHUNK + header + 4 * rows
     if name == "_lc_expand":
-        rows = hist[1] + 2 * hist[2] + 4 * hist[3]
-        return 4 * stage_chunks + 4 * C.PACK_LANES * rows + 4 * n
+        return header + 4 * lc_used_words(hist) + 4 * n
     return {"_abs_pack": 4 * n + 4 + words + n,
             "_rel_pack": 4 * n + words + n + signs,
             "_abs_unpack": words + 4 + 4 * n,
             "_rel_unpack": words + signs + 4 * n,
-            "_abs_pack_lc": 4 * n + 4 + n + image,
-            "_rel_pack_lc": 4 * n + n + signs + image,
+            "_abs_pack_lc": 4 * n + 4 + n + image_bytes,
+            "_rel_pack_lc": 4 * n + n + signs + image_bytes,
             "_quantize_abs": 4 * n + 4 + 4 * n + n + 4 * n,
             "_quantize_rel": 4 * n + 4 * n + n + 4 * n + n,
             "_dequantize_abs": 4 * n + 4 * n + n + 4 + 4 * n,
@@ -499,8 +515,9 @@ def bound_from(n_bytes: float, ops: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bound_of(name: str, n: int, bits: int, hist=None):
-    return bound_from(kernel_bytes(name, n, bits, hist),
+def bound_of(name: str, n: int, bits: int, hist=None, rows: int = 1,
+             image: bool = False):
+    return bound_from(kernel_bytes(name, n, bits, hist, rows, image),
                       OPS_PER_ELEM[name] * n)
 
 
@@ -641,7 +658,7 @@ def stage_codes(pipe, enc, n: int):
 def hist_of(codes):
     if codes is None:
         return None
-    return [int(v) for v in torch.bincount(codes.to(torch.int64),
+    return [int(v) for v in torch.bincount(codes.reshape(-1).to(torch.int64),
                                            minlength=4).cpu()]
 
 
@@ -668,9 +685,9 @@ def first_words(pipe, x, eb, eb_arr, shape):
 
 
 def path_calls(pipe, enc, x, eb, eb_arr, n: int, shape):
-    """[(kernel, label, n or words, hist, kernel call, plain call)] on the
-    main path's inputs of every kernel the chain's encode and decode
-    launch, in path order."""
+    """[(kernel, label, n or words, hist, kernel call, plain call[,
+    kernel_row's keywords])] on the main path's inputs of every kernel the
+    chain's encode and decode launch, in path order."""
     from repro_torch.core import codec as C
     from repro_torch.core.pipeline import ChunkStage
     from repro_torch.kernels import dense as D
@@ -694,10 +711,16 @@ def path_calls(pipe, enc, x, eb, eb_arr, n: int, shape):
             calls.append(("_rel_pack_lc", stage, n, None,
                           lambda: L.rel_pack_lc(x, cfg, stage),
                           lambda: L._rel_pack_lc_plain(x, cfg, stage)))
+            sel, codes0 = L.rel_pack_lc(x, cfg, stage)[-2:]
         else:
             calls.append(("_abs_pack_lc", stage, n, None,
                           lambda: L.abs_pack_lc(x, eb_arr, cfg, stage),
                           lambda: L._abs_pack_lc_plain(x, eb_arr, cfg, stage)))
+            sel, codes0 = L.abs_pack_lc(x, eb_arr, cfg, stage)[-2:]
+        calls.append(("_lc_select", f"0:{stage} image", sel.numel(),
+                      hist_of(codes0), lambda: L.lc_compact_image(sel, codes0),
+                      lambda: L._lc_compact_plain(sel, codes0[None]),
+                      {"image": True}))
     elif rel:
         calls.append(("_rel_pack", "", n, None, lambda: K.rel_pack(x, cfg),
                       lambda: K._rel_pack_plain(x, cfg)))
@@ -712,20 +735,21 @@ def path_calls(pipe, enc, x, eb, eb_arr, n: int, shape):
         for i, st in enumerate(pipe.stages):
             if isinstance(st, ChunkStage):
                 calls.append(("_lc_select", f"{i}:{st.mode}", sizes[i], None,
-                              lambda w=cur, s=st.mode: L.lc_select(w, s),
-                              lambda w=cur, s=st.mode:
+                              lambda w=cur[None], s=st.mode:
+                              L.lc_select(w, s),
+                              lambda w=cur[None], s=st.mode:
                               L._lc_select_plain(w, s)))
             cur = st.encode_words(cur, sizes[i], kernels=True)[1]
     cur = enc.payload                   # decode: the stages in reverse
     for i in reversed(range(len(pipe.stages))):
-        st, m = pipe.stages[i], sizes[i]
+        st, m, hdr = pipe.stages[i], sizes[i], enc.headers[i]
         if isinstance(st, ChunkStage):
-            padded = C.lc_gather_chunks(cur, codes[i]).reshape(-1)
             calls.append(("_lc_expand", f"{i}:{st.mode}", m, hist_of(codes[i]),
-                          lambda p=padded, c=codes[i], m=m: L.lc_expand(p, c, m),
-                          lambda p=padded, c=codes[i], m=m:
-                          L._lc_expand_plain(p, c, m)))
-        cur = st.decode_words(enc.headers[i], cur, m, kernels=True)
+                          lambda h=hdr[None], p=cur[None], m=m:
+                          L.lc_expand(h, p, m),
+                          lambda h=hdr[None], p=cur[None], m=m:
+                          L._lc_expand_plain(h, p, m)))
+        cur = st.decode_words(hdr, cur, m, kernels=True)
     words = cur
     if pipe.pred:                       # B10/B11 on the dense planes
         bins = pipe._bin_untransform(shape, n)(C.unpack_words(words, n, bits))
@@ -796,8 +820,8 @@ def oracle_check(pipe, x, eb) -> None:
 # path, where quantize_kv is torch ops by design: B8 is not on it)
 CODEC_PLAIN_FNS = tuple(("core.codec", f) for f in (
     "encode_packed", "decode_packed", "encode_words_lc",
-    "decode_words_lc")) + (("kernels.lossless", "_lc_select_plain"),
-                           ("kernels.lossless", "_lc_expand_plain"))
+    "decode_words_lc")) + tuple(("kernels.lossless", f) for f in (
+        "_lc_select_plain", "_lc_compact_plain", "_lc_expand_plain"))
 PLAIN_FNS = tuple(("core.quantizer", f) for f in (
     "quantize_abs", "quantize_rel", "quantize_noa", "dequantize_abs",
     "dequantize_rel")) + CODEC_PLAIN_FNS
@@ -835,14 +859,16 @@ def as_tuple(v):
     return v if isinstance(v, tuple) else (v,)
 
 
-def kernel_row(name, label, chain, bits, size, hist, kern, plain, count):
-    """Hold one kernel against its plain version and time both."""
+def kernel_row(name, label, chain, bits, size, hist, kern, plain, count,
+               rows: int = 1, image: bool = False):
+    """Hold one kernel against its plain version and time both (`rows`
+    and `image` as kernel_bytes takes them)."""
     outs_k, outs_p = as_tuple(kern()), as_tuple(plain())
     match = len(outs_k) == len(outs_p) and all(
         planes_equal(a, b) for a, b in zip(outs_k, outs_p))
     err = max(max_abs_err(a, b) for a, b in zip(outs_k, outs_p))
     check(match, f"{chain}: {name} ({label}) differs from its plain version")
-    bound_ms, bound_by = bound_of(name, size, bits, hist)
+    bound_ms, bound_by = bound_of(name, size, bits, hist, rows, image)
     ms = time_ms(kern)
     batched_ms = time_ms(kern, reps=10, batch=KV_BATCH_CALLS)
     _, dev_ms = device_kernels(kern, reps=10)
@@ -857,7 +883,8 @@ def kernel_row(name, label, chain, bits, size, hist, kern, plain, count):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "share": bound_ms / ms, "batched_ms": batched_ms,
             "batched_share": bound_ms / batched_ms, "library_ms": None,
-            "bytes": kernel_bytes(name, size, bits, hist)}
+            "bytes": kernel_bytes(name, size, bits, hist, rows, image),
+            "rows": rows}
 
 
 def offset1_row(pipe, x, eb_arr, label: str) -> dict:
@@ -884,23 +911,25 @@ def offset1_row(pipe, x, eb_arr, label: str) -> dict:
 
 def chain_parts(pipe, enc, x, eb, eb_arr, shape, t: dict) -> dict:
     """Where the end-to-end time goes: the kernels (t: kernel -> one-call
-    ms) and the torch ops around them, each timed as one call on the
-    chain's own planes: NOA's range, the outlier table, the pred transform
-    and the pack of a pred chain, each word stage (the chunk compaction,
-    shuffle, ent encode; on decode the gather, unshuffle, ent decode), and
-    the decode's unpack, pred inverse and outlier planes or scatter."""
+    ms; a chunk stage is its select kernel B6, which compacts and writes
+    the header, and its expand kernel B7, which reads them back) and the
+    torch ops around them, each timed as one call on the chain's own
+    planes: NOA's range, the outlier table, the pred transform and the
+    pack of a pred chain, the other word stages (shuffle, ent encode; on
+    decode unshuffle, ent decode), and the decode's unpack, pred inverse
+    and outlier planes or scatter."""
     from repro_torch.core import codec as C
     from repro_torch.core import predict as P
     from repro_torch.core import quantizer as Q
-    from repro_torch.core.pipeline import ChunkStage, EntStage, ShuffleStage
+    from repro_torch.core.pipeline import EntStage, ShuffleStage
     from repro_torch.kernels import dense as D
     from repro_torch.kernels import lossless as L
     cfg, n, bits = pipe.qcfg(), x.numel(), pipe.pack.bits
     rel = pipe.quant.mode == "rel"
-    sizes, codes = pipe.stage_sizes(n), stage_codes(pipe, enc, n)
+    sizes = pipe.stage_sizes(n)
     parts = {k: 0.0 for k in (
         "encode_kernel", "value_range", "outlier_table", "select_kernel",
-        "compaction", "gather", "expand_kernel", "decode_kernel", "scatter")}
+        "expand_kernel", "decode_kernel", "scatter")}
 
     def add(key, ms):
         parts[key] = parts.get(key, 0.0) + ms
@@ -916,23 +945,12 @@ def chain_parts(pipe, enc, x, eb, eb_arr, shape, t: dict) -> dict:
         add("value_range", time_ms(lambda: Q.value_range_eb(x, cfg)))
     if fused_lc(pipe):
         st = pipe.stages[0].mode
-        out = (L.rel_pack_lc(x, cfg, st) if rel
-               else L.abs_pack_lc(x, eb_arr, cfg, st))
-        outlier, sel, codes0 = out[0], out[-2], out[-1]
-        add("compaction", time_ms(lambda: (
-            C.lc_compact_payload(sel.reshape(-1, C.LC_CHUNK), codes0),
-            C.pack_words(codes0, 2))))
-        del out, sel, codes0
+        outlier = (L.rel_pack_lc(x, cfg, st) if rel
+                   else L.abs_pack_lc(x, eb_arr, cfg, st))[0]
     else:
         cur, outlier = first_words(pipe, x, eb, eb_arr, shape)
         for i, st in enumerate(pipe.stages):
-            if isinstance(st, ChunkStage):
-                sel, codes0 = L.lc_select(cur, st.mode)
-                add("compaction", time_ms(lambda s=sel, c=codes0: (
-                    C.lc_compact_payload(s.reshape(-1, C.LC_CHUNK), c),
-                    C.pack_words(c, 2))))
-                del sel, codes0
-            elif isinstance(st, ShuffleStage):
+            if isinstance(st, ShuffleStage):
                 add("shuffle", time_ms(lambda w=cur, s=st:
                                        C.shuffle_words(w, s.width)))
             elif isinstance(st, EntStage):
@@ -956,10 +974,7 @@ def chain_parts(pipe, enc, x, eb, eb_arr, shape, t: dict) -> dict:
     cur = enc.payload
     for i in reversed(range(len(pipe.stages))):
         st, m, hdr = pipe.stages[i], sizes[i], enc.headers[i]
-        if isinstance(st, ChunkStage):
-            add("gather", time_ms(lambda p=cur, c=codes[i]:
-                                  C.lc_gather_chunks(p, c)))
-        elif isinstance(st, ShuffleStage):
+        if isinstance(st, ShuffleStage):
             add("unshuffle", time_ms(lambda p=cur, s=st, m=m:
                                      C.unshuffle_words(p, m, s.width)))
         elif isinstance(st, EntStage):
@@ -1030,8 +1045,8 @@ def run_chain(label: str, spec: str, x, eb, shape=None):
         check(counts[name] > 0,
               f"{label}: {name} not launched on the main path")
     rows = [kernel_row(name, lab, label, pipe.pack.bits, size, hist, kern,
-                       plain, counts[name])
-            for name, lab, size, hist, kern, plain in calls]
+                       plain, counts[name], **(extra[0] if extra else {}))
+            for name, lab, size, hist, kern, plain, *extra in calls]
     del calls
     for r in rows:
         if r["name"] in ("_abs_pack", "_rel_pack"):
@@ -1158,24 +1173,38 @@ def code_sweep(seed: int):
                 want = (1, 2, 3) if stage == "narrow" else (3,)
                 check(all(hist[c] >= 0.1 * codes.numel() for c in (0, *want)),
                       f"code sweep: {what} codes {hist} miss a code")
-                hold("_lc_select", what, L.lc_select(words, stage),
-                     L._lc_select_plain(words, stage))
-                back = L.lc_expand(sel, codes, n_words)
+                image = L.lc_compact_image(sel, codes)
+                hold("_lc_select", what + " image", image,
+                     L._lc_compact_plain(sel, codes[None]))
+                coded = L.lc_select(words[None], stage)
+                hold("_lc_select", what, coded,
+                     L._lc_select_plain(words[None], stage))
+                check(all(planes_equal(a, b) for a, b in zip(image, coded)),
+                      f"code sweep: {what} B5's route and B6's differ")
+                back = L.lc_expand(coded[0], coded[1], n_words)
                 hold("_lc_expand", what, back,
-                     L._lc_expand_plain(sel, codes, n_words))
-                check(planes_equal(back, words),
+                     L._lc_expand_plain(coded[0], coded[1], n_words))
+                check(planes_equal(back[0], words),
                       f"code sweep: {what} expand does not invert select")
     n_words = 3 * 4096 * C.LC_CHUNK // 128 + 129       # ragged word plane
     words = sweep_words(n_words, gen)
+    pages = C.LC_CHUNK * 8                              # rows of 8 chunks
     for stage in ("zero", "narrow"):
-        sel, codes = L.lc_select(words, stage)
-        hold("_lc_select", f"words {stage}", (sel, codes),
-             L._lc_select_plain(words, stage))
-        hists[f"words {stage}"] = hist_of(codes)
-        back = L.lc_expand(sel, codes, n_words)
-        hold("_lc_expand", f"words {stage}", back,
-             L._lc_expand_plain(sel, codes, n_words))
-        check(planes_equal(back, words), f"code sweep: words {stage} roundtrip")
+        for what, rows in ((f"words {stage}", words[None]),
+                           (f"pages {stage}", words[:n_words // pages * pages]
+                            .view(-1, pages))):
+            coded = L.lc_select(rows, stage)
+            hold("_lc_select", what, coded, L._lc_select_plain(rows, stage))
+            hists[what] = hist_of(C.unpack_word_rows(
+                coded[0], C.lc_chunk_count(rows.shape[1]), 2, signed=False))
+            back = L.lc_expand(coded[0], coded[1], rows.shape[1])
+            hold("_lc_expand", what, back,
+                 L._lc_expand_plain(coded[0], coded[1], rows.shape[1]))
+            cut = coded[1][:, :coded[1].shape[1] // 3]
+            hold("_lc_expand", what + " short payload",
+                 L.lc_expand(coded[0], cut, rows.shape[1]),
+                 L._lc_expand_plain(coded[0], cut, rows.shape[1]))
+            check(planes_equal(back, rows), f"code sweep: {what} roundtrip")
     print(json.dumps({"phase": "code-sweep", "n": N_SWEEP, "held": held,
                       "codes_hist": hists}), flush=True)
 
@@ -2147,9 +2176,9 @@ def grad_kernel_rows(x, counts: dict, per_step: dict, ring_in=None,
     sel_cfg = get_selector("grad-wire").qcfg()
     words = C.pack_words(q.bins, 16)
     n_words = words.numel()
+    header, payload = shard.enc.headers[0][None], shard.enc.payload[None]
     codes = C.unpack_words(shard.enc.headers[0], C.lc_chunk_count(n_words), 2,
                            signed=False)
-    padded = C.lc_gather_chunks(shard.enc.payload, codes).reshape(-1)
     calls = [
         ("_abs_pack", "selector stats", 16, n, None,
          lambda: K.abs_pack(x, eb, sel_cfg),
@@ -2158,11 +2187,11 @@ def grad_kernel_rows(x, counts: dict, per_step: dict, ring_in=None,
          lambda: tuple(D.quantize_abs(x, qc, eb=eb)[:3]),
          lambda: tuple(D._quantize_abs_plain(x, eb, qc)[:3])),
         ("_lc_select", "0:narrow", 16, n_words, None,
-         lambda: L.lc_select(words, "narrow"),
-         lambda: L._lc_select_plain(words, "narrow")),
+         lambda: L.lc_select(words[None], "narrow"),
+         lambda: L._lc_select_plain(words[None], "narrow")),
         ("_lc_expand", "0:narrow", 16, n_words, hist_of(codes),
-         lambda: L.lc_expand(padded, codes, n_words),
-         lambda: L._lc_expand_plain(padded, codes, n_words)),
+         lambda: L.lc_expand(header, payload, n_words),
+         lambda: L._lc_expand_plain(header, payload, n_words)),
         ("_abs_unpack", "gather decode", 16, n, None,
          lambda: K.abs_unpack(words, eb, n, qc),
          lambda: K._abs_unpack_plain(words, eb, n, qc)),
@@ -2508,30 +2537,56 @@ def layer0_queries(cfg, params, toks, pos: int, gen) -> list:
     return out
 
 
-def lc_rows(select_args, expand_args, counts) -> list:
-    """B6 and B7 on the inputs pack_kv and unpack_kv gave them in the serve
-    phase, held bit for bit against their plain versions."""
+def lc_rows(select_args, expand_args, counts, phase: str) -> list:
+    """B6 and B7 on the inputs pack_kv and unpack_kv gave them in `phase`
+    (every page a row), held bit for bit against their plain versions,
+    with the host's time a call: 100 calls enqueued with no sync, by the
+    host's clock.  With CHIP_SMOKE_KEEP_LC=DIR the pages B6 coded are
+    kept as DIR/<phase>.pt for `chip_lc_ab.py --pages DIR`."""
     from repro_torch.core import codec as C
     from repro_torch.kernels import lossless as L
     rows = []
     words, mode = select_args
-    n = words.shape[0]
-    sel, codes = L.lc_select(words, mode)
-    hist = [int(v) for v in torch.bincount(codes.long(), minlength=4).cpu()]
-    rows.append(kernel_row("_lc_select", "serve", "pack_kv", 8, n, hist,
-                           lambda: L.lc_select(words, mode),
+    n_rows, n_in = words.shape
+    if os.environ.get("CHIP_SMOKE_KEEP_LC"):
+        keep = Path(os.environ["CHIP_SMOKE_KEEP_LC"])
+        keep.mkdir(parents=True, exist_ok=True)
+        torch.save({"words": words.cpu(), "mode": mode}, keep / f"{phase}.pt")
+    header = L.lc_select(words, mode)[0]
+    codes = C.unpack_word_rows(header, C.lc_chunk_count(n_in), 2,
+                               signed=False)
+    rows.append(kernel_row("_lc_select", phase, "pack_kv", 8, words.numel(),
+                           hist_of(codes), lambda: L.lc_select(words, mode),
                            lambda: L._lc_select_plain(words, mode),
-                           counts["_lc_select"]))
-    padded, codes, n_words = expand_args
-    hist = [int(v) for v in torch.bincount(codes.long(), minlength=4).cpu()]
-    rows.append(kernel_row("_lc_expand", "serve", "unpack_kv", 8, n_words,
-                           hist, lambda: L.lc_expand(padded, codes, n_words),
-                           lambda: L._lc_expand_plain(padded, codes, n_words),
-                           counts["_lc_expand"]))
-    for r in rows:
+                           counts["_lc_select"], rows=n_rows))
+    header, payload, n_in = expand_args
+    codes = C.unpack_word_rows(header, C.lc_chunk_count(n_in), 2,
+                               signed=False)
+    rows.append(kernel_row("_lc_expand", phase, "unpack_kv", 8,
+                           header.shape[0] * n_in, hist_of(codes),
+                           lambda: L.lc_expand(header, payload, n_in),
+                           lambda: L._lc_expand_plain(header, payload, n_in),
+                           counts["_lc_expand"], rows=header.shape[0]))
+    for r, kern in zip(rows, (lambda: L.lc_select(words, mode),
+                              lambda: L.lc_expand(header, payload, n_in))):
         r["caller"] = ("compression.kv.pack_kv" if r["name"] == "_lc_select"
                        else "compression.kv.unpack_kv")
+        r["row_words"] = n_in
+        r["host_us"] = host_us(kern)
     return rows
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """The host's time a call, in µs, of `calls` calls of fn enqueued in a
+    row with no sync in between (the card's queue absorbs them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def serve_aligned(cfg, params, seed: int) -> tuple:
@@ -2649,7 +2704,8 @@ def serve_aligned(cfg, params, seed: int) -> tuple:
     lens = torch.full((b,), pos[0] - pos[0] % KV_PAGE, dtype=torch.int32,
                       device=DEV)
     row_b12 = b12_row("a", qs, kq0, vq0, lens, SERVE_SEQ, counts[b12])
-    rows = [row_b12] + lc_rows(sel_args[0][:2], exp_args[0][:3], lc_counts)
+    rows = [row_b12] + lc_rows(sel_args[0][:2], exp_args[0][:3], lc_counts,
+                               "serve")
     line = {
         "phase": "serve", "part": "a", "arch": SERVE_ARCH,
         "layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -3771,7 +3827,7 @@ def moe_phase(seed: int) -> list:
     rows.append(row_b)
     line_b["stream"] = moe_stream(cfg, params, seed)
     print(json.dumps(line_b), flush=True)
-    rows += lc_rows(sel_args[0][:2], exp_args[0][:3], lc_counts)
+    rows += lc_rows(sel_args[0][:2], exp_args[0][:3], lc_counts, "moe")
     line_c, row_c = serve_long(cfg, params, seed, phase="moe",
                                label="moe-c")
     eb = expert_bytes(params)

@@ -149,35 +149,18 @@ class ChunkStage:
     def encode_pages(self, words, n_in: int, kernels: bool = False):
         """Each row of words int32[R, n_in] coded as its own stream (a row
         is one KV page): (headers [R, hw], payload [R, cap], len
-        int32[R]).  The chunks of every row go through one chunk select
-        (the select kernel B6 with kernels=True); only the compaction and
-        the 2-bit header pack take the row axis."""
-        rows = words.shape[0]
-        nc = C.lc_chunk_count(n_in)
-        if nc * C.LC_CHUNK != n_in:
-            words = torch.cat([words, words.new_zeros(
-                rows, nc * C.LC_CHUNK - n_in)], 1)
-        flat = words.reshape(-1).contiguous()
+        int32[R]).  With kernels=True one launch of the select kernel B6
+        for every row's chunks, their compaction and 2-bit headers; else
+        the reference's composition."""
         select = L.lc_select if kernels else L._lc_select_plain
-        sel, codes = select(flat, self.mode)
-        codes = codes.reshape(rows, nc)
-        payload, plen = C.compact_chunk_rows(
-            sel.reshape(rows, nc, C.LC_CHUNK), C.lc_chunk_lens(codes))
-        return C.pack_word_rows(codes, 2), payload, plen
+        return select(words, self.mode)
 
     def decode_pages(self, header, payload, n_in: int,
                      kernels: bool = False):
-        """Exact inverse of encode_pages: int32[R, n_in] (the expand
-        kernel B7 over every row's chunks with kernels=True)."""
-        rows = payload.shape[0]
-        nc = C.lc_chunk_count(n_in)
-        codes = C.unpack_word_rows(header, nc, 2, signed=False)
-        padded = C.gather_chunk_rows(payload, C.lc_chunk_lens(codes))
+        """Exact inverse of encode_pages: int32[R, n_in] (one launch of
+        the expand kernel B7 with kernels=True)."""
         expand = L.lc_expand if kernels else L._lc_expand_plain
-        words = expand(padded.reshape(-1).contiguous(),
-                       codes.reshape(-1).contiguous(),
-                       rows * nc * C.LC_CHUNK)
-        return words.reshape(rows, -1)[:, :n_in]
+        return expand(header, payload, n_in)
 
     def spec(self) -> str:
         return self.mode

@@ -2,7 +2,8 @@
 a plain C interface, loaded with ctypes.
 
 The sources (`csrc/pack.cu`, `csrc/lossless.cu` and `csrc/dense.cu`, which
-include `csrc/quantize.cuh`, and `csrc/kv_attention.cu`) are compiled in
+include `csrc/quantize.cuh`, `lossless.cu` also `csrc/chunk.cuh`, and
+`csrc/kv_attention.cu`) are compiled in
 parallel, one `nvcc` each, and linked into one library at first use, in
 `build/repro_torch/` at the root of the checkout (listed in `.gitignore`).  The library is named by a hash of the
 sources, the header and the flags, so an edited source rebuilds and an
@@ -25,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "pack.cu", CSRC / "lossless.cu", CSRC / "dense.cu",
            CSRC / "kv_attention.cu")
-HEADERS = (CSRC / "quantize.cuh",)
+HEADERS = (CSRC / "quantize.cuh", CSRC / "chunk.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-O3", "-fmad=false", "-std=c++17", "-Xcompiler",
@@ -44,8 +45,8 @@ _SIGNATURES = {
                           _P],
     "repro_rel_pack_lc": [_P, _LL, _I, _I, _F, _F, _F, _F, _F, _I, _LL, _P,
                           _P, _P, _P, _P],
-    "repro_lc_select": [_P, _LL, _I, _LL, _P, _P, _P],
-    "repro_lc_expand": [_P, _P, _LL, _P, _LL, _P],
+    "repro_lc_select": [_P, _LL, _P, _LL, _LL, _I, _P, _P, _P, _P],
+    "repro_lc_expand": [_P, _LL, _P, _LL, _LL, _LL, _LL, _P, _P, _P],
     "repro_dense_quantize_abs": [_P, _LL, _P, _I, _F, _F, _P, _P, _P, _P],
     "repro_dense_quantize_rel": [_P, _LL, _I, _F, _F, _F, _F, _F, _P, _P,
                                  _P, _P, _P],
@@ -114,6 +115,8 @@ def load() -> ctypes.CDLL:
             for fn, argtypes in _SIGNATURES.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
+            lib.repro_lc_scratch_words.argtypes = [_LL]
+            lib.repro_lc_scratch_words.restype = _LL
             lib.repro_error_string.argtypes = [ctypes.c_int]
             lib.repro_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -60,21 +60,32 @@ def _eb_operand(eb: torch.Tensor, device) -> torch.Tensor:
     return eb.reshape(1).contiguous()
 
 
+_FNS: dict = {}     # C name -> the library's ctypes function, looked up once
+
+
 def _launch(counts: dict, name: str, fn: str, device, *args) -> None:
     """Call C function `fn` of the kernel library on `device`'s current
     stream; raise if the launch failed, else add one to counts[name] (under
     a lock: ranks on threads launch concurrently).  On the "meta" device
     nothing runs: the launch is counted, and the caller's outputs stay the
     empty tensors it made (`launch.dryrun`)."""
-    if torch.device(device).type == "meta":
+    device = torch.device(device)
+    if device.type == "meta":
         with _COUNT_LOCK:
             counts[name] += 1
         return
-    from . import _build
-    lib = _build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        _build.check(lib, getattr(lib, fn)(*args, stream), name)
+    func = _FNS.get(fn)
+    if func is None:
+        from . import _build
+        func = _FNS.setdefault(fn, getattr(_build.load(), fn))
+    if device.index is None or device.index == torch.cuda.current_device():
+        code = func(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            code = func(*args, torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        from . import _build
+        _build.check(_build.load(), code, name)
     with _COUNT_LOCK:
         counts[name] += 1
 

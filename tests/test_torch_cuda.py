@@ -160,17 +160,21 @@ def test_lc_kernels_match_plain_versions_on_card(mode, bits, n, stage):
         _equal(out, TL._abs_pack_lc_plain(x, eb, cfg, stage))
         words = TK.abs_pack(x, eb, cfg)[0]
     sel, codes = out[-2], out[-1]
-    _equal(TL.lc_select(words, stage), TL._lc_select_plain(words, stage))
-    back = TL.lc_expand(sel, codes, words.shape[0])
-    _equal(back, TL._lc_expand_plain(sel, codes, words.shape[0]))
-    _equal(back, words)
+    _equal(TL.lc_compact_image(sel, codes),
+           TL._lc_compact_plain(sel, codes[None]))
+    rows = words[None]
+    header, payload, plen = TL.lc_select(rows, stage)
+    _equal((header, payload, plen), TL._lc_select_plain(rows, stage))
+    back = TL.lc_expand(header, payload, words.shape[0])
+    _equal(back, TL._lc_expand_plain(header, payload, words.shape[0]))
+    _equal(back[0], words)
     torch.cuda.synchronize()
     if n > 4096 and stage == "narrow":
         hist = torch.bincount(codes.long(), minlength=4)
         assert (hist >= 0.1 * codes.numel()).all(), hist
     name = "_rel_pack_lc" if mode == "rel" else "_abs_pack_lc"
     assert TL.LAUNCHES[name] == before[name] + 1
-    assert TL.LAUNCHES["_lc_select"] == before["_lc_select"] + 1
+    assert TL.LAUNCHES["_lc_select"] == before["_lc_select"] + 2
     assert TL.LAUNCHES["_lc_expand"] == before["_lc_expand"] + 1
 
 
@@ -185,11 +189,196 @@ def test_lc_select_expand_on_card_with_bit31_words(n_words, stage):
     w = RNG.integers(0, 1 << 8, n_words).astype(np.uint32)
     w[::97] |= np.uint32(1 << 31)
     w[1024:2048] = RNG.integers(0, 1 << 16, len(w[1024:2048]))
-    words = torch.from_numpy(w.view(np.int32)).cuda()
-    sel, codes = TL.lc_select(words, stage)
-    _equal((sel, codes), TL._lc_select_plain(words, stage))
-    assert int(codes[0]) == 3
-    _equal(TL.lc_expand(sel, codes, n_words), words)
+    words = torch.from_numpy(w.view(np.int32)).cuda()[None]
+    out = TL.lc_select(words, stage)
+    _equal(out, TL._lc_select_plain(words, stage))
+    assert int(out[0][0, 0]) & 3 == 3
+    _equal(TL.lc_expand(out[0], out[1], n_words), words)
+
+
+def _lc_rows(rows, n, gen):
+    """rows streams of n words on the card whose chunks take every code
+    (narrow), with bit-31 words and an all-zero row."""
+    kind = torch.randint(0, 5, (rows, -(-n // 512)), generator=gen,
+                         device="cuda").repeat_interleave(512, 1)[:, :n]
+    r = torch.randint(-2 ** 31, 2 ** 31, (rows, n), generator=gen,
+                      device="cuda", dtype=torch.int64)
+    w = torch.where(kind == 1, r & 0xFF, torch.where(
+        kind == 2, r & 0xFFFF, torch.where(kind == 3, r, torch.where(
+            kind == 4, (r & 0xFF) | (r & (1 << 31)), 0))))
+    w = w.to(torch.int32)
+    if rows > 1:
+        w[1] = 0
+    return w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "offset"])
+@pytest.mark.parametrize("stage", ["zero", "narrow"])
+@pytest.mark.parametrize("n", [1, 511, 512, 513, 4 * 512 + 129])
+@pytest.mark.parametrize("rows", [1, 3, 64, 1000])
+def test_b6_b7_rows_match_plain_versions_on_card(rows, n, stage, layout):
+    """B6 and B7 on R rows (KV pages) against their plain versions: rows
+    contiguous, rows at a stride past their width, and rows one word off
+    16-byte alignment (the kernels' scalar paths); the header read from
+    a row-strided view and the payload cut to fewer words than the
+    chunks need (clipped reads)."""
+    _need_card()
+    from repro_torch.kernels import lossless as TL
+    gen = torch.Generator(device="cuda").manual_seed(rows * 7919 + n)
+    w = _lc_rows(rows, n, gen)
+    if layout == "strided":
+        w = torch.cat([w, torch.full((rows, 5), -7, dtype=torch.int32,
+                                     device="cuda")], 1)[:, :n]
+    elif layout == "offset":
+        w = torch.cat([w.new_zeros(1), w.reshape(-1)])[1:].view(rows, n)
+    before = dict(TL.LAUNCHES)
+    got = TL.lc_select(w, stage)
+    want = TL._lc_select_plain(w, stage)
+    _equal(got, want)
+    header, payload, _ = got
+    back = TL.lc_expand(header, payload, n)
+    _equal(back, w.contiguous())
+    wide = torch.cat([header, header], 1)[:, :header.shape[1]]
+    cut = payload[:, :max(1, payload.shape[1] // 3)]
+    _equal(TL.lc_expand(wide, cut, n), TL._lc_expand_plain(wide, cut, n))
+    torch.cuda.synchronize()
+    assert TL.LAUNCHES["_lc_select"] == before["_lc_select"] + 1
+    assert TL.LAUNCHES["_lc_expand"] == before["_lc_expand"] + 2
+
+
+@pytest.mark.cuda
+def test_b6_b7_long_row_look_back_on_card():
+    """One row of 262,144 chunks (16,384 tiles of the look-back scan) and
+    the same words as 2 rows of 131,072: every plane equal to the plain
+    versions; and the scratch size the wrapper allocates is the C
+    entry's."""
+    _need_card()
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import lossless as TL
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    n = 262_144 * 512
+    w = _lc_rows(1, n, gen)
+    for rows in (w, w.view(2, n // 2)):
+        got = TL.lc_select(rows, "narrow")
+        _equal(got, TL._lc_select_plain(rows, "narrow"))
+        back = TL.lc_expand(got[0], got[1], rows.shape[1])
+        _equal(back, rows)
+        del got, back
+    lib = _build.load()
+    for chunks in (0, 1, 15, 16, 17, 262_144):
+        assert lib.repro_lc_scratch_words(chunks) == TL._scratch_words(chunks)
+
+
+@pytest.mark.cuda
+def test_b6_b7_two_thread_ranks_on_two_streams():
+    """Two ranks as threads, each on its own stream, calling B6 and B7 at
+    once: every call's scratch is its own, so each rank's planes equal
+    the plain versions."""
+    _need_card()
+    from repro_torch.core.axis import run_threads
+    from repro_torch.kernels import lossless as TL
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    inputs = [_lc_rows(48, 4 * 512 + 129, gen) for _ in range(2)]
+    TL.lc_select(inputs[0], "narrow")                # build first
+    torch.cuda.synchronize()
+
+    def rank(ax):
+        w = inputs[ax.rank]
+        stream = torch.cuda.Stream()
+        outs = []
+        with torch.cuda.stream(stream):
+            for _ in range(20):
+                h, p, ln = TL.lc_select(w, "narrow")
+                outs.append((h, p, ln, TL.lc_expand(h, p, w.shape[1])))
+        stream.synchronize()
+        return outs
+
+    for w, outs in zip(inputs, run_threads(2, rank)):
+        want = TL._lc_select_plain(w, "narrow")
+        for h, p, ln, back in outs:
+            _equal((h, p, ln), want)
+            _equal(back, w)
+
+
+@pytest.mark.cuda
+def test_b6_b7_one_launch_each_and_a_cuda_graph():
+    """Each wrapper call is one kernel (and the memset of its scratch) in
+    the profiler's trace, makes no host sync, and captures in a CUDA
+    graph whose replay on new words gives the plain versions' planes."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import lossless as TL
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    n = 4 * 512 + 129
+    w = _lc_rows(64, n, gen)
+    h, p, _ = TL.lc_select(w, "narrow")             # build and load first
+    TL.lc_expand(h, p, n)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            h, p, _ = TL.lc_select(w, "narrow")
+            TL.lc_expand(h, p, n)
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    names = [e.name for e in prof.events()
+             if e.device_type.name == "CUDA"
+             and "memset" not in e.name.lower()]
+    assert len(names) == 2, names
+    assert sum("select_compact_kernel" in x for x in names) == 1, names
+    assert sum("gather_expand_kernel" in x for x in names) == 1, names
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph):
+            gh, gp, gl = TL.lc_select(w, "narrow")
+            gback = TL.lc_expand(gh, gp, n)
+    torch.cuda.current_stream().wait_stream(side)
+    w.copy_(_lc_rows(64, n, gen))
+    graph.replay()
+    torch.cuda.synchronize()
+    _equal((gh, gp, gl), TL._lc_select_plain(w, "narrow"))
+    _equal(gback, w)
+
+
+@pytest.mark.cuda
+def test_chunk_stages_on_card_run_no_torch_compaction(monkeypatch):
+    """On the card a chunk stage is B6 and B7 alone: a chain's encode and
+    decode and pack_kv / unpack_kv call none of the reference's
+    compaction, gather or 2-bit header pack and unpack with a CUDA
+    tensor."""
+    _need_card()
+    from repro_torch.compression import kv as TKV
+    from repro_torch.configs.registry import PIPELINES, get_kv_chain
+    from repro_torch.core import codec as C
+    from repro_torch.core.pipeline import parse_pipeline
+    calls = []
+
+    def counted(name, real, bits_at):
+        def fn(*a, **k):
+            two_bit = bits_at is None or a[bits_at] == 2
+            if two_bit and any(torch.is_tensor(t) and t.is_cuda for t in a):
+                calls.append(name)
+            return real(*a, **k)
+        return fn
+
+    for name, bits_at in (("compact_chunk_rows", None),
+                          ("gather_chunk_rows", None),
+                          ("pack_word_rows", 1), ("unpack_word_rows", 2)):
+        monkeypatch.setattr(C, name, counted(name, getattr(C, name),
+                                             bits_at))
+    x = _mix(20000)
+    for name in ("grad-wire-16-narrow", "sci-rel-narrow", "smoke-chain"):
+        pipe = parse_pipeline(PIPELINES[name])
+        pipe.decode(pipe.encode(x), n=x.size)
+    qkv = _kv_wire_case()
+    for stages in ("kv-page", "kv-page-narrow", "auto"):
+        TKV.unpack_kv(TKV.pack_kv(qkv, stages=get_kv_chain(stages)))
+    torch.cuda.synchronize()
+    assert calls == []
 
 
 @pytest.mark.cuda
@@ -794,12 +983,13 @@ def _kv_wire_case():
 @pytest.mark.parametrize("stages", ["kv-page", "kv-page-narrow",
                                     "kv-page-pred", "auto"])
 def test_pack_kv_pages_on_card_match_cpu(stages):
-    """pack_kv / unpack_kv on the card (the chunk select B6 over every
-    page's chunks, the expand B7 on unpack) bit-equal to the CPU path, and
-    the round trip exact."""
+    """pack_kv / unpack_kv on the card (B6 over every page's chunks, one
+    launch a chunk stage; B7 on unpack, one launch a chunk stage)
+    bit-equal to the CPU path, and the round trip exact."""
     _need_card()
     from repro_torch.compression import kv as TKV
     from repro_torch.configs.registry import get_kv_chain
+    from repro_torch.core.pipeline import ChunkStage
     from repro_torch.kernels import lossless as TL
     qkv = _kv_wire_case()
     spec = get_kv_chain(stages)
@@ -807,8 +997,14 @@ def test_pack_kv_pages_on_card_match_cpu(stages):
     p = TKV.pack_kv(qkv, stages=spec, integrity=True)
     back = TKV.unpack_kv(p, verify=True)
     torch.cuda.synchronize()
-    assert TL.LAUNCHES["_lc_select"] > before["_lc_select"]
-    assert TL.LAUNCHES["_lc_expand"] > before["_lc_expand"]
+    if stages == "auto":
+        assert TL.LAUNCHES["_lc_select"] > before["_lc_select"]
+        assert TL.LAUNCHES["_lc_expand"] > before["_lc_expand"]
+    else:
+        chunk_stages = sum(isinstance(st, ChunkStage)
+                           for st in TKV._page_stages(spec)[1])
+        for name in ("_lc_select", "_lc_expand"):
+            assert TL.LAUNCHES[name] == before[name] + chunk_stages, name
     cpu = TKV.pack_kv(TKV.QuantizedKV(*(t.cpu() for t in qkv)), stages=spec,
                       integrity=True)
     for name, a, b in zip(p._fields, p, cpu):

@@ -421,7 +421,7 @@ def _kernel_cases():
     eb = torch.tensor([1e-3])
     words, _ = pack.abs_pack(x, eb, cfg_a)
     rwords, _, signs = pack.rel_pack(x, cfg_r)
-    sel, codes = lossless.lc_select(words, "narrow")
+    header, lc_payload, _ = lossless.lc_select(words[None], "narrow")
     qa = dense.quantize_abs(x, cfg_a)
     qr = dense.quantize_rel(x, cfg_r)
     payload = torch.zeros(n, dtype=torch.int32)
@@ -439,9 +439,10 @@ def _kernel_cases():
                          (x, eb, cfg_a, "narrow")),
         "_rel_pack_lc": (lossless, lossless.rel_pack_lc,
                          (x, cfg_r, "zero")),
-        "_lc_select": (lossless, lossless.lc_select, (words, "narrow")),
+        "_lc_select": (lossless, lossless.lc_select,
+                       (words[None], "narrow")),
         "_lc_expand": (lossless, lossless.lc_expand,
-                       (sel, codes, words.shape[0])),
+                       (header, lc_payload, words.shape[0])),
         "_quantize_abs": (dense, dense.quantize_abs, (x, cfg_a)),
         "_quantize_rel": (dense, dense.quantize_rel, (x, cfg_r)),
         "_dequantize_abs": (dense, dense.dequantize_abs,

@@ -94,14 +94,15 @@ def test_build_keeps_the_bit_exactness_rules():
     """The flags and sources keep the paper's rules: no contraction, no
     fast-math, round half to even, truncating casts, masked eb2.  The
     sources are csrc/pack.cu, csrc/lossless.cu and csrc/dense.cu, which
-    share the quantizers through csrc/quantize.cuh, and
+    share the quantizers through csrc/quantize.cuh (lossless.cu also
+    includes the chunk placement of csrc/chunk.cuh), and
     csrc/kv_attention.cu."""
     flags = " ".join(_build.NVCC_FLAGS + _build.LINK_FLAGS)
     assert "-fmad=false" in flags and "fast_math" not in flags
     assert "arch=compute_90a,code=sm_90a" in flags
     assert {f.name for f in _build.SOURCES + _build.HEADERS} == {
         "pack.cu", "lossless.cu", "dense.cu", "kv_attention.cu",
-        "quantize.cuh"}
+        "quantize.cuh", "chunk.cuh"}
     assert sorted(CSRC.iterdir()) == sorted(_build.SOURCES + _build.HEADERS)
     src = "".join(f.read_text() for f in _build.SOURCES + _build.HEADERS)
     code = re.sub(r"//.*", "", src)
@@ -128,4 +129,5 @@ def test_build_keeps_the_bit_exactness_rules():
     for f in _build.SOURCES:
         if f.name != "kv_attention.cu":        # no quantizer: held by tolerance
             assert '#include "quantize.cuh"' in f.read_text()
+    assert '#include "chunk.cuh"' in (CSRC / "lossless.cu").read_text()
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")

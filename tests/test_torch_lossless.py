@@ -249,35 +249,133 @@ def test_words_lc_wrappers_match_pallas(n, pattern, stage):
         _eq(a, b, what)
     _eq(TL.decode_words_lc(*t[:2], n),
         JL.decode_words_lc(j[0], j[1], n, interpret=True))
-    sel, codes = TL.lc_select(_t(w), stage)
-    _eq(TL.lc_expand(sel, codes, n), w)
+    header, payload, plen = TL.lc_select(_t(w)[None], stage)
+    for a, b, what in zip((header[0], payload[0], plen[0]), j,
+                          ("header", "payload", "payload_len")):
+        _eq(a, b, what)
+    _eq(TL.lc_expand(header, payload, n)[0], w)
 
 
 def test_select_and_expand_wrappers_match_pallas_launchers():
     """lc_select / lc_expand (plain on the CPU) against the Pallas
-    launchers they replace, on a tiled plane whose codes sweep 0-3."""
+    launchers they replace with the reference's compaction, header pack,
+    header unpack and gather around them, on a tiled plane whose codes
+    sweep 0-3; lc_compact_image on the launcher's own chunk image."""
     n = 16 * CHUNK
     w = _words(n, "mix")
     for stage in TC.LC_STAGES:
-        sel, codes = TL.lc_select(_t(w), stage)
         jsel, jcodes = JL.chunk_select_pallas(
             jnp.asarray(w).reshape(-1, 128), stage, wrows=32, interpret=True)
-        _eq(sel, np.asarray(jsel).reshape(-1))
-        _eq(codes, np.asarray(jcodes)[:, 0].astype(np.int32))
-        jback = JL.chunk_expand_pallas(jsel, jcodes, wrows=32, interpret=True)
-        _eq(TL.lc_expand(sel, codes, n), np.asarray(jback).reshape(-1))
+        codes = jnp.asarray(jcodes)[:, 0].astype(jnp.int32)
+        jpay, jlen = JC.compact_chunks(jsel.reshape(-1, CHUNK),
+                                       JC.lc_chunk_lens(codes))
+        jhdr = JC.pack_words(codes, 2)
+        for got in (TL.lc_select(_t(w)[None], stage),
+                    TL.lc_compact_image(_t(np.array(jsel).reshape(-1)),
+                                        _t(np.array(codes)))):
+            for a, b, what in zip(got, (jhdr, jpay, jlen),
+                                  ("header", "payload", "payload_len")):
+                _eq(a[0], b, what)
+        padded = JC.gather_chunks(jpay, JC.lc_chunk_lens(codes))
+        jback = JL.chunk_expand_pallas(
+            padded.reshape(-1, 128),
+            jnp.broadcast_to(codes.astype(jnp.uint32)[:, None],
+                             (codes.shape[0], 128)),
+            wrows=32, interpret=True)
+        _eq(TL.lc_expand(_t(np.array(jhdr))[None],
+                         _t(np.array(jpay))[None], n)[0],
+            np.asarray(jback).reshape(-1))
 
 
 def test_wrappers_validate_operands():
     with pytest.raises(ValueError, match="stage"):
-        TL.lc_select(torch.zeros(8, dtype=torch.int32), "ent")
+        TL.lc_select(torch.zeros(1, 8, dtype=torch.int32), "ent")
     with pytest.raises(TypeError):
-        TL.lc_select(torch.zeros(8), "zero")
+        TL.lc_select(torch.zeros(1, 8), "zero")
+    with pytest.raises(ValueError, match="2-d"):
+        TL.lc_select(torch.zeros(8, dtype=torch.int32), "zero")
     with pytest.raises(ValueError, match="lc_expand"):
-        TL.lc_expand(torch.zeros(100, dtype=torch.int32),
-                     torch.zeros(1, dtype=torch.int32), 100)
-    sel, codes = TL.lc_select(torch.zeros(600, dtype=torch.int32), "zero")
-    assert sel.shape[0] == 2 * CHUNK and codes.tolist() == [0, 0]
+        TL.lc_expand(torch.zeros(1, 100, dtype=torch.int32),
+                     torch.zeros(1, CHUNK, dtype=torch.int32), 100)
+    with pytest.raises(ValueError, match="lc_compact_image"):
+        TL.lc_compact_image(torch.zeros(100, dtype=torch.int32),
+                            torch.zeros(1, dtype=torch.int32))
+    header, payload, plen = TL.lc_select(torch.zeros(1, 600,
+                                                     dtype=torch.int32),
+                                         "zero")
+    assert payload.shape == (1, 2 * CHUNK) and plen.tolist() == [0]
+    assert header.shape == (1, 128) and not header.any()
+
+
+# ------------------------------------------- B6 and B7 on rows of streams --
+
+ROW_SIZES = [1, CHUNK - 1, CHUNK, CHUNK + 1, 4 * CHUNK + 129]
+ROW_PATTERNS = ("mix", "bit31", "allzero", "bytes", "shorts", "full")
+
+
+def _rows(rows, n):
+    """rows streams of n words, the patterns in turn: every code, bit-31
+    words, an all-zero row."""
+    return np.stack([_words(n, ROW_PATTERNS[r % len(ROW_PATTERNS)])
+                     for r in range(rows)])
+
+
+@pytest.mark.parametrize("stage", TC.LC_STAGES)
+@pytest.mark.parametrize("n", ROW_SIZES)
+@pytest.mark.parametrize("rows", [1, 3, 64])
+def test_lc_rows_match_pallas_row_by_row(rows, n, stage):
+    """B6's and B7's plain versions on R rows (KV pages) against the
+    reference one row at a time: chunk_select_pallas -> compact_chunks ->
+    pack_words(codes, 2) (`JL.encode_words_lc`) and `JL.decode_words_lc`,
+    header, payload with its zero tail, payload_len and words bit for
+    bit."""
+    w = _rows(rows, n)
+    header, payload, plen = TL.lc_select(_t(w), stage)
+    nc = TC.lc_chunk_count(n)
+    assert header.shape == (rows, TC.lc_header_words(n))
+    assert payload.shape == (rows, nc * CHUNK) and plen.shape == (rows,)
+    back = TL.lc_expand(header, payload, n)
+    _eq(back, w)
+    for r in range(rows):
+        j = JL.encode_words_lc(jnp.asarray(w[r]), stage, interpret=True)
+        for a, b, what in zip((header[r], payload[r], plen[r]), j,
+                              ("header", "payload", "payload_len")):
+            _eq(a, b, f"row {r} {what}")
+        _eq(back[r], JL.decode_words_lc(j[0], j[1], n, interpret=True))
+
+
+@pytest.mark.parametrize("stage", TC.LC_STAGES)
+@pytest.mark.parametrize("n", ROW_SIZES)
+def test_lc_compact_image_matches_pallas(n, stage):
+    """B5's route: its chunk image and codes compacted by B6's image
+    entry give the reference's header, payload and length."""
+    w = _words(n, "mix" if n > CHUNK else "bit31")
+    sel, codes = TL._lc_image_plain(_t(w), stage)
+    got = TL.lc_compact_image(sel, codes)
+    j = JL.encode_words_lc(jnp.asarray(w), stage, interpret=True)
+    for a, b, what in zip(got, j, ("header", "payload", "payload_len")):
+        _eq(a[0], b, what)
+
+
+@pytest.mark.parametrize("width", [129, 700, 4 * CHUNK + 1])
+def test_lc_expand_clips_a_short_payload(width):
+    """A payload cut to W words, fewer than the chunks need (and a header
+    with every chunk verbatim): source indices clip to W - 1 and slots
+    past a chunk's length read 0, as the reference's gather does."""
+    n = 4 * CHUNK + 129
+    w = _rows(3, n)
+    header, payload, _ = TL.lc_select(_t(w), "narrow")
+    cut = payload[:, :width]
+    got = TL.lc_expand(header, cut, n)
+    for r in range(3):
+        _eq(got[r], JL.decode_words_lc(jnp.asarray(header[r].numpy()),
+                                       jnp.asarray(cut[r].numpy()), n,
+                                       interpret=True))
+    verbatim = torch.full_like(header, -1)
+    got = TL.lc_expand(verbatim, cut, n)
+    _eq(got[0], JL.decode_words_lc(jnp.asarray(verbatim[0].numpy()),
+                                   jnp.asarray(cut[0].numpy()), n,
+                                   interpret=True))
 
 
 # ----------------------------------------------------------- pipelines --
@@ -406,3 +504,29 @@ def test_lc_payload_len_guard_and_clamp():
     hdr = torch.full_like(enc.headers[0], -1)
     y = pipe.decode(enc._replace(headers=(hdr,)), n=x.size, device="cpu")
     assert y.shape == (x.size,)
+
+
+@pytest.mark.parametrize("n", [1, 4 * CHUNK + 129])
+def test_chunk_stage_kernel_path_is_one_launch_each_way(n, monkeypatch):
+    """With kernels=True a chunk stage is one B6 launch to encode and one
+    B7 launch to decode, whatever the row count: on the meta device (the
+    card's shapes, nothing computed) it calls none of the reference's
+    compaction, gather or 2-bit header pack and unpack."""
+    calls = []
+    for name in ("compact_chunk_rows", "gather_chunk_rows",
+                 "pack_word_rows", "unpack_word_rows", "compact_chunks",
+                 "gather_chunks", "pack_words", "unpack_words"):
+        real = getattr(TC, name)
+        monkeypatch.setattr(TC, name, lambda *a, _n=name, _r=real, **k: (
+            calls.append(_n), _r(*a, **k))[1])
+    st = TP.ChunkStage("narrow")
+    words = torch.empty(7, n, dtype=torch.int32, device="meta")
+    before = dict(TL.LAUNCHES)
+    header, payload, plen = st.encode_pages(words, n, kernels=True)
+    back = st.decode_pages(header, payload, n, kernels=True)
+    assert calls == []
+    assert TL.LAUNCHES["_lc_select"] == before["_lc_select"] + 1
+    assert TL.LAUNCHES["_lc_expand"] == before["_lc_expand"] + 1
+    assert header.shape == (7, TC.lc_header_words(n))
+    assert payload.shape == (7, st.capacity_words(n))
+    assert plen.shape == (7,) and back.shape == (7, n)
