@@ -127,8 +127,24 @@ batched step's ms against the sequential path's, and which ops of layer
 `quantize_kv` of seeded
 K, V = N(0,1)*0.7, 5 steps from position 32,700: step time (CUDA events,
 median of 5), B12's and the GEMMs' device time a step (`torch.profiler`),
-the step's bytes bound, launches a step (96 of B12), peak memory.  The
-weights are freed before the `grads` phase.
+the step's bytes bound, launches a step (96 of B12), peak memory.  Then
+a `tp` phase on the same weights serves them on the reference's sharded
+layout: 4 thread ranks of a (2, 2) ("data", "model") mesh, each on its
+views of the weights under `launch.mesh.param_shardings` and its block
+of the cache under `launch.mesh.cache_layouts`: (i) a prefill of 4 x 512
+seeded tokens, each rank's "vocab" block of the logits within 2e-2 of
+max |logit| of one rank's prefill of its rows; (ii) 16 quantized steps
+from position 120 in a cache of 512 tokens (the page closes on model
+rank 0; model rank 1 stays at local length 0), the logits within 2^-4
+of one rank's steps, the closed pages within their bound, layer 0's B12
+merge across the ranks within 2e-5 of one rank's history attention;
+(iii) one step over (c)'s 32K cache at 32,700, every layer given one
+rank's input to it within 2^-6 of one rank's output and the B12 merge
+over both model ranks' pages within 2e-5; (iv) that step counted on
+meta for each rank against the card: launches, rank 0's FLOPs and
+collective bytes (`core.axis.RecordingAxis`) equal, the peak within
+15 %; B12 on rank 0's block in the kernel rows.  The weights are freed
+before the `grads` phase.
 
 A `moe` phase drives the MoE family and head dim 80:
 olmoe-1b-7b at full width and depth (16 layers, 64 experts, top-8,
@@ -309,6 +325,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -2943,10 +2960,11 @@ def batch_dependence(cfg, params, seed: int) -> dict:
 
 
 def serve_long(cfg, params, seed: int, phase: str = "serve",
-               label: str = "c") -> tuple:
+               label: str = "c", keep: bool = False) -> tuple:
     """(c): LONG_B requests at LONG_SEQ with every layer's closed pages from
     quantize_kv of seeded K, V = N(0,1)*0.7 and a hot page of LONG_POS %
-    page tokens; LONG_STEPS steps from LONG_POS.  Returns (line, row)."""
+    page tokens; LONG_STEPS steps from LONG_POS.  Returns (line, row), and
+    with keep a list that holds the cache (the tp phase's (iii))."""
     from repro_torch.compression import kv as KV
     from repro_torch.models import serve as S
     kv_cfg = KV.kv_quantizer_config()
@@ -3043,14 +3061,734 @@ def serve_long(cfg, params, seed: int, phase: str = "serve",
             "device_ms_by_kernel": dev_ms,
             "logits_finite": finite, "meta_vs_card": vs_meta,
             "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+    if keep:
+        return line, row, [cache]
     del cache
     return line, row
 
 
+# ------------------------------------------ the reference's sharded layout --
+
+TP_SHAPE, TP_NAMES = (2, 2), ("data", "model")
+TP_B, TP_PREFILL = 4, 512
+# 16 steps from a seeded history of 120 tokens in a cache of 512: the page
+# closes at 127 on model rank 0, then 8 steps with history; model rank 1
+# (tokens 256-511) stays at local length 0 throughout.  (32 steps from
+# 112 took the phase to 121-148 s: a mesh step is ~3 s of 4 threads'
+# launches on one host)
+TP_SEQ, TP_POS0, TP_STEPS = 512, 120, 16
+TP_PREFILL_TOL = 2e-2          # of max |logit|: the EP tests' limit
+TP_DECODE_TOL = 2.0 ** -4      # of max |logit|: moe (g)'s decode limit
+TP_LONG_POS = LONG_POS         # (iii): serve (c)'s first position
+# (iii)'s logits, of max |logit|: above what one rank's own 32K step moves
+# when only the order of its history's float32 sum changes (the
+# witnesses of `tp_long_witness`), which the stack carries through 48
+# bfloat16 layers at this input
+TP_LONG_TOL = 2.0 ** -3
+
+
+def tp_rows(m, b: int) -> slice:
+    """The rows of a batch of b that the rank at its data coordinate
+    holds."""
+    n = b // m.sizes["data"]
+    return slice(m.coords()["data"] * n, (m.coords()["data"] + 1) * n)
+
+
+def tp_gap(got, full, m) -> float:
+    """max |got - full's "vocab" block of the rank| / max |full|."""
+    n = got.shape[-1]
+    lo = m.coords()["model"] * n
+    return float((got.float() - full[..., lo:lo + n].float()).abs().max()
+                 / full.float().abs().max())
+
+
+@contextlib.contextmanager
+def tp_closed_pages():
+    """Wrap `models.serve._quantize_hot` (the layout's page close): keep
+    each gathered hot page (a copy) and the QuantizedKV made of it."""
+    from repro_torch.models import serve as S
+    real, kept = S._quantize_hot, []
+    lock = threading.Lock()
+
+    def wrapped(hot, kv_cfg):
+        q = real(hot, kv_cfg)
+        with lock:
+            kept.append((hot.clone(), q, kv_cfg))
+        return q
+
+    S._quantize_hot = wrapped
+    try:
+        yield kept
+    finally:
+        S._quantize_hot = real
+
+
+def tp_page_tally(kept) -> dict:
+    """Each kept page against the gathered hot page it was made from:
+    values of non-overflowed pages outside eb_rel * max|page|."""
+    from repro_torch.compression import kv as KV
+    tally = {"pages": 0, "violations": 0, "overflow": 0}
+    for hot, q, kv_cfg in kept:
+        x = hot.permute(0, 2, 1, 3).to(torch.float32)
+        b, g = x.shape[:2]
+        y = KV.dequantize_kv(q, page=KV_PAGE).reshape(b, g, -1)
+        xf = x.reshape(b, g, -1)
+        finite = torch.isfinite(xf)
+        eb = kv_cfg.error_bound * torch.where(
+            finite, xf, torch.zeros_like(xf)).abs().amax(-1)
+        bad = finite & ((xf - y).abs() > eb[..., None])
+        bad &= ~q.overflow.reshape(b, g, 1)
+        tally["pages"] += b * g
+        tally["violations"] += int(bad.sum())
+        tally["overflow"] += int(q.overflow.sum())
+    return tally
+
+
+def tp_merge_check(cfg, params, one, blocks, q, pos: int) -> float:
+    """Layer 0's history attention at `pos` for the queries q [B, 1, H,
+    hd]: each rank's B12 part over its pages merged over "model"
+    (`serve.merge_parts`) against one rank's `_attn_history` on the whole
+    cache `one`; the largest share of the allclose limit (KV_TOL) any
+    rank's output uses (fails above 1)."""
+    from repro_torch.compression import kv as KV
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import serve as S
+    start = pos - pos % KV_PAGE
+    layer0 = [KV.QuantizedKV(*(t[0] for t in qkv)) for qkv in (one.k, one.v)]
+    want, _, _ = S._attn_history(cfg, q, *layer0, start)
+
+    def rank(m):
+        cache = blocks[tuple(m.coords().values())]
+        plan = S.cache_plan(cfg, cache, m)
+        planes = S._rank_planes(*(KV.QuantizedKV(*(t[0] for t in qkv))
+                                  for qkv in (cache.block.k, cache.block.v)),
+                                plan, m)
+        rows = tp_rows(m, q.shape[0])
+        hist = min(max(start - plan.s0, 0), plan.s_l)
+        parts = [S._attn_history(cfg, q[rows], *planes, hist)] if hist else []
+        like = torch.empty_like(want[rows])
+        o = S.merge_parts(parts, m.axis("model"), like)
+        used = (o - want[rows]).abs() / (KV_TOL + KV_TOL * want[rows].abs())
+        return float(used.max())
+
+    with torch.no_grad():
+        return max(M.run_mesh_threads(TP_SHAPE, TP_NAMES, rank))
+
+
+@contextlib.contextmanager
+def tp_history_order(seam_page=None, pages_per_split=None):
+    """One rank's `serve._attn_history` summing the closed pages in
+    another order, no code of the layout: cut at page `seam_page` into
+    two B12 calls (each side's pages, lengths local to it) merged by B12's
+    rule as `serve.merge_parts` merges the ranks' parts (M the max of m,
+    weights l e^(m - M)); or B12 with `pages_per_split` pages a split."""
+    from repro_torch.compression import kv as KV
+    from repro_torch.models import serve as S
+    real = S._attn_history
+
+    def cut(qkv, p0, p1):
+        return KV.QuantizedKV(
+            qkv.bins[:, :, p0 * KV_PAGE:p1 * KV_PAGE].contiguous(),
+            *(t[:, :, p0:p1].contiguous() for t in qkv[1:]))
+
+    def split(cfg, q, qk, qv, page_start, pages_per_split=None):
+        n = qk.bins.shape[2] // KV_PAGE
+        parts = []
+        for p0, p1 in ((0, seam_page), (seam_page, n)):
+            length = min(max(page_start - p0 * KV_PAGE, 0),
+                         (p1 - p0) * KV_PAGE)
+            if length:
+                parts.append(real(cfg, q, cut(qk, p0, p1), cut(qv, p0, p1),
+                                  length))
+        m = parts[0][2]
+        for _, _, m_ in parts[1:]:
+            m = torch.maximum(m, m_)
+        num = den = None
+        for o, l_, m_ in parts:
+            w = l_ * torch.exp(m_ - m)
+            num = o * w[..., None] if num is None else num + o * w[..., None]
+            den = w if den is None else den + w
+        return num / den[..., None], den, m
+
+    S._attn_history = (split if seam_page is not None else functools.partial(
+        real, pages_per_split=pages_per_split))
+    try:
+        yield
+    finally:
+        S._attn_history = real
+
+
+@contextlib.contextmanager
+def tp_layer_outputs():
+    """Each decoder layer's output (after its FFN, `serve._ffn_block`, on
+    one rank's path and the layout's) of the decode steps run inside,
+    kept in call order by thread: {thread id: [float32 copies]}."""
+    from repro_torch.models import serve as S
+    real, kept = S._ffn_block, {}
+    lock = threading.Lock()
+
+    def keep(out):
+        with lock:
+            kept.setdefault(threading.get_ident(), []).append(
+                out[0].detach().float().clone())
+        return out
+
+    S._ffn_block = lambda *a, **kw: keep(real(*a, **kw))
+    try:
+        yield kept
+    finally:
+        S._ffn_block = real
+
+
+@contextlib.contextmanager
+def tp_layer_inputs(one_layers: list):
+    """Each layer of the layout's decode step given one rank's input to it
+    (one rank's previous layer's output, at the thread's `rows`; layer 0
+    keeps its own: the embedding, the same bits on every path).  Yields
+    the thread-local the ranks set `rows` and `layer` = 0 on."""
+    from repro_torch.models import serve as S
+    real, local = S._attn_decode_tp, threading.local()
+
+    def forced(cfg, p, x, *a, **kw):
+        i = local.layer
+        local.layer = i + 1
+        if i:
+            x = one_layers[i - 1][local.rows].to(x.dtype)
+        return real(cfg, p, x, *a, **kw)
+
+    S._attn_decode_tp = forced
+    try:
+        yield local
+    finally:
+        S._attn_decode_tp = real
+
+
+def tp_layer0_witness(cfg, params, hot0, toks, one, kv_cfg) -> tuple:
+    """Layer 0's K and V of (ii)'s steps as the layout's ranks compute
+    them, in plain torch ops and no code of the layout: each data rank's
+    rows normed alone, times each model rank's `wkv` columns (a
+    contiguous block, as the gather over the data axes leaves it), the
+    blocks joined, k roped; written into the seeded hot pages `hot0`
+    ([B, page, G, hd] each), the page that closes quantized as one rank
+    quantizes it (`serve._quantize_page`) and the hot page zeroed.
+    Returns (a copy of one rank's cache `one` with layer 0's planes so
+    rebuilt, {values of one rank's K and V that differ from the same GEMM
+    over a data rank's rows alone ("rows"), over a model rank's columns
+    alone ("columns"), over both ("both")}).  Layer 0's input is the
+    embedding, the same bits on every path, so these values are the
+    layout's own wherever the card's GEMM rounds the same over the same
+    shapes."""
+    from repro_torch import tree as T
+    from repro_torch.models import layers as L
+    from repro_torch.models import serve as S
+    lp0 = {k: v[0] for k, v in params["layers"].items()}
+    g, hd = cfg.n_kv_heads, cfg.head_dim
+    n_d, n_m = TP_SHAPE
+    b_l = TP_B // n_d
+    wkv = lp0["wkv"]
+    c = wkv.shape[1] // n_m
+    cols = [wkv[:, r * c:(r + 1) * c].contiguous() for r in range(n_m)]
+    wit = T.tree_map(lambda t: t.clone(), one)
+    hot = [h.clone() for h in hot0]
+    diff = dict.fromkeys(("rows", "columns", "both"), 0)
+
+    def kv_of(kv, cos, sin):
+        kv = kv.reshape(kv.shape[0], 1, 2, g, hd)
+        return torch.cat([L.apply_rope(kv[:, :, 0], cos, sin, cfg.rope),
+                          kv[:, :, 1]], 0)          # [2 rows, 1, G, hd]
+
+    def n_diff(a, b) -> int:
+        return int((a != b).sum())
+
+    with torch.no_grad():
+        for i in range(TP_STEPS):
+            pos = TP_POS0 + i
+            positions = torch.full((1, 1), pos, dtype=torch.int32,
+                                   device=DEV)
+            cos, sin = L.rope_tables(
+                positions, hd if cfg.rope == "full" else hd // 2)
+            x = params["emb"][toks[i]].to(torch.bfloat16)       # [B, 1, D]
+            hx_all = L.rms_norm(x, lp0["ln1"], cfg.norm_eps)
+            one_kv = kv_of(hx_all @ wkv, cos, sin)
+            diff["columns"] += n_diff(kv_of(torch.cat(
+                [hx_all @ w for w in cols], -1), cos, sin), one_kv)
+            ks, vs = [], []
+            for d in range(n_d):
+                hx = L.rms_norm(x[d * b_l:(d + 1) * b_l], lp0["ln1"],
+                                cfg.norm_eps)
+                kv = kv_of(torch.cat([hx @ w for w in cols], -1), cos, sin)
+                ks.append(kv[:b_l])
+                vs.append(kv[b_l:])
+                one_rows = torch.cat([one_kv[d * b_l:(d + 1) * b_l],
+                                      one_kv[TP_B + d * b_l:][:b_l]])
+                diff["rows"] += n_diff(kv_of(hx @ wkv, cos, sin), one_rows)
+            k, v = torch.cat(ks), torch.cat(vs)
+            diff["both"] += n_diff(torch.cat([k, v]), one_kv)
+            slot = pos % KV_PAGE
+            hot[0][:, slot] = k[:, 0]
+            hot[1][:, slot] = v[:, 0]
+            if (pos + 1) % KV_PAGE == 0:
+                for qkv, h in zip((wit.k, wit.v), hot):
+                    S._quantize_page(S._qkv_layer(qkv, 0), h, pos // KV_PAGE,
+                                     kv_cfg)
+                    h.zero_()
+        wit.hot_k[0].copy_(hot[0])
+        wit.hot_v[0].copy_(hot[1])
+    return wit, diff
+
+
+def tp_prefill(cfg, params, seed: int) -> dict:
+    """(i): a prefill of TP_B x TP_PREFILL seeded tokens on the (2, 2)
+    mesh, every rank's "vocab" block of the last logits against one
+    rank's prefill of its rows (one run each: the mesh's includes what a
+    rank builds at its first call)."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import build
+    bundle = build(cfg)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 41)
+    toks = torch.randint(0, cfg.vocab, (TP_B, TP_PREFILL), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    half = TP_B // 2
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = [bundle.prefill(params, {"tokens": toks[i * half:][:half]})
+               for i in range(2)]
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+
+    def rank(m):
+        blk = M.param_blocks(params, m, bundle.axes())
+        with torch.no_grad():
+            out = bundle.prefill(blk, {"tokens": toks[tp_rows(m, TP_B)]}, m)
+        torch.cuda.synchronize()
+        return tp_gap(out, one[m.coords()["data"]], m), out.shape
+
+    t0 = time.perf_counter()
+    res = M.run_mesh_threads(TP_SHAPE, TP_NAMES, rank)
+    mesh_ms = (time.perf_counter() - t0) * 1e3
+    gap = max(g for g, _ in res)
+    print(f"chip_smoke: tp (i) gap {gap}", file=sys.stderr, flush=True)
+    check(gap <= TP_PREFILL_TOL,
+          f"tp (i): a rank's prefill logits {gap} of max |logit| from one "
+          f"rank's")
+    check(all(tuple(shp) == (half, cfg.padded_vocab // 2) for _, shp in res),
+          f"tp (i): logits blocks {[tuple(s) for _, s in res]}")
+    return {"prefill_tokens": [TP_B, TP_PREFILL], "prefill_gap": gap,
+            "prefill_tol": TP_PREFILL_TOL, "prefill_ms_mesh": mesh_ms,
+            "prefill_ms_one_rank": one_ms}
+
+
+def tp_steps(cfg, params, seed: int) -> tuple:
+    """(ii): TP_STEPS quantized steps from TP_POS0 in a cache of TP_SEQ
+    tokens at B = TP_B, each rank on its block, against one rank's steps
+    on the whole cache: logits within TP_DECODE_TOL, the closed pages
+    within their bound, layer 0's B12 merge within KV_TOL of one rank's
+    history attention; layer 0's planes bit-equal to one rank's rebuilt
+    from the K and V of the layout's GEMM shapes (`tp_layer0_witness`),
+    and the values that differ from one rank's own, a plane.  Returns
+    (line, B12 launches of the mesh's steps)."""
+    from repro_torch import tree as T
+    from repro_torch.compression import kv as KV
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import build
+    from repro_torch.models import serve as S
+    bundle = build(cfg)
+    kv_cfg = KV.kv_quantizer_config()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 42)
+    hist = torch.randint(0, cfg.vocab, (TP_B, TP_POS0), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    glob = S.make_quant_cache(cfg, TP_B, TP_SEQ, device=DEV)
+    raw = S.make_raw_cache(cfg, TP_B, TP_POS0 + 16, device=DEV)
+    seed_history(cfg, params, glob, raw, hist)
+    del raw
+    toks = torch.randint(0, cfg.vocab, (TP_STEPS + 1, TP_B, 1),
+                         generator=gen, device=DEV, dtype=torch.int32)
+    one = T.tree_map(lambda t: t.clone(), glob)
+    with torch.no_grad():
+        want, one_ms = serve_steps(
+            lambda c, t, p: S.serve_step(cfg, params, c, t, p, None, kv_cfg),
+            one, toks[:TP_STEPS], TP_POS0)
+    wit, wit_diff = tp_layer0_witness(
+        cfg, params, (glob.hot_k[0], glob.hot_v[0]), toks, one, kv_cfg)
+    desc = M.Mesh(TP_SHAPE, TP_NAMES)
+    lays = M.cache_layouts(desc, glob, TP_B)
+    blocks = {tuple(c.values()): S.RankCache(T.tree_map(
+        lambda t: t.clone(), M.local_views(glob, lays, c)), TP_B, TP_SEQ)
+        for c in M.mesh_coords(desc)}
+    del glob
+    b12 = "_kv_decode_attention"
+
+    def rank(m):
+        blk = M.param_blocks(params, m, bundle.axes())
+        cache = blocks[tuple(m.coords().values())]
+        made = bundle.make_cache(TP_B, TP_SEQ, True, device=DEV, mesh=m)
+        same = (made.batch, made.seq) == (TP_B, TP_SEQ) and [
+            t.shape for t in T.leaves(made.block)] == [
+            t.shape for t in T.leaves(cache.block)]
+        del made
+        rows = tp_rows(m, TP_B)
+        out, ms = [], []
+        with torch.no_grad():
+            for i in range(TP_STEPS):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                lg, _ = S.serve_step(cfg, blk, cache, toks[i, rows],
+                                     TP_POS0 + i, m, kv_cfg)
+                b.record()
+                out.append(lg)
+                ms.append((a, b))
+        torch.cuda.synchronize()
+        gaps = [tp_gap(lg, w[rows], m) for lg, w in zip(out, want)]
+        def n_differ(tree):
+            return [int((a[0] != w[0]).sum()) for a, w in zip(
+                T.leaves(cache.block),
+                T.leaves(M.local_views(tree, lays, m.coords())))]
+
+        return (max(gaps), n_differ(one), same,
+                [a.elapsed_time(b) for a, b in ms],
+                S.cache_plan(cfg, cache, m).model, n_differ(wit))
+
+    reset_launches()
+    with tp_closed_pages() as kept:
+        res = M.run_mesh_threads(TP_SHAPE, TP_NAMES, rank)
+    launches_ = launches()[b12]
+    gap = max(r[0] for r in res)
+    tally = tp_page_tally(kept)
+    print(f"chip_smoke: tp (ii) gap {gap} closed pages {tally}",
+          file=sys.stderr, flush=True)
+    check(gap <= TP_DECODE_TOL,
+          f"tp (ii): a rank's logits {gap} of max |logit| from one rank's")
+    # layer 0's planes: bit-equal to one rank's rebuilt from the K and V
+    # of the layout's GEMM shapes; those that differ from one rank's own
+    # are the values where the card's GEMM rounds otherwise over a data
+    # rank's rows or a model rank's columns (the witness counts them)
+    planes = (["k." + f for f in KV.QuantizedKV._fields]
+              + ["v." + f for f in KV.QuantizedKV._fields]
+              + ["hot_k", "hot_v"])
+    differ = dict(zip(planes, [sum(x) for x in zip(*(r[1] for r in res))]))
+    differ_wit = dict(zip(planes, [sum(x) for x in zip(*(r[5] for r in res))]))
+    print(f"chip_smoke: tp (ii) layer 0's values differing from one rank's "
+          f"{differ}, from the witness's {differ_wit}; the witness's K, V "
+          f"values differing from one rank's {wit_diff}", file=sys.stderr,
+          flush=True)
+    check(not any(differ_wit.values()),
+          f"tp (ii): layer 0's planes differ from one rank's rebuilt from "
+          f"the layout's GEMM shapes: {differ_wit}")
+    check(all(r[2] for r in res),
+          "tp (ii): a rank's block is not make_cache(mesh=)'s shape")
+    check(tally["violations"] == 0 and tally["pages"] > 0,
+          f"tp (ii): closed pages {tally}")
+    pos = TP_POS0 + TP_STEPS
+    lp0 = {k: v[0] for k, v in params["layers"].items()}
+    with torch.no_grad():
+        x = params["emb"][toks[TP_STEPS]].to(torch.bfloat16)
+        q, _, _ = S._project_token(cfg, lp0, x, pos)
+    # the merge on one rank's cache cut into the ranks' blocks: the same
+    # pages both ways
+    views = {tuple(c.values()): S.RankCache(M.local_views(one, lays, c),
+                                            TP_B, TP_SEQ)
+             for c in M.mesh_coords(desc)}
+    used = tp_merge_check(cfg, params, one, views, q, pos)
+    check(used <= 1.0, f"tp (ii): layer 0's B12 merge uses {used} of the "
+                       f"allclose limit {KV_TOL}")
+    mesh_ms = res[0][3]
+    return {"decode_steps": TP_STEPS, "decode_pos0": TP_POS0,
+            "decode_seq": TP_SEQ, "decode_gap": gap,
+            "decode_tol": TP_DECODE_TOL,
+            "layer0_values_differing_by_plane": differ,
+            "layer0_values_differing_from_witness": differ_wit,
+            "witness_kv_values_differing": wit_diff,
+            "closed_pages": tally, "b12_merge_tolerance_used": used,
+            "cache_model_dims": res[0][4],
+            "step_ms_mesh": statistics.median(mesh_ms),
+            "step_ms_mesh_all": mesh_ms,
+            "step_ms_one_rank": statistics.median(one_ms),
+            "b12_calls_mesh": launches_}, launches_
+
+
+def tp_meta_counts(cfg, pos: int) -> list:
+    """Each rank's decode step at (iii)'s shapes counted on meta: its
+    program alone, over MetaAxis axes at its coordinates."""
+    from repro_torch.compression import kv as KV
+    from repro_torch.launch import cost
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import build
+    from repro_torch.models import serve as S
+    bundle = build(cfg)
+    desc = M.Mesh(TP_SHAPE, TP_NAMES)
+    out = []
+    with torch.device("meta"):
+        glob = S.make_quant_cache(cfg, LONG_B, LONG_SEQ, device="meta")
+        lays = M.cache_layouts(desc, glob, LONG_B)
+        mp = bundle.abstract_params()
+        for c in M.mesh_coords(desc):
+            rec = cost.Recorder()
+            blk = M.param_blocks(mp, desc, bundle.axes(), c)
+            cache = M.local_views(glob, lays, c)
+            tok = torch.empty((LONG_B // 2, 1), dtype=torch.int32)
+            rmesh = DR.rank_mesh(desc, rec, c)
+            out.append(meta_count(lambda: S.serve_step(
+                cfg, blk, S.RankCache(cache, LONG_B, LONG_SEQ), tok, pos,
+                rmesh, KV.kv_quantizer_config()),
+                {"params": blk, "cache": cache, "batch": tok}, rec))
+    return out
+
+
+def tp_rel(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def tp_long_witness(cfg, one_step, want, one_layers) -> dict:
+    """(iii)'s witnesses: one rank's 32K step with the history's sum in
+    another order (`tp_history_order`; no code of the layout), against
+    the same step as one rank runs it: cut at the model ranks' seam and
+    merged by B12's rule, and B12 with half its default pages a split.
+    {witness: {"logits_gap", "layer_gaps"}}, each of max |one rank's|."""
+    from repro_torch.kernels import kv_attention as KA
+    n_pages = LONG_SEQ // KV_PAGE
+    pps = KA.default_pages_per_split(
+        LONG_B, cfg.n_kv_heads, n_pages,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    out = {}
+    for name, kw in (("seam", {"seam_page": n_pages // TP_SHAPE[1]}),
+                     ("pages_per_split", {"pages_per_split":
+                                          max(1, pps // 2)})):
+        with torch.no_grad(), tp_history_order(**kw), \
+                tp_layer_outputs() as kept:
+            got = one_step()
+        layers = next(iter(kept.values()))
+        out[name] = {"logits_gap": tp_rel(got, want), "layer_gaps": [
+            tp_rel(a, b) for a, b in zip(layers, one_layers)], **kw}
+    return out
+
+
+def tp_long(cfg, params, holder: list, seed: int, b12_launches: int) -> tuple:
+    """(iii): one serve (c) step at B = LONG_B over LONG_SEQ tokens at
+    TP_LONG_POS on the (2, 2) mesh, each rank on its block of serve (c)'s
+    cache, against one rank's step on the whole cache: the logits within
+    TP_LONG_TOL (above the witnesses' readings, `tp_long_witness`: one
+    rank's step with its history summed in another order), every layer
+    given one rank's input to it within EP_LAYER_TOL of one rank's
+    output, the free-running layers reported; layer 0's B12 merge over
+    both model ranks' pages; (iv) the same step counted on
+    meta for each rank against the card (launches of all ranks, rank 0's
+    FLOPs and collective bytes equal, the peak within META_PEAK_TOL).
+    `holder` holds serve (c)'s cache, freed once the ranks have their
+    blocks.  Returns (line, B12's row under the mesh caller)."""
+    from repro_torch import tree as T
+    from repro_torch.compression import kv as KV
+    from repro_torch.core.axis import MetaAxis, RecordingAxis
+    from repro_torch.launch import cost
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.dryrun import launches_by_b
+    from repro_torch.models import build
+    from repro_torch.models import serve as S
+    bundle = build(cfg)
+    kv_cfg = KV.kv_quantizer_config()
+    cache = holder.pop()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 43)
+    tok = torch.randint(0, cfg.vocab, (LONG_B, 1), generator=gen,
+                        device=DEV, dtype=torch.int32)
+    pos = TP_LONG_POS
+
+    def one_step():
+        return S.serve_step(cfg, params, cache, tok, pos, None, kv_cfg)[0]
+
+    with torch.no_grad(), tp_layer_outputs() as one_layers:
+        want = one_step()
+    one_layers = next(iter(one_layers.values()))
+    witness = tp_long_witness(cfg, one_step, want, one_layers)
+    with torch.no_grad():
+        one_ms = time_ms(one_step, reps=3, warm=1)
+        lp0 = {k: v[0] for k, v in params["layers"].items()}
+        x = params["emb"][tok].to(torch.bfloat16)
+        q, _, _ = S._project_token(cfg, lp0, x, pos)
+    desc = M.Mesh(TP_SHAPE, TP_NAMES)
+    lays = M.cache_layouts(desc, cache, LONG_B)
+    blocks = {tuple(c.values()): S.RankCache(T.tree_map(
+        lambda t: t.clone(), M.local_views(cache, lays, c)), LONG_B,
+        LONG_SEQ) for c in M.mesh_coords(desc)}
+    one_hist = cache          # held for the merge check, then freed
+    used = tp_merge_check(cfg, params, one_hist, blocks, q, pos)
+    check(used <= 1.0, f"tp (iii): layer 0's B12 merge uses {used} of the "
+                       f"allclose limit {KV_TOL}")
+    del cache, one_hist
+    torch.cuda.empty_cache()
+    b12 = "_kv_decode_attention"
+    card = {}
+
+    def rank(m, count=False, timed=False, forced=None):
+        blk = M.param_blocks(params, m, bundle.axes())
+        c = blocks[tuple(m.coords().values())]
+        rows = tp_rows(m, LONG_B)
+        first = m.coords() == {"data": 0, "model": 0}
+        if forced is not None:
+            forced.rows, forced.layer = rows, 0
+        if count and first:
+            rec = cost.Recorder()
+            m = M.Mesh(m.shape, m.axis_names, axes={
+                n: RecordingAxis(m.axis(n), rec) for n in m.axis_names})
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with torch.no_grad():
+            if count and first:
+                with FlopCounterMode(display=False) as fc:
+                    lg, _ = S.serve_step(cfg, blk, c, tok[rows], pos, m,
+                                         kv_cfg)
+                card.update(flops=fc.get_total_flops(),
+                            collective_bytes=dict(rec.bytes))
+            else:
+                a.record()
+                lg, _ = S.serve_step(cfg, blk, c, tok[rows], pos, m, kv_cfg)
+                b.record()
+        torch.cuda.synchronize()
+        gap = tp_gap(lg, want[rows], m)
+        return (gap, (a.elapsed_time(b) if timed and first else None),
+                threading.get_ident(), rows)
+
+    reset_launches()
+    with tp_layer_outputs() as mesh_layers:
+        res = M.run_mesh_threads(TP_SHAPE, TP_NAMES, rank)    # warm
+    launches_ = launches()[b12]
+    gap = max(r[0] for r in res)
+    # rank (0, 0)'s rows layer by layer against one rank's: the first
+    # layer's output (one rank's input exactly: the embedding) shows the
+    # layout's rounding, the later ones how the stack carries it
+
+    def layer_gaps(kept, res) -> list:
+        """Each layer's largest gap over the ranks, of one rank's max."""
+        per = [[float((mv - ov[rows]).abs().max() / ov[rows].abs().max())
+                for mv, ov in zip(kept[tid], one_layers)]
+               for _, _, tid, rows in res]
+        return [max(col) for col in zip(*per)]
+
+    free_gaps = layer_gaps(mesh_layers, res)
+    # each layer on one rank's input to it (EP_LAYER_TOL, moe (g)'s
+    # per-layer limit): the layout's own rounding a layer, apart from
+    # what the stack carries from the layers before
+    with tp_layer_outputs() as forced_layers, tp_layer_inputs(
+            one_layers) as forced:
+        res_f = M.run_mesh_threads(TP_SHAPE, TP_NAMES, lambda m: rank(
+            m, forced=forced))
+    forced_gaps = layer_gaps(forced_layers, res_f)
+    print(f"chip_smoke: tp (iii) gap {gap} layers on one rank's inputs "
+          f"{forced_gaps} free {free_gaps}; witnesses "
+          f"{json.dumps(witness)}", file=sys.stderr, flush=True)
+    mesh_ms = M.run_mesh_threads(TP_SHAPE, TP_NAMES, lambda m: rank(
+        m, timed=True))[0][1]
+    # (iv): the same step counted on meta, each rank, against the card
+    metas = tp_meta_counts(cfg, pos)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    M.run_mesh_threads(TP_SHAPE, TP_NAMES, lambda m: rank(m, count=True))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    card_launches = launches_by_b(launches())
+    meta_launches = {}
+    for mt in metas:
+        for k, n in mt["launches"].items():
+            meta_launches[k] = meta_launches.get(k, 0) + n
+    want_peak = base + sum(mt["peak_bytes"] - mt["held_bytes"] for mt in metas)
+    peak_gap = (peak - want_peak) / peak
+    vs_meta = {"meta_rank0": metas[0], "meta_launches_all_ranks":
+               meta_launches, "card": {"launches_all_ranks": card_launches,
+                                       "rank0_flops": card["flops"],
+                                       "rank0_collective_bytes":
+                                           card["collective_bytes"],
+                                       "max_memory_allocated": peak,
+                                       "base": base},
+               "predicted_peak_bytes": want_peak, "peak_gap": peak_gap}
+    print(f"chip_smoke: meta_vs_card tp (iv) {json.dumps(vs_meta)}",
+          file=sys.stderr, flush=True)
+    check(card_launches == meta_launches,
+          f"tp (iv): launches {card_launches} on the card, {meta_launches} "
+          f"on meta")
+    check(card["flops"] == metas[0]["flops"],
+          f"tp (iv): rank 0's {card['flops']} FLOPs on the card, "
+          f"{metas[0]['flops']} on meta")
+    check(card["collective_bytes"] == metas[0]["collective_bytes"],
+          f"tp (iv): rank 0's collective bytes {card['collective_bytes']} "
+          f"on the card, {metas[0]['collective_bytes']} on meta")
+    check(abs(peak_gap) <= META_PEAK_TOL,
+          f"tp (iv): peak {peak} on the card, {want_peak} predicted "
+          f"({peak_gap:+.3f})")
+    # B12 on rank 0's block at these shapes (its pages are its own)
+    c0 = blocks[(0, 0)]
+    plan = S.cache_plan(cfg, c0, M.Mesh(TP_SHAPE, TP_NAMES, axes={
+        n: MetaAxis(k) for n, k in zip(TP_NAMES, TP_SHAPE)}))
+    check(all(plan.model[f] == 2 for f in ("eb2", "out_idx", "out_val")),
+          f"tp (iii): rank 0's planes are not split by page: {plan.model}")
+    b_l = LONG_B // 2
+    start = pos - pos % KV_PAGE
+    lens = torch.full((b_l,), min(start, plan.s_l), dtype=torch.int32,
+                      device=DEV)
+    qs = layer0_queries(cfg, params, tok[:b_l], pos, gen)
+    row = b12_row("tp-c", qs, KV.QuantizedKV(*(t[0] for t in c0.block.k)),
+                  KV.QuantizedKV(*(t[0] for t in c0.block.v)), lens,
+                  plan.s_l,
+                  b12_launches + launches_,
+                  caller="models.serve._serve_tp (rank 0's block of the "
+                         "(2, 2) mesh: its batch rows, its half of the "
+                         "sequence)")
+    del blocks
+    check(max(forced_gaps) <= EP_LAYER_TOL,
+          f"tp (iii): a layer on one rank's input {max(forced_gaps)} of its "
+          f"max from one rank's output")
+    check(bool(torch.isfinite(want).all()) and gap < float("inf"),
+          "tp (iii): a logit is not finite")
+    check(gap <= TP_LONG_TOL,
+          f"tp (iii): a rank's logits {gap} of max |logit| from one rank's "
+          f"(the witnesses: {[w['logits_gap'] for w in witness.values()]})")
+    line = {"long_batch": LONG_B, "long_seq": LONG_SEQ, "long_pos": pos,
+            "long_gap": gap, "long_tol": TP_LONG_TOL,
+            "long_witness": witness,
+            "long_layer_gaps_on_one_rank_inputs": forced_gaps,
+            "long_layer_tol": EP_LAYER_TOL,
+            "long_layer_gaps_free": free_gaps,
+            "long_b12_merge_tolerance_used": used,
+            "long_step_ms_mesh": mesh_ms,
+            "long_step_ms_one_rank": one_ms,
+            "long_b12_calls_mesh": launches_, "meta_vs_card": vs_meta}
+    return line, row
+
+
+def tp_phase(cfg, params, holder: list, seed: int) -> list:
+    """The serve phase's internlm2-20b on the reference's sharded layout:
+    4 thread ranks of a (2, 2) ("data", "model") mesh, each holding its
+    views of the weights under `param_shardings` (FSDP over "data",
+    heads / mlp / vocab over "model") and its block of the cache under
+    `cache_layouts`: (i) a prefill, (ii) the quantized steps across a
+    page close, (iii) one step over serve (c)'s 32K cache, (iv) that step
+    on meta against the card.  Returns [B12's row under the mesh
+    caller]."""
+    t0 = time.time()
+    line = {"phase": "tp", "arch": cfg.name, "mesh": dict(zip(TP_NAMES,
+                                                             TP_SHAPE)),
+            "ranks": "threads on one card"}
+    line.update(tp_prefill(cfg, params, seed))
+    dec, b12_launches = tp_steps(cfg, params, seed)
+    line.update(dec)
+    long_line, row = tp_long(cfg, params, holder, seed, b12_launches)
+    line.update(long_line)
+    line.update(seconds=time.time() - t0,
+                peak_device_GB=torch.cuda.max_memory_allocated() / 1e9)
+    print(json.dumps(line), flush=True)
+    print(f"chip_smoke: phase tp {time.time() - t0:.1f} s", file=sys.stderr,
+          flush=True)
+    return [row]
+
+
 def serve_phase(seed: int) -> list:
     """internlm2-20b at full width and depth, made on the card from the
-    seed: (a) the aligned batch, (b) the engine, (c) the long context.
-    Frees the weights before it returns the kernel rows."""
+    seed: (a) the aligned batch, (b) the engine, (c) the long context,
+    then the tp phase on the same weights (`tp_phase`).  Frees the
+    weights before it returns the kernel rows."""
     from repro_torch.configs.registry import get
     from repro_torch.models import build
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3072,11 +3810,12 @@ def serve_phase(seed: int) -> list:
     print(json.dumps(line_a), flush=True)
     line_b, row_b = serve_engine(cfg, params, seed)
     print(json.dumps(line_b), flush=True)
-    line_c, row_c = serve_long(cfg, params, seed)
+    line_c, row_c, holder = serve_long(cfg, params, seed, keep=True)
     print(json.dumps(line_c), flush=True)
+    row_tp = tp_phase(cfg, params, holder, seed)
     del params
     torch.cuda.empty_cache()
-    return rows + [row_b, row_c]
+    return rows + [row_b, row_c] + row_tp
 
 
 MOE_ARCH = "olmoe-1b-7b"

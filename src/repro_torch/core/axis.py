@@ -6,6 +6,14 @@ object that each rank's code holds, with the same four collectives:
 
     axis.size, axis.rank, axis.axis_index() (= rank)
     axis.all_gather(t)        -> [size, *t.shape], rank order
+    axis.all_gather_dim(t, dim)
+                              -> the ranks' t joined along dim in rank
+                                 order (`lax.all_gather(..., axis=dim,
+                                 tiled=True)`: the FSDP gather of a
+                                 sharded weight)
+    axis.all_gather_dims(ts, dims)
+                              -> [all_gather_dim(t, d) for t, d], one
+                                 exchange for them all on thread ranks
     axis.ppermute(t, perm)    -> what (src, rank) in perm sends here, else 0
     axis.pmax(t), axis.psum(t), axis.pmean(t)
     axis.all_to_all(t, split_axis, concat_axis)
@@ -41,7 +49,11 @@ autograd graph, and one backward call differentiates every rank; its
 backward needs no exchange (the autograd engine runs a card's backward
 nodes on one worker thread, where a barrier would wait for ever).  On
 `DistAxis` they are autograd functions whose backward is the transposed
-exchange: the inverse all-to-all, and a psum of the gradients.  `pmean`'s
+exchange: the inverse all-to-all, and a psum of the gradients.
+`all_gather_dim`'s gradient is the reduce-scatter of the gradients (each
+rank the rank-order sum of every rank's gradient slice of its own block):
+on a thread rank through the shared graph of the join, on `DistAxis` an
+exchange in its backward.  `pmean`'s
 gradient goes to the rank's own input alone, on both: the mean of a value
 every rank holds (the MoE load-balance loss over the "model" axis, whose
 ranks see the same tokens) differentiates as that value, and over ranks
@@ -106,23 +118,33 @@ class _RankOrder:
     def axis_index(self) -> int:
         return self.rank
 
+    def all_gather_dim(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return self._exchange(t, lambda vals: torch.cat(vals, dim))
+
+    def all_gather_dims(self, ts, dims) -> list:
+        return self._exchange(tuple(ts), lambda vals: [
+            torch.cat([v[i] for v in vals], d) for i, d in enumerate(dims)])
+
     def pmax(self, t: torch.Tensor) -> torch.Tensor:
-        return _fold(self._exchange(t), torch.maximum)
+        return self._exchange(t, lambda vals: _fold(vals, torch.maximum))
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
-        return _fold(self._exchange(t), torch.add)
+        return self._exchange(t, lambda vals: _fold(vals, torch.add))
 
     def pmean(self, t: torch.Tensor) -> torch.Tensor:
-        vals = [v.detach() for v in self._exchange(t)]
-        return _OwnMean.apply(t, _tree_sum(vals) / self.size)
+        mean = self._exchange(t, lambda vals: _tree_sum(
+            [v.detach() for v in vals]) / self.size)
+        return _OwnMean.apply(t, mean)
 
 
 # ----------------------------------------------------------- thread axis --
 
 class ThreadGroup:
     """p ranks as p threads of one process.  Each collective is one
-    exchange: every rank leaves its tensor in its slot, all wait, all read
-    the slots, all wait again before the slots are reused."""
+    exchange: every rank leaves its tensor in its slot, all wait, all
+    compute their result from the slots, all wait again before the slots
+    are reused.  The result is made before the second wait, so a rank may
+    write its input in place as soon as the collective returns."""
 
     def __init__(self, size: int):
         if size < 1:
@@ -145,37 +167,45 @@ class ThreadAxis(_RankOrder):
     def __init__(self, group: ThreadGroup, rank: int):
         self.group, self.rank, self.size = group, rank, group.size
 
-    def _exchange(self, t: torch.Tensor) -> list:
+    def _exchange(self, t: torch.Tensor, combine=list):
+        """combine(every rank's tensor, in rank order), computed while
+        every rank waits (the tensors are the ranks' own, not copies)."""
         g = self.group
         g._slots[self.rank] = t
         g._barrier.wait()
-        vals = list(g._slots)
-        g._barrier.wait()
-        return vals
+        try:
+            out = combine(list(g._slots))
+        finally:
+            g._barrier.wait()
+        return out
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        return torch.stack(self._exchange(t))
+        return self._exchange(t, torch.stack)
 
     def ppermute(self, t: torch.Tensor, perm) -> torch.Tensor:
-        vals = self._exchange(t)
         src = [s for s, d in perm if d == self.rank]
-        return vals[src[0]].clone() if src else torch.zeros_like(t)
+        return self._exchange(t, lambda vals: vals[src[0]].clone() if src
+                              else torch.zeros_like(t))
 
     def all_to_all(self, t: torch.Tensor, split_axis: int,
                    concat_axis: int) -> torch.Tensor:
         _check_split(t, split_axis, self.size)
-        return _join_chunks(self._exchange(t), self.rank, split_axis,
-                            concat_axis)
+        return self._exchange(t, lambda vals: _join_chunks(
+            vals, self.rank, split_axis, concat_axis))
 
 
 def run_threads(size: int, fn) -> list:
     """[fn(axis of rank r) for r in range(size)], each rank in a thread of
-    its own.  If a rank raises, the others are released and its exception
-    is raised here."""
+    its own, with the caller's number of intra-op threads (a new thread
+    would otherwise start a team of every core for each CPU op: p ranks
+    oversubscribe the cores p times).  If a rank raises, the others are
+    released and its exception is raised here."""
     group = ThreadGroup(size)
     results, errors = [None] * size, [None] * size
+    n_threads = torch.get_num_threads()
 
     def work(r):
+        torch.set_num_threads(n_threads)
         try:
             results[r] = fn(group.axis(r))
         except BaseException as e:          # noqa: BLE001 - re-raised below
@@ -223,6 +253,23 @@ class _DistPsum(torch.autograd.Function):
         return None, _fold(ctx.axis._exchange(g.contiguous()), torch.add)
 
 
+class _DistGatherDim(torch.autograd.Function):
+    """all_gather_dim; its gradient is the reduce-scatter of the gradients:
+    every rank's slice of this rank's block, summed in rank order."""
+
+    @staticmethod
+    def forward(ctx, axis, t, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return torch.cat(axis._exchange(t), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        ax = ctx.axis
+        parts = [v.chunk(ax.size, ctx.dim)[ax.rank]
+                 for v in ax._exchange(g.contiguous())]
+        return None, _fold(parts, torch.add), None
+
+
 class DistAxis(_RankOrder):
     """The ranks of a `torch.distributed` process group (the default group
     unless one is given); the caller has run `init_process_group`."""
@@ -249,14 +296,20 @@ class DistAxis(_RankOrder):
             return w.view(like.dtype)
         return w.to(like.dtype)
 
-    def _exchange(self, t: torch.Tensor) -> list:
+    def _exchange(self, t: torch.Tensor, combine=list):
         flat = self._wire_dtype(t.reshape(-1).contiguous())
         outs = [torch.empty_like(flat) for _ in range(self.size)]
         self._dist.all_gather(outs, flat, group=self.group)
-        return [self._from_wire(o, t).reshape(t.shape) for o in outs]
+        return combine([self._from_wire(o, t).reshape(t.shape) for o in outs])
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         return _DistPsum.apply(self, t)
+
+    def all_gather_dim(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return _DistGatherDim.apply(self, t, dim)
+
+    def all_gather_dims(self, ts, dims) -> list:
+        return [self.all_gather_dim(t, d) for t, d in zip(ts, dims)]
 
     def pmean(self, t: torch.Tensor) -> torch.Tensor:
         vals = self._exchange(t.detach())
@@ -321,32 +374,40 @@ class _MetaCollective(torch.autograd.Function):
         return None, None, g.new_empty(shape), None, None
 
 
+def _record_bytes(recorder, size: int, kind: str, t: torch.Tensor,
+                  shape) -> None:
+    """XLA's count of a collective: an all-reduce at its payload (t), any
+    other kind at its result (`shape`)."""
+    if recorder is not None and size > 1:
+        n = 1
+        for d in (t.shape if kind == "all-reduce" else shape):
+            n *= int(d)
+        recorder(kind, n * t.element_size())
+
+
 class MetaAxis:
-    """Rank 0 of an axis of `size` ranks whose tensors live on the "meta"
-    device: each collective returns an empty tensor of
+    """Rank `rank` (default 0) of an axis of `size` ranks whose tensors
+    live on the "meta" device: each collective returns an empty tensor of
     the shape `ThreadAxis` returns and adds the bytes it moves to
     `recorder(kind, nbytes)` under XLA's collective names: an all-reduce
-    (psum, pmean, pmax) at its payload, an all-gather, all-to-all or
-    collective-permute (ppermute) at its result, as
+    (psum, pmean, pmax) at its payload, an all-gather (all_gather,
+    all_gather_dim), all-to-all, collective-permute (ppermute) or
+    reduce-scatter (all_gather_dim's backward) at its result, as
     `benchmarks/roofline.py` reads the reference's HLO.  It lets a rank's
     program run with nothing allocated (`launch.dryrun`)."""
 
-    rank = 0
-
-    def __init__(self, size: int, recorder=None):
+    def __init__(self, size: int, recorder=None, rank: int = 0):
         if size < 1:
             raise ValueError(f"axis size must be >= 1, got {size}")
-        self.size, self.recorder = size, recorder
+        if not 0 <= rank < size:
+            raise ValueError(f"rank {rank} of an axis of {size}")
+        self.size, self.recorder, self.rank = size, recorder, rank
 
     def axis_index(self) -> int:
         return self.rank
 
     def _record(self, kind: str, t: torch.Tensor, shape) -> None:
-        if self.recorder is not None and self.size > 1:
-            n = 1
-            for d in (t.shape if kind == "all-reduce" else shape):
-                n *= int(d)
-            self.recorder(kind, n * t.element_size())
+        _record_bytes(self.recorder, self.size, kind, t, shape)
 
     def _apply(self, kind, t, shape, back=None):
         return _MetaCollective.apply(self, kind, t, tuple(shape), back)
@@ -365,6 +426,15 @@ class MetaAxis:
         return self._apply("all-gather", t.detach(),
                            (self.size, *t.shape))
 
+    def all_gather_dim(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        shape = list(t.shape)
+        shape[dim] *= self.size
+        return self._apply("all-gather", t, shape,
+                           ("reduce-scatter", tuple(t.shape)))
+
+    def all_gather_dims(self, ts, dims) -> list:
+        return [self.all_gather_dim(t, d) for t, d in zip(ts, dims)]
+
     def ppermute(self, t: torch.Tensor, perm) -> torch.Tensor:
         return self._apply("collective-permute", t.detach(), t.shape)
 
@@ -376,3 +446,60 @@ class MetaAxis:
         shape[concat_axis] *= self.size
         return self._apply("all-to-all", t, shape,
                            ("all-to-all", tuple(t.shape)))
+
+
+# -------------------------------------------------------- recorded axis --
+
+class RecordingAxis:
+    """An axis whose collectives also add the bytes they move to
+    `recorder(kind, nbytes)`, by `MetaAxis`'s rule: what a thread or
+    process rank sends, to hold against the dry-run's count of the same
+    program on meta.  Forward collectives only (a backward's are not
+    seen)."""
+
+    def __init__(self, axis, recorder):
+        self.axis, self.recorder = axis, recorder
+        self.size, self.rank = axis.size, axis.rank
+
+    def axis_index(self) -> int:
+        return self.rank
+
+    def _rec(self, kind, t, shape):
+        _record_bytes(self.recorder, self.size, kind, t, shape)
+
+    def psum(self, t):
+        self._rec("all-reduce", t, t.shape)
+        return self.axis.psum(t)
+
+    def pmean(self, t):
+        self._rec("all-reduce", t, t.shape)
+        return self.axis.pmean(t)
+
+    def pmax(self, t):
+        self._rec("all-reduce", t, t.shape)
+        return self.axis.pmax(t)
+
+    def all_gather(self, t):
+        self._rec("all-gather", t, (self.size, *t.shape))
+        return self.axis.all_gather(t)
+
+    def all_gather_dim(self, t, dim: int):
+        shape = list(t.shape)
+        shape[dim] *= self.size
+        self._rec("all-gather", t, shape)
+        return self.axis.all_gather_dim(t, dim)
+
+    def all_gather_dims(self, ts, dims):
+        for t, d in zip(ts, dims):
+            shape = list(t.shape)
+            shape[d] *= self.size
+            self._rec("all-gather", t, shape)
+        return self.axis.all_gather_dims(ts, dims)
+
+    def ppermute(self, t, perm):
+        self._rec("collective-permute", t, t.shape)
+        return self.axis.ppermute(t, perm)
+
+    def all_to_all(self, t, split_axis: int, concat_axis: int):
+        self._rec("all-to-all", t, t.shape)
+        return self.axis.all_to_all(t, split_axis, concat_axis)

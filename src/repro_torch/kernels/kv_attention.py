@@ -25,6 +25,13 @@ reference's kernel gives the mean of V.  The output agrees with the
 reference's kernel and oracle within rtol = atol = 2e-5 (the reference's
 own tolerance: the sums are taken in another order).
 
+On a rank of the sharded layout (`models.serve._serve_tp`) the kernel
+runs on the rank's block: its pages of the sequence (bins, and eb2 and
+the outlier slots cut to the same pages; an outlier index is in-page, so
+no offset), every KV head and the full Hg, lengths local to the block.
+The caller does not launch it for a rank whose local length is 0 and
+merges the ranks' (m, l) outputs itself.
+
 A wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel (built from source at first use) or raises;
 nothing falls back.  On the "meta" device it returns empty outputs of the

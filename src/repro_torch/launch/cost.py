@@ -58,9 +58,12 @@ def tree_bytes(tree, leaf_bytes=None) -> int:
 
 
 class Recorder:
-    """Collective bytes by kind ("all-reduce", "all-gather", "all-to-all",
-    "collective-permute"); a `core.axis.MetaAxis` calls it per
-    collective.  Thread-safe."""
+    """Collective bytes by kind ("all-reduce", "all-gather",
+    "reduce-scatter", "all-to-all", "collective-permute"); a
+    `core.axis.MetaAxis` (or a `core.axis.RecordingAxis` on thread and
+    process ranks) calls it per collective: the sharded layout's FSDP and
+    "model" gathers as all-gathers, their gradients as reduce-scatters.
+    Thread-safe."""
 
     def __init__(self):
         self.bytes: dict = {}

@@ -15,18 +15,23 @@ collective bytes while the program runs.
 
 What a rank holds (`held_bytes`) beside the reference's layout
 (`layout_bytes`, its `arg_bytes`):
-  * params: whole, but for the MoE experts, of which the rank holds its
-    block over "model" (the reference shards every weight by
-    `mesh.param_shardings`: FSDP over the data axes, heads / mlp / vocab
-    over "model");
+  * params: the dense, vlm and MoE families' prefill and decode cells
+    (`LAYOUT_FAMILIES`) hold and run the reference's layout, the rank's
+    blocks under `mesh.param_shardings` (`mesh.param_blocks`: FSDP over
+    the data axes, heads / mlp / vocab / experts over "model"), so held
+    equals layout; every other cell holds them whole but for the MoE
+    experts, of which the rank holds its block over "model" (training on
+    the layout waits for a later slice, and so do the hybrid's, encdec's
+    and ssm's layouts);
   * optimizer state (train): AdamW's mu, nu and float32 master of the
     params the rank holds;
-  * batch and caches: the rank's block over the data axes of the
-    reference's `_greedy_sharding` (`greedy_sharding` here); the
-    reference also puts "model" on their largest dim (a cache's
-    sequence), which the port's attention cannot use (it has no
-    sequence- or head-parallel attention: ROADMAP, "tensor-parallel
-    dense layers");
+  * caches: on the layout families the rank's block under the
+    reference's decode-cache layout (`mesh.cache_layouts`: the data axes
+    on the batch, "model" on the sequence), else its block over the data
+    axes only; the batch (tokens) its block over the data axes of the
+    reference's `_greedy_sharding` (`greedy_sharding`; the reference also
+    puts "model" on a prefill's sequence, where the port's activations
+    stay whole over "model");
   * gradcomp: the pod-stacked float32 residuals the compressed step
     takes, and the batch of the rank's rows over "data" from which pod 0
     takes its rows.
@@ -74,6 +79,8 @@ from ..configs import registry
 from ..configs.base import SHAPES, runnable
 from ..core.axis import MetaAxis
 from ..models import build
+from ..models.serve import RankCache
+from ..models.transformer import LAYOUT_FAMILIES
 from ..optim import optimizer as opt
 from . import cost
 from . import mesh as M
@@ -117,37 +124,6 @@ def all_cells() -> list:
 
 # ----------------------------------------------------------- layouts --
 
-def greedy_sharding(mesh: M.Mesh, shape, skip_dims=(), batch_size=None):
-    """The reference's `_greedy_sharding` of a leaf of `shape`: the data
-    axes go only to a dim that equals the global batch (with
-    `batch_size`; else the first dim they divide), "model" to the largest
-    remaining divisible dim, never a dim in skip_dims."""
-    dims = list(shape)
-    spec = [None] * len(dims)
-    axes = mesh.sizes
-    dp = [a for a in ("pod", "data") if a in axes]
-    dp_size = int(np.prod([axes[a] for a in dp])) if dp else 1
-    for i, d in enumerate(dims):
-        if i in skip_dims:
-            continue
-        if batch_size is not None and d != batch_size:
-            continue
-        if dp and d % dp_size == 0 and d >= dp_size:
-            spec[i] = tuple(dp) if len(dp) > 1 else dp[0]
-            break
-    if "model" in axes:
-        msize = axes["model"]
-        best = None
-        for i, d in enumerate(dims):
-            if (spec[i] is None and i not in skip_dims and d % msize == 0
-                    and d >= msize):
-                if best is None or d > dims[best]:
-                    best = i
-        if best is not None:
-            spec[best] = "model"
-    return M.Sharding(mesh, tuple(spec))
-
-
 def _map_leaves(fn, tree):
     leaves, treedef = T.flatten(tree)
     return T.unflatten(treedef, [fn(t) for t in leaves])
@@ -155,14 +131,7 @@ def _map_leaves(fn, tree):
 
 def batch_layouts(mesh: M.Mesh, tree):
     """The reference's `_batch_shardings`: greedy, no batch size."""
-    return _map_leaves(lambda t: greedy_sharding(mesh, t.shape), tree)
-
-
-def cache_layouts(mesh: M.Mesh, tree, global_batch: int):
-    """The reference's decode cache shardings: greedy over every dim but
-    the layer stack's, the data axes on the global batch's dim."""
-    return _map_leaves(lambda t: greedy_sharding(
-        mesh, t.shape, skip_dims=(0,), batch_size=global_batch), tree)
+    return _map_leaves(lambda t: M.greedy_sharding(mesh, t.shape), tree)
 
 
 def drop_pod(s: M.Sharding) -> M.Sharding:
@@ -206,20 +175,6 @@ def expert_blocks(mesh: M.Mesh, axes_tree, pspecs):
     return M._map_axes(one, axes_tree, pspecs)
 
 
-def block_shape(shape, s: M.Sharding) -> tuple:
-    """A rank's block of a leaf of `shape` under `s` (the reference's
-    `NamedSharding.shard_shape`)."""
-    sizes = s.mesh.sizes
-    out = list(shape)
-    for i, e in enumerate(s.spec):
-        n = M._axis_size(e, sizes)
-        if out[i] % n:
-            raise ValueError(f"dim {i} of {tuple(shape)} does not split "
-                             f"over {e}")
-        out[i] //= n
-    return tuple(out)
-
-
 def layout_bytes(tree, shardings, dtype=None) -> int:
     """Bytes of a rank's blocks of every leaf of `tree` under `shardings`
     (each leaf in `dtype` where given)."""
@@ -229,15 +184,18 @@ def layout_bytes(tree, shardings, dtype=None) -> int:
     for t, s in zip(leaves, shards):
         size = (torch.tensor([], dtype=dtype) if dtype is not None
                 else t).element_size()
-        total += int(np.prod(block_shape(t.shape, s), dtype=np.int64)) * size
+        n = int(np.prod(M.block_shape(t.shape, s), dtype=np.int64))
+        total += n * size
     return total
 
 
-def rank_mesh(desc: M.Mesh, recorder) -> M.Mesh:
-    """Rank 0's mesh of `desc`: a MetaAxis per axis, all recording into
-    `recorder`."""
+def rank_mesh(desc: M.Mesh, recorder, coords=None) -> M.Mesh:
+    """The mesh of the rank at `coords` (default rank 0) of `desc`: a
+    MetaAxis per axis, all recording into `recorder`."""
+    coords = coords or dict.fromkeys(desc.axis_names, 0)
     return M.Mesh(desc.shape, desc.axis_names, axes={
-        n: MetaAxis(desc.sizes[n], recorder) for n in desc.axis_names})
+        n: MetaAxis(desc.sizes[n], recorder, coords[n])
+        for n in desc.axis_names})
 
 
 def _rank0(tree, shardings):
@@ -248,18 +206,25 @@ def _rank0(tree, shardings):
 # ----------------------------------------------------------- programs --
 
 def cell_program(arch_name: str, shape_name: str, desc: M.Mesh,
-                 variant: str, recorder):
-    """(fn, held, layout) for rank 0 of `desc`: fn() runs the cell's
-    program; held {group: tree the program is given}; layout {group:
-    bytes of the reference's layout a rank}."""
+                 variant: str, recorder, coords=None):
+    """(fn, held, layout) for the rank at `coords` (default rank 0) of
+    `desc`: fn() runs the cell's program; held {group: tree the program
+    is given}; layout {group: bytes of the reference's layout a rank}."""
     cfg = registry.get(arch_name)
     shape = SHAPES[shape_name]
     bundle = build(cfg)
-    rmesh = rank_mesh(desc, recorder)
+    coords = coords or dict.fromkeys(desc.axis_names, 0)
+    rmesh = rank_mesh(desc, recorder, coords)
     abstract = bundle.abstract_params()
     axes = bundle.axes()
     pspecs = M.param_shardings(desc, axes, abstract)
-    params = _rank0(abstract, expert_blocks(desc, axes, pspecs))
+    on_layout = (cfg.family in LAYOUT_FAMILIES
+                 and shape.kind in ("prefill", "decode"))
+    if on_layout:
+        params = M.param_blocks(abstract, desc, axes, coords)
+    else:
+        params = M.local_views(abstract, expert_blocks(desc, axes, pspecs),
+                               coords)
 
     if shape.kind == "train":
         opt_cfg = opt.AdamWConfig(total_steps=1000)
@@ -305,25 +270,28 @@ def cell_program(arch_name: str, shape_name: str, desc: M.Mesh,
     if shape.kind == "prefill":
         batch = bundle.input_specs(shape)
         b_lay = batch_layouts(desc, batch)
-        local = _rank0(batch, T.tree_map(data_only, b_lay))
+        local = M.local_views(batch, T.tree_map(data_only, b_lay), coords)
         layout = {"params": layout_bytes(abstract, pspecs),
                   "batch": layout_bytes(batch, b_lay)}
         held = {"params": params, "batch": local}
         return lambda: bundle.prefill(params, local, rmesh), held, layout
 
     ins = bundle.input_specs(shape, quantized_kv=variant == "kvq")
-    c_lay = cache_layouts(desc, ins["cache"], shape.global_batch)
-    t_lay = greedy_sharding(desc, ins["tokens"].shape)
-    cache = _rank0(ins["cache"], T.tree_map(data_only, c_lay))
-    tokens = M.local_view(ins["tokens"], data_only(t_lay),
-                          dict.fromkeys(desc.axis_names, 0))
+    c_lay = M.cache_layouts(desc, ins["cache"], shape.global_batch)
+    t_lay = M.greedy_sharding(desc, ins["tokens"].shape)
+    cache = M.local_views(ins["cache"], c_lay if on_layout else T.tree_map(
+        data_only, c_lay), coords)
+    # the layout's step takes the rank's block with the cache's global size
+    given = (RankCache(cache, shape.global_batch, shape.seq_len)
+             if on_layout else cache)
+    tokens = M.local_view(ins["tokens"], data_only(t_lay), coords)
     kv_cfg = kv_quantizer_config() if variant == "kvq" else None
     pos = shape.seq_len - 1           # a host int, as the step reads it
     layout = {"params": layout_bytes(abstract, pspecs),
               "cache": layout_bytes(ins["cache"], c_lay),
               "batch": layout_bytes(ins["tokens"], t_lay) + 4}
     held = {"params": params, "cache": cache, "batch": tokens}
-    return (lambda: bundle.serve_step(params, cache, tokens, pos, rmesh,
+    return (lambda: bundle.serve_step(params, given, tokens, pos, rmesh,
                                       kv_cfg), held, layout)
 
 
@@ -452,10 +420,14 @@ def summary_line(rec: dict) -> str:
     if rec["status"] != "ok":
         return f"[ERR] {head} {rec.get('where')} {rec['error'][:120]}"
     gib = 2.0 ** 30
+    groups = "".join(
+        f" {k}={rec['held_by'][k] / gib:.3f}/{rec['layout_by'][k] / gib:.3f}"
+        for k in ("params", "cache") if k in rec["held_by"])
     return (f"[OK ] {head} held={rec['held_bytes'] / gib:8.2f}GiB "
             f"layout={rec['layout_bytes'] / gib:7.2f}GiB "
             f"peak={rec['peak_bytes'] / gib:8.2f}GiB "
-            f"flops={rec['flops']:.3e} run={rec['run_s']:.1f}s")
+            f"flops={rec['flops']:.3e} run={rec['run_s']:.1f}s"
+            f" (held/layout GiB:{groups})")
 
 
 def _cell_text(rec, what: str, hbm_bytes=None) -> str:

@@ -26,7 +26,15 @@ ThreadGroup`s: NCCL refuses two ranks on one card) and as processes
 
 `local_view` gives a rank its block of a tensor under a sharding, and
 `local_views` of a tree: views, not copies (tensors are mutable: the
-views of ranks that share a tensor must be read only).
+views of ranks that share a tensor must be read only).  `param_blocks`
+is a rank's views of a parameter tree under `param_shardings`;
+`gather_dim` makes a sharded dimension whole again on a rank's mesh (the
+FSDP all-gather over the data axes, or a gather over "model").
+
+Decode caches and batch-like inputs are laid out by the reference
+dry-run's greedy rule (`greedy_sharding`, `cache_layouts`): the data axes
+on the global batch's dim, "model" on the largest other dim it divides
+(a cache's sequence).
 """
 from __future__ import annotations
 
@@ -238,13 +246,114 @@ def mesh_coords(mesh: Mesh) -> list:
             for c in itertools.product(*(range(n) for n in mesh.shape))]
 
 
+def param_blocks(params, mesh: Mesh, axes_tree, coords=None):
+    """The rank's views of `params` (global tensors, e.g. on the meta
+    device) under `param_shardings(mesh, axes_tree, params)`: FSDP's
+    "embed" blocks over the data axes, heads / mlp / vocab / experts over
+    "model".  A dim its axes do not divide stays whole
+    (`logical_to_spec`'s rule, held here: every block is that of the
+    spec).  `coords` default to those of the rank's mesh."""
+    shard = param_shardings(mesh, axes_tree, params)
+    coords = mesh.coords() if coords is None else coords
+    views = local_views(params, shard, coords)
+    for t, v, s in zip(T.leaves(params), T.leaves(views), T.leaves(shard)):
+        if tuple(v.shape) != block_shape(t.shape, s):
+            raise AssertionError(f"a block {tuple(v.shape)} of "
+                                 f"{tuple(t.shape)} under {s.spec}")
+    return views
+
+
+def _names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def gather_dim(t: torch.Tensor, entry, mesh: Mesh, dim: int) -> torch.Tensor:
+    """`t`, the rank's block of a dim sharded over `entry` (a spec entry),
+    made whole again on the rank's mesh: an all-gather along `dim` over
+    each of the entry's axes, the last (least significant in `_block`'s
+    order) first, so the blocks join in the global order.  An axis the
+    mesh lacks has size 1."""
+    return gather_dims([t], entry, mesh, [dim])[0]
+
+
+def gather_dims(ts: list, entry, mesh: Mesh, dims: list) -> list:
+    """`gather_dim` of several tensors sharded over the same `entry`, one
+    collective per axis for them all (`all_gather_dims`)."""
+    ts = list(ts)
+    for name in reversed(_names(entry)):
+        if name not in mesh.axis_names:
+            continue
+        ax = mesh.axis(name)
+        if ax.size > 1:
+            ts = ax.all_gather_dims(ts, dims)
+    return ts
+
+
+def block_shape(shape, s: Sharding) -> tuple:
+    """A rank's block of a leaf of `shape` under `s` (the reference's
+    `NamedSharding.shard_shape`)."""
+    sizes = s.mesh.sizes
+    out = list(shape)
+    for i, e in enumerate(s.spec):
+        n = _axis_size(e, sizes)
+        if out[i] % n:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                             f"over {e}")
+        out[i] //= n
+    return tuple(out)
+
+
+def greedy_sharding(mesh: Mesh, shape, skip_dims=(), batch_size=None):
+    """The reference dry-run's `_greedy_sharding` of a leaf of `shape`:
+    the data axes go only to a dim that equals the global batch (with
+    `batch_size`; else the first dim they divide), "model" to the largest
+    remaining divisible dim (the first of equals), never a dim in
+    skip_dims."""
+    dims = list(shape)
+    spec = [None] * len(dims)
+    axes = mesh.sizes
+    dp = [a for a in ("pod", "data") if a in axes]
+    dp_size = int(np.prod([axes[a] for a in dp])) if dp else 1
+    for i, d in enumerate(dims):
+        if i in skip_dims:
+            continue
+        if batch_size is not None and d != batch_size:
+            continue
+        if dp and d % dp_size == 0 and d >= dp_size:
+            spec[i] = tuple(dp) if len(dp) > 1 else dp[0]
+            break
+    if "model" in axes:
+        msize = axes["model"]
+        best = None
+        for i, d in enumerate(dims):
+            if (spec[i] is None and i not in skip_dims and d % msize == 0
+                    and d >= msize):
+                if best is None or d > dims[best]:
+                    best = i
+        if best is not None:
+            spec[best] = "model"
+    return Sharding(mesh, tuple(spec))
+
+
+def cache_layouts(mesh: Mesh, tree, global_batch: int):
+    """The reference's decode cache shardings: greedy over every dim but
+    the layer stack's, the data axes on the global batch's dim."""
+    leaves, treedef = T.flatten(tree)
+    return T.unflatten(treedef, [greedy_sharding(
+        mesh, t.shape, skip_dims=(0,), batch_size=global_batch)
+        for t in leaves])
+
+
 # ---------------------------------------------------------- rank meshes --
 
 def run_mesh_threads(shape, axis_names, fn) -> list:
     """fn(mesh of rank r) for every rank of a mesh of `shape`, each rank a
     thread of this process (row-major rank order): each mesh axis of a
     rank is a `ThreadGroup` axis over the ranks that share its other
-    coordinates.  Returns the results in rank order."""
+    coordinates.  Returns the results in rank order; a rank that raises
+    breaks every axis's barrier, so the others stop too."""
     desc = Mesh(shape, axis_names)
     coords = mesh_coords(desc)
     groups = {}
@@ -260,7 +369,15 @@ def run_mesh_threads(shape, axis_names, fn) -> list:
             for name in desc.axis_names}
         return Mesh(shape, axis_names, axes=axes)
 
-    return run_threads(desc.size, lambda ax: fn(rank_mesh(ax.rank)))
+    def rank(ax):
+        try:
+            return fn(rank_mesh(ax.rank))
+        except BaseException:
+            for g in groups.values():     # release the ranks that wait
+                g.abort()
+            raise
+
+    return run_threads(desc.size, rank)
 
 
 def dist_mesh(shape, axis_names) -> Mesh:

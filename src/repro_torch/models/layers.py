@@ -6,7 +6,14 @@
 
 The reference writes them as global math with sharding constraints at a
 few seams (`ShardCtx`); on one card those constraints are the identity,
-so the port has none.  The reference's remat (`jax.checkpoint`) is
+so the port has none.  On a rank of the reference's layout
+(`transformer.forward` and `serve.serve_step` with the rank's parameter
+blocks) three helpers do what GSPMD does there: `vocab_embed` (the
+rank's "vocab" rows, a masked lookup and a psum over "model"),
+`row_parallel` (a product whose contracted dim is split over "model":
+the rank's partial product in float32, then a psum) and `decode_attention` with
+`return_stats` (a rank's sequence block, its (o, m, l) to merge across
+ranks).  The reference's remat (`jax.checkpoint`) is
 `transformer.forward`'s per-layer `torch.utils.checkpoint` here, which
 changes no value; autograd differentiates `flash_attention` through its
 block loops (the reference's `jax.grad` through its scans).
@@ -134,9 +141,14 @@ def flash_attention(q, k, v, *, causal: bool = True, q_block: int = 512,
     return out
 
 
-def decode_attention(q, k_cache, v_cache, lengths):
+def decode_attention(q, k_cache, v_cache, lengths, *,
+                     return_stats: bool = False):
     """Single-token GQA decode: q [B, 1, H, hd]; caches [B, S, G, hd];
-    lengths int [B].  Grouped einsum, no KV repeat."""
+    lengths int [B].  Grouped einsum, no KV repeat.  With return_stats
+    (a rank's sequence block of the cache, lengths local to it): (o
+    float32 [B, H, hd], m [B, H], l [B, H]), o = sum_s p_s v_s / l with
+    p = exp(score - m), for `serve` to merge across ranks; a row with no
+    token is o 0, m NEG_BIG, l 0 (no weight in the merge)."""
     b, _, h, hd = q.shape
     s, g = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(b, g, h // g, hd)
@@ -145,9 +157,53 @@ def decode_attention(q, k_cache, v_cache, lengths):
     valid = torch.arange(s, device=q.device)[None, :] < lengths[:, None]
     scores = torch.where(valid[:, None, None, :], scores,
                          torch.full((), NEG_BIG, device=q.device))
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bgqs,bsgd->bgqd", p, v_cache.to(torch.float32))
-    return out.reshape(b, 1, h, hd).to(q.dtype)
+    if not return_stats:
+        p = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bgqs,bsgd->bgqd", p, v_cache.to(torch.float32))
+        return out.reshape(b, 1, h, hd).to(q.dtype)
+    m = scores.amax(-1)
+    p = torch.exp(scores - m[..., None]) * valid[:, None, None, :]
+    l_ = p.sum(-1)
+    acc = torch.einsum("bgqs,bsgd->bgqd", p, v_cache.to(torch.float32))
+    o = acc / torch.clamp(l_, min=1e-30)[..., None]
+    return o.reshape(b, h, hd), l_.reshape(b, h), m.reshape(b, h)
+
+
+def vocab_embed(emb: torch.Tensor, tokens: torch.Tensor, axis):
+    """The embedding of `tokens` from emb [V / n, D], the rank's block of
+    "vocab" rows over `axis` (n ranks, rows axis.rank * V / n on): each
+    rank looks up the tokens in its rows and puts -0.0 elsewhere, then a
+    psum over the axis.  A token has one rank's row and -0.0 + x = x for
+    every x, so every rank gets the one-rank lookup bit for bit."""
+    n = emb.shape[0]
+    local = tokens.to(torch.int64) - axis.axis_index() * n
+    mine = (local >= 0) & (local < n)
+    rows = emb[torch.where(mine, local, torch.zeros_like(local))]
+    neg0 = torch.full((), -0.0, dtype=emb.dtype, device=emb.device)
+    return axis.psum(torch.where(mine[..., None], rows, neg0))
+
+
+def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [..., K] @ w [K, N] with a float32 result that rounds no
+    bfloat16 product: on the card (and meta) one bfloat16 GEMM with a
+    float32 output (`torch.mm(..., out_dtype=)`), on the CPU, which has
+    no such GEMM, the float32 product of the same values."""
+    if a.dtype == torch.float32 and w.dtype == torch.float32:
+        return a @ w
+    a2 = a.reshape(-1, a.shape[-1])
+    if a.device.type == "cpu":
+        out = a2.to(torch.float32) @ w.to(torch.float32)
+    else:
+        out = torch.mm(a2, w, out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], w.shape[-1])
+
+
+def row_parallel(a: torch.Tensor, w: torch.Tensor, axis) -> torch.Tensor:
+    """a @ w where the contracted dim is split over `axis` (a [..., K / n]
+    and w [K / n, N] the rank's blocks): the rank's partial product in
+    float32 (`matmul_f32`), summed over the ranks in rank order, rounded
+    once to a's dtype."""
+    return axis.psum(matmul_f32(a, w)).to(a.dtype)
 
 
 def chunked_scan(step, carry: tuple, xs, chunk: int = 64,
@@ -579,12 +635,15 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return _Silu.apply(x)
 
 
-def ffn(x, w1, w3, w2, act: str = "swiglu"):
+def ffn_hidden(x, w1, w3, act: str = "swiglu"):
+    """The FFN's hidden activations (before w2)."""
     if act == "swiglu":
-        h = silu(x @ w1) * (x @ w3)
-    else:                                        # gelu (whisper)
-        h = F.gelu(x @ w1, approximate="tanh")
-    return h @ w2
+        return silu(x @ w1) * (x @ w3)
+    return F.gelu(x @ w1, approximate="tanh")    # gelu (whisper)
+
+
+def ffn(x, w1, w3, w2, act: str = "swiglu"):
+    return ffn_hidden(x, w1, w3, act) @ w2
 
 
 def trunc_init(generator: torch.Generator, shape, dtype, scale=0.02):

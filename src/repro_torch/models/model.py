@@ -3,10 +3,14 @@ loss, caches, the forward pass's prefill, the decode step and the input
 specs (counterpart of `repro.models.model`, for every family: dense,
 vlm, MoE, hybrid, encdec and ssm).
 
-`mesh` is a `launch.mesh.Mesh` of the calling rank: the MoE layers then
-run expert parallel over its "model" axis (`models.moe`), with `params`
-the rank's local view (`launch.mesh.local_views`); every other layer runs
-replicated on each rank."""
+`mesh` is a `launch.mesh.Mesh` of the calling rank.  With `params` the
+rank's blocks (`launch.mesh.param_blocks`; the dense, vlm and MoE
+families) the forward pass and the decode step run the reference's
+layout (`models.transformer`, `models.serve`): the rank's cache block
+(a `serve.RankCache` from `make_cache(..., mesh=)`), and the rank's
+"vocab" block of the logits.  With whole weights the MoE layers run
+expert parallel over its "model" axis (`models.moe`) and every other
+layer replicated on each rank."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -70,15 +74,26 @@ class ModelBundle(NamedTuple):
         return ce + 0.01 * aux, (ce, aux)
 
     def make_cache(self, batch: int, seq: int, quantized: bool = False, *,
-                   device="cuda"):
+                   device="cuda", mesh=None):
         """A zero decode cache of `batch` rows over `seq` tokens: raw or
         (quantized=True) a QuantCache for the decoder stacks; the ssm
         family's recurrent state, encdec's self-attention cache (its
         cross K/V comes from `encdec.cross_kv`), and for the hybrid
         (RawCache over its periods' attention layers, (conv tails [P,
         n_mamba, B, K-1, Di] bfloat16, ssm states [P, n_mamba, B, Di, N]
-        float32)) whatever `quantized` says, as the reference gives."""
+        float32)) whatever `quantized` says, as the reference gives.
+        With `mesh` (a rank's; the dense, vlm and MoE families): the
+        rank's `serve.RankCache`, its block of the cache of `batch` rows
+        (the global batch) under `launch.mesh.cache_layouts`."""
         cfg = self.cfg
+        if mesh is not None:
+            if cfg.family not in transformer.LAYOUT_FAMILIES:
+                raise NotImplementedError(
+                    f"the {cfg.family} family's cache has no rank layout "
+                    "yet: it runs on whole weights and caches")
+            make = (serve.make_quant_cache if quantized
+                    else serve.make_raw_cache)
+            return make(cfg, batch, seq, device=device, mesh=mesh)
         if cfg.family == "ssm":
             return xlstm_stack.make_cache(cfg, batch, seq, device=device)
         if cfg.family == "encdec":
@@ -135,7 +150,8 @@ class ModelBundle(NamedTuple):
     def prefill(self, params, batch: dict, mesh=None) -> torch.Tensor:
         """The forward pass without a loss (the prefill_32k program):
         batch["tokens"] int [B, S] (and for encdec batch["frames"]) -> the
-        last position's logits, float32 [B, V_padded]."""
+        last position's logits, float32 [B, V_padded] (on a rank of the
+        layout its "vocab" block [B, V_padded / model])."""
         logits, _ = self._forward(params, batch, mesh, remat=False)
         return logits[:, -1].to(torch.float32)
 

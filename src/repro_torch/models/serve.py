@@ -33,6 +33,34 @@ the reference's `_serve_hybrid`); it has no QuantCache path, engine or
 Caches are updated in place: `serve_step` returns the cache it was given
 (the reference returns a new one).
 
+On a rank of the reference's layout, the cache is a `RankCache`: the
+rank's block under `launch.mesh.cache_layouts` of a cache of a recorded
+global batch and sequence (`make_quant_cache` / `make_raw_cache` with the
+rank's mesh): the data axes on the batch, "model" on the sequence of
+`bins` and of raw K and V, and on the largest other dim of `eb2`, the
+outlier planes and the hot page (the page axis, or the KV heads where a
+short cache has fewer pages than heads; the hot page's token slots).
+The step over it (`_serve_tp`), with the rank's parameter blocks
+(`transformer.rank_layout`) or whole weights:
+
+  * q from the rank's `wq` columns and k, v from its `wkv` block,
+    gathered over "model" in one collective (q of every head: the
+    history is split by sequence, not by head; `transformer._project`);
+  * the new token's K and V go to the rank that owns their slot (raw: its
+    sequence block; quantized: its hot-page slots);
+  * each rank attends to its own tokens: B12 over its closed pages with
+    lengths local to its block, and the hot page's slots it holds (raw:
+    `layers.decode_attention` over its block), each part an (o, l, m);
+    the ranks' parts are merged over "model" by B12's own merge rule
+    (`merge_parts`: pmax of m, then one psum of the rescaled o and l).  A
+    rank with no token of a part does not compute it: it adds no weight;
+  * a page that closes is gathered over "model" (the hot page's slots),
+    so each (row, KV head, page) gets the eb2 and outliers one rank gives
+    it, and is quantized by the ranks that hold a part of its planes
+    (the page's owner; every rank where a plane is split by KV head);
+  * `wo` and the FFN's `w2` row-parallel (psum over "model"), the logits
+    the rank's "vocab" block.
+
 Prefill -> decode hand-off: `pack_cache` turns a QuantCache into the
 `PackedCache` wire (closed pages as per-page `PackedKV`, the open hot page
 raw), `transfer_cache` moves it between ranks of a `core.axis` with
@@ -45,13 +73,16 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tree as T
 from ..compression import kv as KVC
 from ..configs.base import ArchConfig
 from ..core.config import QuantizerConfig
 from ..core.pipeline import resolve_device
 from ..core.transport import TRANSPORT, Transport
 from ..kernels import kv_attention as KA
+from ..launch import mesh as MESH
 from . import layers as L
+from . import transformer as TT
 from .moe import moe_ffn_rows
 from . import mamba as M
 from .transformer import DTYPE, _ffn_block, _index, _project, hybrid_blocks
@@ -82,36 +113,87 @@ class PackedCache(NamedTuple):
     hot_v: torch.Tensor
 
 
-def make_raw_cache(cfg: ArchConfig, batch: int, seq: int, n_layers=None, *,
-                   device="cuda") -> RawCache:
-    dev = resolve_device(device)
-    l_ = cfg.n_layers if n_layers is None else n_layers
+def _raw_tree(cfg: ArchConfig, batch: int, seq: int, l_: int, new):
     shape = (l_, batch, seq, cfg.n_kv_heads, cfg.head_dim)
-    return RawCache(torch.zeros(shape, dtype=DTYPE, device=dev),
-                    torch.zeros(shape, dtype=DTYPE, device=dev))
+    k = new(shape, DTYPE, 0)
+    return RawCache(k, new(shape, DTYPE, 0))
 
 
-def make_quant_cache(cfg: ArchConfig, batch: int, seq: int, n_layers=None,
-                     *, device="cuda") -> QuantCache:
-    dev = resolve_device(device)
-    l_ = cfg.n_layers if n_layers is None else n_layers
+def _quant_tree(cfg: ArchConfig, batch: int, seq: int, l_: int, new):
     g, hd = cfg.n_kv_heads, cfg.head_dim
     np_ = seq // PAGE
 
     def one():
-        return KVC.QuantizedKV(
-            bins=torch.zeros((l_, batch, g, seq, hd), dtype=torch.int8,
-                             device=dev),
-            eb2=torch.zeros((l_, batch, g, np_), device=dev),
-            out_idx=torch.full((l_, batch, g, np_, CAP), -1,
-                               dtype=torch.int32, device=dev),
-            out_val=torch.zeros((l_, batch, g, np_, CAP), device=dev),
-            overflow=torch.zeros((l_, batch, g, np_), dtype=torch.bool,
-                                 device=dev))
+        bins = new((l_, batch, g, seq, hd), torch.int8, 0)
+        eb2 = new((l_, batch, g, np_), torch.float32, 0)
+        out_idx = new((l_, batch, g, np_, CAP), torch.int32, -1)
+        out_val = new((l_, batch, g, np_, CAP), torch.float32, 0)
+        overflow = new((l_, batch, g, np_), torch.bool, False)
+        return KVC.QuantizedKV(bins, eb2, out_idx, out_val, overflow)
 
+    k = one()
+    v = one()
     hot = (l_, batch, PAGE, g, hd)
-    return QuantCache(one(), one(), torch.zeros(hot, dtype=DTYPE, device=dev),
-                      torch.zeros(hot, dtype=DTYPE, device=dev))
+    hot_k = new(hot, DTYPE, 0)
+    return QuantCache(k, v, hot_k, new(hot, DTYPE, 0))
+
+
+class _Leaf:
+    """A leaf's shape alone: a cache tree to lay out makes no tensor (a
+    meta tensor made inside a dry-run's count would count as held)."""
+    __slots__ = ("shape",)
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+
+def _shapes(shape, dt, fill) -> _Leaf:
+    return _Leaf(shape)
+
+
+class RankCache(NamedTuple):
+    """A rank's block of a decode cache on the reference's layout: `block`
+    (a QuantCache or RawCache) holds the rank's blocks under
+    `launch.mesh.cache_layouts` of the cache of `batch` rows (the global
+    batch) over `seq` tokens.  `make_quant_cache` / `make_raw_cache` with
+    a mesh return one; `cache_plan` holds the block's shapes to the
+    layout of (batch, seq)."""
+    block: object
+    batch: int
+    seq: int
+
+
+def _make_cache(tree_fn, cfg, batch, seq, n_layers, device, mesh):
+    """tree_fn's cache on `device`: whole, or with `mesh` (a rank's) the
+    rank's `RankCache` under `launch.mesh.cache_layouts` (leaves made in
+    the tree's order, so the layouts are taken in that order too)."""
+    dev = resolve_device(device)
+    l_ = cfg.n_layers if n_layers is None else n_layers
+    if mesh is None:
+        return tree_fn(cfg, batch, seq, l_, lambda shape, dt, fill: torch.full(
+            shape, fill, dtype=dt, device=dev))
+    desc = MESH.Mesh(mesh.shape, mesh.axis_names)
+    glob = tree_fn(cfg, batch, seq, l_, _shapes)
+    lays = iter(T.leaves(MESH.cache_layouts(desc, glob, batch)))
+    return RankCache(tree_fn(cfg, batch, seq, l_, lambda shape, dt, fill:
+                             torch.full(MESH.block_shape(shape, next(lays)),
+                                        fill, dtype=dt, device=dev)),
+                     batch, seq)
+
+
+def make_raw_cache(cfg: ArchConfig, batch: int, seq: int, n_layers=None, *,
+                   device="cuda", mesh=None) -> RawCache:
+    """A zero raw cache of `batch` rows over `seq` tokens, k and v [L, B,
+    S, G, hd]; with `mesh` (a rank's) the rank's `RankCache` of it."""
+    return _make_cache(_raw_tree, cfg, batch, seq, n_layers, device, mesh)
+
+
+def make_quant_cache(cfg: ArchConfig, batch: int, seq: int, n_layers=None,
+                     *, device="cuda", mesh=None) -> QuantCache:
+    """An empty quantized cache (layout in the module docstring); with
+    `mesh` (a rank's) the rank's `RankCache` of it under
+    `cache_layouts`."""
+    return _make_cache(_quant_tree, cfg, batch, seq, n_layers, device, mesh)
 
 
 def pack_cache(cache: QuantCache, *, stages=(),
@@ -298,11 +380,21 @@ def serve_step(cfg: ArchConfig, params: dict, cache, tokens, pos: int,
                mesh=None, kv_cfg: QuantizerConfig | None = None):
     """One decode step.  tokens: int [B, 1]; pos: a host int (aligned
     batch).  Returns (logits float32 [B, V_padded], cache), the cache
-    updated in place.  `mesh`: the calling rank's (`launch.mesh`); the MoE
-    layers then take the expert-parallel decode path over its "model"
-    axis, every other layer runs replicated."""
+    updated in place.  `mesh`: the calling rank's (`launch.mesh`); with
+    the rank's parameter blocks and cache blocks the reference's layout
+    (`_serve_tp`; the logits the rank's "vocab" block), with whole
+    weights the MoE layers take the expert-parallel decode path over its
+    "model" axis and every other layer runs replicated."""
     pos = int(pos)
-    x = params["emb"][tokens].to(DTYPE)
+    spec = TT.rank_layout(cfg, params, mesh)
+    if isinstance(cache, RankCache):
+        return _serve_tp(cfg, params, cache, tokens, pos, mesh, kv_cfg,
+                         spec), cache
+    if spec is not None:
+        raise ValueError("the rank's parameter blocks decode over its "
+                         "RankCache (make_cache(..., mesh=)), not a whole "
+                         "cache")
+    x = TT.embed(params, tokens)
     if cfg.family == "hybrid":
         x = _serve_hybrid(cfg, params, cache, x, pos, mesh)
     elif isinstance(cache, QuantCache):
@@ -330,8 +422,7 @@ def serve_step(cfg: ArchConfig, params: dict, cache, tokens, pos: int,
             x = _attn_decode_raw(cfg, lp, x, cache.k[i], cache.v[i], pos)
             x, _ = _ffn_block(cfg, lp, x, mesh)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["emb"].T.to(DTYPE))[:, 0].to(torch.float32)
-    return logits, cache
+    return TT.logits(x, params)[:, 0].to(torch.float32), cache
 
 
 def _serve_hybrid(cfg: ArchConfig, params: dict, cache, x, pos: int,
@@ -369,6 +460,249 @@ def _serve_hybrid(cfg: ArchConfig, params: dict, cache, x, pos: int,
                 hs[per, mi].copy_(h)
             x, _ = _ffn_block(cfg, _index(pp[ffn], fi), x, mesh)
     return x
+
+
+# ------------------------------------------------ the reference's layout --
+
+class CachePlan(NamedTuple):
+    """Where a rank's cache block lies (`cache_plan`): the global sequence
+    `s`, the rank's `s_l` tokens from `s0`, its `page_l` hot-page slots
+    from `t0`, and per plane of a layer (names of `QuantizedKV`, "hot";
+    "kv" for a raw cache) the dim "model" splits, or None."""
+    s: int
+    s_l: int
+    s0: int
+    page_l: int
+    t0: int
+    model: dict
+
+
+def cache_plan(cfg: ArchConfig, cache: RankCache, mesh) -> CachePlan:
+    """The rank's `CachePlan` of its `RankCache`, whose block must have
+    the shapes `cache_layouts` gives the rank of a cache of cache.batch
+    rows over cache.seq tokens.  Raises where it has not, or where the
+    layout is not one the step runs: it needs "model" on the sequence of
+    bins / raw K and V (a page or token block a rank), on any dim of eb2
+    and the outlier planes but the batch, on the hot page's slots or
+    nowhere."""
+    if not isinstance(cache, RankCache):
+        raise TypeError(f"the layout's decode step takes a RankCache "
+                        f"(make_cache(..., mesh=)), got "
+                        f"{type(cache).__name__}")
+    if "model" not in mesh.axis_names:
+        raise ValueError(f"the layout's decode step needs a \"model\" axis, "
+                         f"got {mesh!r}")
+    blk = cache.block
+    quant = isinstance(blk, QuantCache)
+    lead = blk.k.bins if quant else blk.k
+    desc = MESH.Mesh(mesh.shape, mesh.axis_names)
+    glob = (_quant_tree if quant else _raw_tree)(
+        cfg, cache.batch, cache.seq, lead.shape[0], _shapes)
+    lays = T.leaves(MESH.cache_layouts(desc, glob, cache.batch))
+    want = [MESH.block_shape(t.shape, ly) for t, ly in
+            zip(T.leaves(glob), lays)]
+    got = [tuple(t.shape) for t in T.leaves(blk)]
+    if got != want:
+        raise ValueError(f"a cache of blocks {got} is not a rank's block of "
+                         f"{cache.batch} rows over {cache.seq} tokens under "
+                         f"cache_layouts on {dict(desc.sizes)}: {want}")
+    fields = (list(KVC.QuantizedKV._fields) * 2 + ["hot"] * 2 if quant
+              else ["kv", "kv"])
+    dims = {f: next((i - 1 for i, e in enumerate(ly.spec)
+                     if "model" in MESH._names(e)), None)
+            for f, ly in zip(fields, lays)}
+    ax = mesh.axis("model")
+    seq_dim = 2 if quant else 1
+    s_l = lead.shape[1 + seq_dim]
+    ok = dims["bins" if quant else "kv"] == seq_dim
+    if quant:
+        ok &= all(dims[f] != 0 for f in
+                  ("eb2", "out_idx", "out_val", "overflow"))
+        ok &= dims["hot"] in (None, 1) and s_l % PAGE == 0
+    if not ok:
+        raise NotImplementedError(f"a cache layout the decode step does not "
+                                  f"run: \"model\" on dims {dims}")
+    page_l = blk.hot_k.shape[2] if quant else 0
+    t0 = ax.rank * page_l if quant and dims["hot"] == 1 else 0
+    return CachePlan(cache.seq, s_l, ax.rank * s_l, page_l, t0, dims)
+
+
+def merge_parts(parts: list, axis, like: torch.Tensor) -> torch.Tensor:
+    """The attention output [B, H, hd] from the ranks' parts, each (o [B,
+    H, hd], l [B, H], m [B, H]) over its tokens (o normalized by its l):
+    B12's merge rule over `axis`, M = pmax of m, then one psum of
+    sum o l exp(m - M) and of sum l exp(m - M).  A rank without parts adds
+    nothing (`like`: a tensor of o's shape).  On one rank with the hot
+    page and the history this is the single-rank merge, bit for bit."""
+    if parts:
+        m_loc = parts[0][2]
+        for _, _, m_ in parts[1:]:
+            m_loc = torch.maximum(m_loc, m_)
+    else:
+        m_loc = torch.full(like.shape[:-1], L.NEG_BIG, device=like.device)
+    m_all = axis.pmax(m_loc)
+    num = den = None
+    for o, l_, m_ in parts:
+        w = l_ * torch.exp(m_ - m_all)
+        num = o * w[..., None] if num is None else num + o * w[..., None]
+        den = w if den is None else den + w
+    if num is None:
+        num, den = torch.zeros_like(like), torch.zeros_like(like[..., 0])
+    tot = axis.psum(torch.cat([num, den[..., None]], -1))
+    return tot[..., :-1] / tot[..., -1:]
+
+
+def _page_owner(page: int, plan: CachePlan) -> tuple:
+    """(the rank that holds history page `page` of bins, its local page)."""
+    per = plan.s_l // PAGE
+    return page // per, page % per
+
+
+def _rank_planes(qk: KVC.QuantizedKV, qv: KVC.QuantizedKV,
+                 plan: CachePlan, mesh) -> tuple:
+    """A layer's K and V planes over the rank's pages, whole in every other
+    dim: bins as held (its sequence block); eb2 and the outlier planes as
+    held where split by page, else gathered over "model" along the dim it
+    splits (the KV heads, or the outlier slots; one collective for the
+    six) and cut to the rank's pages.  overflow (B12 does not read it) as
+    held."""
+    per = plan.s_l // PAGE
+    p0 = plan.s0 // PAGE
+    names = ("eb2", "out_idx", "out_val")
+    planes = {(i, f): getattr(qkv, f) for i, qkv in enumerate((qk, qv))
+              for f in names}
+    split = [key for key in planes if plan.model[key[1]] not in (None, 2)]
+    if split:
+        whole = mesh.axis("model").all_gather_dims(
+            [planes[key] for key in split],
+            [plan.model[key[1]] for key in split])
+        planes.update(zip(split, whole))
+    for key in planes:
+        if plan.model[key[1]] != 2:
+            planes[key] = planes[key][:, :, p0:p0 + per]
+    return tuple(KVC.QuantizedKV(qkv.bins, *(planes[(i, f)] for f in names),
+                                 qkv.overflow)
+                 for i, qkv in enumerate((qk, qv)))
+
+
+def _quantize_hot(hot: torch.Tensor, kv_cfg: QuantizerConfig):
+    """A whole hot page [B, page, G, hd] quantized as one history page:
+    QuantizedKV with bins [B, G, page, hd] and one page of each plane."""
+    x = hot.permute(0, 2, 1, 3).to(torch.float32)          # [B, G, P, hd]
+    return KVC.quantize_kv(x, kv_cfg, page=PAGE, cap=CAP)
+
+
+def _close_page(qkv: KVC.QuantizedKV, hot: torch.Tensor, page: int,
+                plan: CachePlan, mesh, kv_cfg: QuantizerConfig) -> None:
+    """Quantize history page `page` from the hot page, whose slots are
+    gathered over "model" first (every rank takes part in the gather);
+    the ranks that hold a part of the page's planes quantize it and write
+    their parts: the page's owner, and every rank where a plane is split
+    in another dim than its pages (or not split)."""
+    ax = mesh.axis("model")
+    full = ax.all_gather_dim(hot, 1) if plan.model["hot"] == 1 else hot
+    owner, lp = _page_owner(page, plan)
+    others = [f for f in ("eb2", "out_idx", "out_val", "overflow")
+              if plan.model[f] != 2]
+    if owner != ax.rank and not others:
+        return
+    q = _quantize_hot(full, kv_cfg)
+    vals = {"eb2": q.eb2[..., 0], "out_idx": q.out_idx[:, :, 0],
+            "out_val": q.out_val[:, :, 0], "overflow": q.overflow[..., 0]}
+    if owner == ax.rank:
+        qkv.bins[:, :, lp * PAGE:(lp + 1) * PAGE] = q.bins
+    for f, v in vals.items():
+        t, md = getattr(qkv, f), plan.model[f]
+        if md == 2:
+            if owner == ax.rank:
+                t[:, :, lp] = v
+            continue
+        if md is not None:           # the rank's slice of v's dim md
+            n = t.shape[md]
+            v = v.narrow(md if md < 2 else md - 1, ax.rank * n, n)
+        t[:, :, page] = v
+
+
+def _attn_decode_tp(cfg: ArchConfig, p: dict, x, kv: tuple, pos: int,
+                    plan: CachePlan, lspec, mesh,
+                    kv_cfg: QuantizerConfig | None):
+    """One layer's attention on a rank of the layout (p after
+    `fsdp_gather`; lspec None for whole weights): kv is (kc, vc) [B, S_l,
+    G, hd] of a raw cache, or (qk, qv, hot_k, hot_v) of a quantized one,
+    written in place."""
+    b = x.shape[0]
+    hd = cfg.head_dim
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    # q of every head (the history is split by sequence, not by head)
+    qa, k, v = _project(cfg, p, x, positions, lspec, mesh, all_heads=True)
+    h0, hl = TT._heads(cfg, p, lspec, mesh)
+    ax = mesh.axis("model")
+    parts = []
+    if len(kv) == 2:                                       # raw
+        kc, vc = kv
+        if plan.s0 <= pos < plan.s0 + plan.s_l:
+            kc[:, pos - plan.s0] = k[:, 0].to(kc.dtype)
+            vc[:, pos - plan.s0] = v[:, 0].to(vc.dtype)
+        n = min(max(pos + 1 - plan.s0, 0), plan.s_l)
+        if n:
+            lengths = torch.full((b,), n, dtype=torch.int32, device=x.device)
+            parts.append(L.decode_attention(qa, kc, vc, lengths,
+                                            return_stats=True))
+    else:
+        qk, qv, hot_k, hot_v = kv
+        in_page = pos % PAGE
+        slot = in_page - plan.t0
+        if 0 <= slot < plan.page_l:
+            hot_k[:, slot] = k[:, 0].to(hot_k.dtype)
+            hot_v[:, slot] = v[:, 0].to(hot_v.dtype)
+        # every rank takes part in the planes' gathers, with history or not
+        planes = _rank_planes(qk, qv, plan, mesh)
+        hist = min(max(pos - in_page - plan.s0, 0), plan.s_l)
+        if hist:
+            parts.append(_attn_history(cfg, qa, *planes, hist))
+        # a hot page that "model" does not split is rank 0's part alone
+        n = min(max(in_page + 1 - plan.t0, 0), plan.page_l)
+        if n and (plan.model["hot"] == 1 or ax.rank == 0):
+            hot_len = torch.full((b,), n, dtype=torch.int32, device=x.device)
+            parts.append(_partial_attn(qa, hot_k, hot_v, hot_len))
+        if (pos + 1) % PAGE == 0:
+            for qkv, hot in ((qk, hot_k), (qv, hot_v)):
+                _close_page(qkv, hot, pos // PAGE, plan, mesh, kv_cfg)
+                hot.zero_()
+    like = torch.empty((b, qa.shape[2], hd), device=x.device)
+    o = merge_parts(parts, ax, like)[:, h0:h0 + hl]
+    o = o.reshape(b, 1, hl * hd).to(x.dtype)
+    return x + TT.attn_out(o, p["wo"], TT._entry(lspec, "wo", 0), mesh)
+
+
+def _serve_tp(cfg: ArchConfig, params: dict, cache: RankCache, tokens,
+              pos: int, mesh, kv_cfg: QuantizerConfig | None,
+              spec) -> torch.Tensor:
+    """`serve_step` over a rank's `RankCache`: with `spec` (the rank's
+    parameter blocks) the rank's "vocab" block of the logits, float32
+    [B_l, V_padded / model]; with whole weights (spec None) every
+    vocab's."""
+    _check_family(cfg)
+    plan = cache_plan(cfg, cache, mesh)
+    blk = cache.block
+    quant = isinstance(blk, QuantCache)
+    if quant and kv_cfg is None:
+        raise ValueError("a quantized cache needs kv_cfg")
+    if not 0 <= pos < plan.s:
+        raise ValueError(f"pos {pos} is outside the cache's {plan.s} tokens")
+    lspec = TT._layer_spec(None if spec is None else spec["layers"])
+    x = TT.embed(params, tokens, spec, mesh)
+    for i in range(cfg.n_layers):
+        lp = TT.fsdp_gather(_index(params["layers"], i), lspec, mesh)
+        if quant:
+            kv = (_qkv_layer(blk.k, i), _qkv_layer(blk.v, i),
+                  blk.hot_k[i], blk.hot_v[i])
+        else:
+            kv = (blk.k[i], blk.v[i])
+        x = _attn_decode_tp(cfg, lp, x, kv, pos, plan, lspec, mesh, kv_cfg)
+        x, _ = _ffn_block(cfg, lp, x, mesh, None, lspec)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return TT.logits(x, params, spec, mesh)[:, 0].to(torch.float32)
 
 
 # ------------------------------------------------- one position a row --
@@ -490,5 +824,4 @@ def serve_step_rows(cfg: ArchConfig, params: dict, cache: QuantCache,
                               cache.hot_v[i], st, kv_cfg, pages_per_split)
         x = _ffn_rows(cfg, lp, x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["emb"].T.to(DTYPE))[:, 0].to(torch.float32)
-    return logits, cache
+    return TT.logits(x, params)[:, 0].to(torch.float32), cache

@@ -17,27 +17,56 @@ chunks (the reference's `scan_grouped_remat(..., max_group=1)` over
 `chunked_scan`).  encdec and ssm have stacks of their own
 (`models.encdec`, `models.xlstm_stack`).
 
-With a `launch.mesh.Mesh` of the calling rank the MoE layers run expert
-parallel over its "model" axis (`moe.moe_ffn`); every other layer runs
-replicated on each rank, as the reference computes them (its tensor
-parallel and FSDP layouts are its compiler's partitioning, not code).
+With a `launch.mesh.Mesh` of the calling rank, `params` is one of two
+things (`rank_layout` tells which, and raises on anything else):
+
+  * the rank's blocks under `launch.mesh.param_shardings` (`param_blocks`;
+    the dense, vlm and MoE families): the reference's layout, run where
+    GSPMD puts its collectives.  Inside the layer loop each layer's
+    "embed" blocks are gathered over the data axes (FSDP), then dropped.
+    q comes from the rank's `wq` columns (whole heads); k and v from its
+    `wkv` block, gathered over "model" (a block can split a KV head: the
+    reference un-shards k and v at the same seam); `repeat_kv` then the
+    rank's heads, `flash_attention` over them, and `wo` row-parallel (the
+    rank's partial product in float32, a psum over "model", one rounding
+    to bfloat16).  The dense FFN is `w1` / `w3` column-parallel
+    and `w2` row-parallel; the MoE experts run expert parallel as below.
+    The embedding is the rank's "vocab" rows (`layers.vocab_embed`), and
+    the logits are the rank's "vocab" block.  A dim that its axes do not
+    divide is whole on every rank and runs so (no psum over it);
+  * whole weights, the experts whole or the rank's block over "model"
+    alone (the train step's layout): the MoE layers run expert parallel
+    over "model" (`moe.moe_ffn`), every other layer replicated on each
+    rank.  The hybrid runs only so (its Mamba layout waits).
+
+One implementation serves both: the sublayers take the layer's specs
+(`lspec`, None for whole weights), and a dim that no "model" axis of
+more than one rank splits runs the one-rank ops in the one-rank order.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import tree as T
 from ..configs.base import ArchConfig
+from ..launch import mesh as MESH
 from ..launch.mesh import data_axes
 from . import layers as L
 from . import mamba as M
 from .moe import moe_ffn
-from .params import ParamSpec
+from .params import ParamSpec, axes_tree
+from .params import tree_map as ptree_map
 
 DTYPE = torch.bfloat16
 
 
 OWN_STACK = {"encdec": "models.encdec", "ssm": "models.xlstm_stack"}
+# the families whose forward pass and decode step run the reference's
+# layout (`rank_layout`); the others run on whole weights
+LAYOUT_FAMILIES = ("dense", "vlm", "moe")
 
 
 def _check_decoder(cfg: ArchConfig, what: str) -> None:
@@ -146,42 +175,71 @@ def param_specs(cfg: ArchConfig) -> dict:
 
 
 def _project(cfg: ArchConfig, p: dict, x: torch.Tensor,
-             positions: torch.Tensor):
-    """The attention sublayer's projections: x [B, S, D] -> q [B, S, H,
+             positions: torch.Tensor, lspec=None, mesh=None,
+             all_heads: bool = False):
+    """The attention sublayer's projections: x [B, S, D] -> q [B, S, Hl,
     hd], k, v [B, S, G, hd] of rms_norm(x), q and k roped at `positions`
-    ([1, S], or [B, S] one row each)."""
+    ([1, S], or [B, S] one row each).  With whole weights (lspec None) Hl
+    is every head; on a rank of the layout (p the layer after
+    `fsdp_gather`) q is the rank's heads (`_heads`; with all_heads every
+    head's, gathered over "model" in one collective with k and v), and k,
+    v are gathered over "model" before the KV heads' seam."""
     b, s, _ = x.shape
-    h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g, hd = cfg.n_kv_heads, cfg.head_dim
     hx = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = (hx @ p["wq"]).reshape(b, s, h, hd)
-    kv = (hx @ p["wkv"]).reshape(b, s, 2, g, hd)
+    q = hx @ p["wq"]
+    kv = hx @ p["wkv"]
+    q_e, kv_e = _entry(lspec, "wq", 1), _entry(lspec, "wkv", 1)
+    if all_heads and _split(q_e, mesh) and _split(kv_e, mesh):
+        q, kv = MESH.gather_dims([q, kv], kv_e, mesh,
+                                 [q.dim() - 1, kv.dim() - 1])
+    else:
+        kv = _gather_kv(kv, kv_e, mesh)
+        if all_heads and _split(q_e, mesh):
+            q = MESH.gather_dim(q, q_e, mesh, q.dim() - 1)
+    q = q.reshape(b, s, -1, hd)
+    kv = kv.reshape(b, s, 2, g, hd)
     k, v = kv[:, :, 0], kv[:, :, 1]
     cos, sin = L.rope_tables(positions, hd if cfg.rope == "full" else hd // 2)
     return (L.apply_rope(q, cos, sin, cfg.rope),
             L.apply_rope(k, cos, sin, cfg.rope), v)
 
 
+def _heads(cfg: ArchConfig, p: dict, lspec=None, mesh=None) -> tuple:
+    """(h0, Hl): the heads of the rank's `wq` columns, h0 .. h0 + Hl - 1
+    (with whole weights every head)."""
+    hl = p["wq"].shape[-1] // cfg.head_dim
+    if _split(_entry(lspec, "wq", 1), mesh):
+        return mesh.axis("model").rank * hl, hl
+    return 0, hl
+
+
 def _attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
-               positions: torch.Tensor, *, causal: bool = True):
+               positions: torch.Tensor, lspec=None, mesh=None, *,
+               causal: bool = True):
     """The attention sublayer over a whole sequence, with its residual:
-    x [B, S, D] -> x + wo(flash_attention(rope(q), rope(k), v))."""
+    x [B, S, D] -> x + wo(flash_attention(rope(q), rope(k), v)), over the
+    rank's heads on a rank of the layout (`wo` row-parallel)."""
     b, s, _ = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
-    q, k, v = _project(cfg, p, x, positions)
-    k = L.repeat_kv(k, cfg.group_size)
-    v = L.repeat_kv(v, cfg.group_size)
+    q, k, v = _project(cfg, p, x, positions, lspec, mesh)
+    h0, hl = _heads(cfg, p, lspec, mesh)
+    k = rank_heads(k, cfg.group_size, h0, hl)
+    v = rank_heads(v, cfg.group_size, h0, hl)
     o = L.flash_attention(q, k, v, causal=causal)
-    return x + o.reshape(b, s, h * hd) @ p["wo"]
+    return x + attn_out(o.reshape(b, s, hl * cfg.head_dim), p["wo"],
+                        _entry(lspec, "wo", 0), mesh)
 
 
 def _ffn_block(cfg: ArchConfig, p: dict, x: torch.Tensor, mesh=None,
-               moe_data_axes=None):
+               moe_data_axes=None, lspec=None):
     """The FFN sublayer with its residual: (x + ffn(rms_norm(x)), aux),
     through the experts where the layer has a router (aux is their
     load-balance loss, a 0-d tensor; else the number 0.0, which launches
     nothing in the decode step); with a mesh, expert parallel, aux
     averaged over `moe_data_axes` (default: the mesh's data axes) and the
-    model axis."""
+    model axis.  On a rank of the layout (p after `fsdp_gather`) the
+    dense FFN is column- then row-parallel (a psum over "model" after
+    w2)."""
     hx = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if "router" in p:
         if moe_data_axes is None:
@@ -191,15 +249,21 @@ def _ffn_block(cfg: ArchConfig, p: dict, x: torch.Tensor, mesh=None,
                          data_axes=moe_data_axes, act=cfg.act,
                          n_experts=cfg.moe_experts)
         return x + y, aux
-    y = L.ffn(hx, p["w1"], p.get("w3"), p["w2"], cfg.act)
-    return x + y, 0.0
+    h = L.ffn_hidden(hx, p["w1"], p.get("w3"), cfg.act)
+    if _split(_entry(lspec, "w2", 0), mesh):
+        return x + L.row_parallel(h, p["w2"], mesh.axis("model")), 0.0
+    return x + h @ p["w2"], 0.0
 
 
 def _layer(cfg: ArchConfig, lp: dict, x: torch.Tensor,
-           positions: torch.Tensor, mesh=None, moe_data_axes=None):
-    """One decoder layer: (x after attention and FFN, its aux loss)."""
-    x = _attention(cfg, lp, x, positions)
-    return _ffn_block(cfg, lp, x, mesh, moe_data_axes)
+           positions: torch.Tensor, mesh=None, moe_data_axes=None,
+           lspec=None):
+    """One decoder layer: (x after attention and FFN, its aux loss); on a
+    rank of the layout its "embed" blocks gathered over the data axes
+    first, then dropped."""
+    lp = fsdp_gather(lp, lspec, mesh)
+    x = _attention(cfg, lp, x, positions, lspec, mesh)
+    return _ffn_block(cfg, lp, x, mesh, moe_data_axes, lspec)
 
 
 def _index(tree: dict, i: int) -> dict:
@@ -243,23 +307,194 @@ def _period(cfg: ArchConfig, pp: dict, x: torch.Tensor,
     return x, aux
 
 
+# ------------------------------------------------ the reference's layout --
+
+@functools.lru_cache(maxsize=None)
+def _shardings(cfg: ArchConfig, shape: tuple, names: tuple):
+    """(global shapes, specs, logical axes, axis sizes) of the parameter
+    tree of `cfg` under `param_shardings` on a mesh of `shape` and axis
+    `names` ({name: tuple} trees; stacked leaves keep their layer dim,
+    spec entry None).  A mesh without "data" (a ("model",) mesh) or
+    "model" has it at size 1."""
+    if not {"pod", "data"} & set(names):
+        shape, names = (1,) + tuple(shape), ("data",) + tuple(names)
+    if "model" not in names:
+        shape, names = tuple(shape) + (1,), tuple(names) + ("model",)
+    desc = MESH.Mesh(shape, names)
+    specs = param_specs(cfg)      # ParamSpecs carry the shapes: no tensor
+    axes = axes_tree(specs)
+    shard = MESH.param_shardings(desc, axes, specs)
+    return (ptree_map(lambda p: tuple(p.shape), specs),
+            T.tree_map(lambda s_: s_.spec, shard), axes, desc.sizes)
+
+
+def _is_shape(x) -> bool:
+    return isinstance(x, tuple)
+
+
+def _block(shape: tuple, spec: tuple, sizes: dict) -> tuple:
+    return tuple(n // MESH._axis_size(e, sizes) for n, e in zip(shape, spec))
+
+
+def rank_layout(cfg: ArchConfig, params: dict, mesh):
+    """The specs tree {name: spec tuple} when `params` are the rank's
+    blocks under `param_shardings` on `mesh` (the reference's layout, for
+    the LAYOUT_FAMILIES), None when there is no mesh or the weights are
+    whole but for the experts (any leaf with an "experts" axis), which
+    are whole or the rank's block over "model" alone, as `moe.moe_ffn`
+    takes them (the train step's layout).  On a mesh that splits no
+    weight the blocks are whole, and the whole-weight path runs.
+    Anything else raises: nothing gives way to whole weights."""
+    if mesh is None:
+        return None
+    shapes, specs, axes, sizes = _shardings(cfg, mesh.shape, mesh.axis_names)
+    got = {k: tuple(v.shape) for k, v in _flat(params).items()}
+    glob, spec, ax = (_flat(t, _is_shape) for t in (shapes, specs, axes))
+    if got.keys() != glob.keys():
+        raise ValueError(f"parameters {sorted(got)} are not {cfg.name}'s")
+    block = {k: _block(glob[k], spec[k], sizes) for k in glob}
+    if got == block and got != glob:
+        if cfg.family not in LAYOUT_FAMILIES:
+            raise NotImplementedError(
+                f"the {cfg.family} family runs on whole weights only: its "
+                "layout (the hybrid's Mamba blocks with \"mlp\" over "
+                "\"model\") waits for a later slice")
+        return specs
+    experts = {k: _block(glob[k], tuple(e if a == "experts" else None
+                                        for a, e in zip(ax[k], spec[k])),
+                         sizes)
+               for k in glob if "experts" in ax[k]}
+    if all(got[k] in (glob[k], experts.get(k, glob[k])) for k in glob):
+        return None
+    bad = sorted(k for k in glob
+                 if got[k] not in (glob[k], block[k], experts.get(k)))
+    raise ValueError(f"parameters neither whole nor the rank's blocks "
+                     f"under param_shardings on {mesh!r}: "
+                     f"{bad or sorted(got)}")
+
+
+def _flat(tree, is_leaf=torch.is_tensor, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict) and not is_leaf(v):
+            out.update(_flat(v, is_leaf, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _entry(lspec, name: str, dim: int):
+    """The spec entry of dim `dim` of weight `name` (None: whole
+    weights, lspec None)."""
+    return None if lspec is None else lspec[name][dim]
+
+
+def _is_data(entry) -> bool:
+    names = MESH._names(entry)
+    return bool(names) and all(a in ("pod", "data") for a in names)
+
+
+def _split(entry, mesh) -> bool:
+    """Whether a spec entry splits a dim over a "model" axis of more than
+    one rank (over one, every product and gather is the one-rank one)."""
+    return (mesh is not None and "model" in MESH._names(entry)
+            and mesh.sizes.get("model", 1) > 1)
+
+
+def fsdp_gather(lp: dict, lspec, mesh) -> dict:
+    """A layer's weights with their data-axis ("embed") blocks gathered
+    over the data axes, all in one collective an axis (the rest stays the
+    rank's block); whole weights (lspec None) as they are."""
+    if lspec is None:
+        return lp
+    keys, dims, entry = [], [], None
+    for k in lp:
+        for dim, e in enumerate(lspec[k]):
+            if _is_data(e):
+                keys.append(k)
+                dims.append(dim)
+                entry = e
+    if not keys:
+        return dict(lp)
+    whole = MESH.gather_dims([lp[k] for k in keys], entry, mesh, dims)
+    return {**lp, **dict(zip(keys, whole))}
+
+
+def _layer_spec(spec) -> dict | None:
+    """A stacked tree's specs without the layer dim."""
+    return None if spec is None else {k: v[1:] for k, v in spec.items()}
+
+
+def _gather_kv(kv: torch.Tensor, entry, mesh) -> torch.Tensor:
+    """The rank's `wkv` product columns made whole over "model": the KV
+    heads' seam is taken after this gather (a rank's block can split a
+    head)."""
+    return MESH.gather_dim(kv, entry, mesh, kv.dim() - 1) if _split(
+        entry, mesh) else kv
+
+
+def rank_heads(kv: torch.Tensor, group_size: int, h0: int, n: int):
+    """Heads h0 .. h0 + n - 1 of `repeat_kv(kv, group_size)` (kv [B, S, G,
+    hd]): repeat_kv over the KV heads they use, then those heads."""
+    g0 = h0 // group_size
+    g1 = (h0 + n - 1) // group_size + 1
+    r = L.repeat_kv(kv[:, :, g0:g1], group_size)
+    off = h0 - g0 * group_size
+    return r[:, :, off:off + n]
+
+
+def attn_out(o: torch.Tensor, wo: torch.Tensor, entry, mesh) -> torch.Tensor:
+    """The rank's heads' output o [..., Hl hd] through its `wo` rows: a
+    row-parallel product (psum over "model") where the heads are split."""
+    if _split(entry, mesh):
+        return L.row_parallel(o, wo, mesh.axis("model"))
+    return o @ wo
+
+
+def _emb(params: dict, spec, mesh) -> torch.Tensor:
+    """The embedding's rows (the rank's "vocab" block on the layout, its
+    "embed" dim gathered over the data axes)."""
+    return fsdp_gather({"emb": params["emb"]}, spec, mesh)["emb"]
+
+
+def embed(params: dict, tokens, spec=None, mesh=None) -> torch.Tensor:
+    """The embedding of `tokens`; on a rank of the layout (`spec`) its
+    "vocab" rows looked up by `layers.vocab_embed`."""
+    emb = _emb(params, spec, mesh)
+    if _split(_entry(spec, "emb", 0), mesh):
+        return L.vocab_embed(emb, tokens, mesh.axis("model")).to(DTYPE)
+    return emb[tokens].to(DTYPE)
+
+
+def logits(x: torch.Tensor, params: dict, spec=None, mesh=None):
+    """x [..., D] against the embedding: on a rank of the layout its
+    "vocab" block of the logits (the reference's seam)."""
+    return x @ _emb(params, spec, mesh).T.to(DTYPE)
+
+
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, mesh=None,
             remat: bool = True, moe_data_axes=None):
     """tokens: int [B, S] -> (logits bfloat16 [B, S, V_padded], aux float32
     []), the sum of the layers' load-balance losses.  `mesh`: the calling
-    rank's (MoE layers expert parallel; the tokens are the rank's);
-    `remat` checkpoints each layer (the hybrid: each period) while
-    autograd records; `moe_data_axes`: the axes the MoE aux is averaged
-    over besides the model axis (default: the mesh's data axes)."""
+    rank's (the tokens are the rank's; with the rank's parameter blocks
+    the reference's layout, and the logits the rank's "vocab" block [B,
+    S, V_padded / model]; with whole weights the MoE layers expert
+    parallel); `remat` checkpoints each layer (the hybrid: each period)
+    while autograd records; `moe_data_axes`: the axes the MoE aux is
+    averaged over besides the model axis (default: the mesh's data
+    axes)."""
     _check_decoder(cfg, "forward pass")
-    x = params["emb"][tokens].to(DTYPE)
+    spec = rank_layout(cfg, params, mesh)
+    x = embed(params, tokens, spec, mesh)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
     if cfg.family == "hybrid":
         stack, fn, n = params["periods"], _period, (
             cfg.n_layers // cfg.attn_period)
     else:
-        stack, fn, n = params["layers"], _layer, cfg.n_layers
+        stack, n = params["layers"], cfg.n_layers
+        fn = functools.partial(_layer, lspec=_layer_spec(
+            None if spec is None else spec["layers"]))
     for i in range(n):
         lp = _index(stack, i)
         if remat and torch.is_grad_enabled():
@@ -269,4 +504,4 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, mesh=None,
             x, a = fn(cfg, lp, x, positions, mesh, moe_data_axes)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["emb"].T.to(DTYPE), aux
+    return logits(x, params, spec, mesh), aux

@@ -85,7 +85,7 @@ def _norm(entry):
 
 
 def _port_leaves(tree, shardings) -> list:
-    return [[tuple(s.spec), DR.block_shape(t.shape, s)]
+    return [[tuple(s.spec), M.block_shape(t.shape, s)]
             for t, s in zip(T.leaves(tree), T.leaves(shardings))]
 
 
@@ -118,10 +118,10 @@ def test_layouts_equal_the_reference_on_every_cell(reference_dryrun_jobs,
             got = {}
             for key, q in (("cache", False), ("cache_kvq", True)):
                 ins = bundle.input_specs(shape, quantized_kv=q)
-                got[key] = _port_leaves(ins["cache"], DR.cache_layouts(
+                got[key] = _port_leaves(ins["cache"], M.cache_layouts(
                     desc, ins["cache"], shape.global_batch))
             got["batch"] = _port_leaves([ins["tokens"]], [
-                DR.greedy_sharding(desc, ins["tokens"].shape)])
+                M.greedy_sharding(desc, ins["tokens"].shape)])
         assert got == {k: _ref_leaves(v) for k, v in want.items()}, (
             arch, shape_name)
 
@@ -286,7 +286,15 @@ def test_whole_decode_cells_run_on_meta(tmp_path, arch):
                           force=True, hbm_bytes=80 * 2 ** 30)
         assert rec["status"] == "ok", rec.get("traceback")
         assert rec["n_devices"] == (256 if mesh == "single" else 512)
-        assert rec["peak_bytes"] >= rec["held_bytes"] > rec["layout_bytes"]
+        if arch == "olmoe-1b-7b":
+            # the MoE family decodes on the reference's layout: the rank
+            # holds its blocks of the params and of the cache
+            for k in ("params", "cache"):
+                assert rec["held_by"][k] == rec["layout_by"][k]
+            assert rec["peak_bytes"] >= rec["held_bytes"]
+        else:
+            assert (rec["peak_bytes"] >= rec["held_bytes"]
+                    > rec["layout_bytes"])
         assert rec["flops"] > 0 and rec["launches"] == {}
         assert (tmp_path / f"{mesh}.{arch}.decode_32k.json").exists()
     if arch == "olmoe-1b-7b":
@@ -296,6 +304,23 @@ def test_whole_decode_cells_run_on_meta(tmp_path, arch):
         assert rec["status"] == "ok", rec.get("traceback")
         assert rec["launches"] == {"B12": TR.get(arch).n_layers}
         assert rec["collective_bytes"]["all-reduce"] > 0
+
+
+@pytest.mark.parametrize("arch,shape,mesh,variant", [
+    ("olmoe-1b-7b", "train_4k", "multi", "gradcomp"),
+    ("jamba-1.5-large-398b", "decode_32k", "single", "baseline")])
+def test_cells_off_the_layout_run_on_meta(tmp_path, arch, shape, mesh,
+                                          variant):
+    """A cell whose rank holds whole weights but the experts' block over
+    "model" (MoE training; every hybrid cell) runs on a production mesh
+    whose data axes split the experts' "embed" dim under param_shardings
+    (the rank holds it whole): held params above the layout's, FLOPs
+    counted."""
+    rec = DR.run_cell(arch, shape, mesh, variant, results_dir=tmp_path,
+                      force=True)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["held_by"]["params"] > rec["layout_by"]["params"]
+    assert rec["flops"] > 0
 
 
 def test_a_stopped_cell_is_recorded_with_its_site(tmp_path, monkeypatch):
