@@ -239,6 +239,30 @@ must fold 6 reports with 0 violations; the raw checkpoint then goes
 through `runtime.elastic.resize` onto the card's (1, 1) mesh, every leaf
 and the step as saved.
 
+Between (a) and (b) the train phase runs tp (v), training on the
+reference's sharded layout (`tp_train`): the same model, batches and
+AdamW on a (2, 2) ("data", "model") mesh of 4 thread ranks, each on its
+views of the weights under `launch.mesh.param_shardings` and its blocks
+of AdamW's state (`launch.mesh.rank_state`), 3 steps of
+`launch.train.make_train_step` against one rank's: the loss every step
+within 1e-3 of |loss| of one rank's on the same weights (its own run's
+at step 1, its forward on the mesh's weights after), step 1's gradient
+joined from the blocks within 2e-2 of each leaf's max |g| of one rank's
+float32 gradient of the same weights, or no further from it than one
+rank's own bfloat16 gradient where that is further (emb: token 0 is 563
+of the 4,096 tokens), the global norm over the blocks within 1e-5 of
+the joined gradient's, step 1's new master joined from the blocks bit-equal to the
+whole update given the mesh's gradient and norm; the last step counted
+against rank 0's on meta (FLOPs of the 4 ranks, the peak within 15 %,
+and rank 0's collective bytes equal to a count from the layout's
+shapes).  Then the compressed step on a (2, 2, 2) ("pod", "data",
+"model") mesh of 8 thread ranks (FSDP over "data" inside each pod, the
+pods sharing one state), `grad-wire-8` for 2 steps and
+`grad-wire-16-narrow` for 1, grad-wire-8's second step and
+grad-wire-16-narrow's held block by block as in (a) with each pod's
+bound against its whole leaf's, `plain_calls` 0 every step; B8, B6, B7
+and B2 on a block's input in the kernel rows ("train on the layout").
+
 A `sweep` phase (after `dense`) checks the paper's §6 claim on the
 card: all 2^32 float32 bit patterns, 2^28 at a time made on the card
 (arange in int64, cast to int32, viewed as float32), through
@@ -627,13 +651,15 @@ def meta_count(fn, held: dict, recorder=None) -> dict:
 
 
 def meta_vs_card(label: str, meta: dict, launches_: dict, flops: int,
-                 peak: int, pods: int = 1) -> dict:
+                 peak: int, pods: int = 1, ranks: int = 1) -> dict:
     """Hold the card's count of one step against the meta count: launches
     (a pod's) and FLOPs (pod 0's) equal; the peak within META_PEAK_TOL.
     With pods (threads on one card sharing the state) the prediction is
-    the held bytes plus every pod's transient (the meta peak's excess)."""
-    want_peak = meta["held_bytes"] + pods * (meta["peak_bytes"]
-                                             - meta["held_bytes"])
+    the held bytes plus every pod's transient (the meta peak's excess);
+    with `ranks` (thread ranks of a mesh, each holding its own blocks of
+    the same shapes as rank 0's) that many times rank 0's peak."""
+    want_peak = ranks * (meta["held_bytes"] + pods * (
+        meta["peak_bytes"] - meta["held_bytes"]))
     gap = (peak - want_peak) / peak
     out = {"meta": meta, "card": {
         "launches": launches_, "flops": flops, "max_memory_allocated": peak,
@@ -5100,13 +5126,541 @@ def train_loop_check(seed: int) -> dict:
     return out
 
 
+# -------------------------------- tp (v): training on the sharded layout --
+#
+# The train phase's internlm2-20b cut (2 of its 48 layers at full width, 8
+# x 512 tokens a step from its TokenPipeline, TRAIN_OPT) on the
+# reference's train and gradcomp layouts (src/repro/launch/dryrun.py:
+# 95-181): FSDP over the data axes, heads / mlp / vocab over "model",
+# AdamW's mu, nu and master the params' blocks; the gradcomp cell with
+# "pod" dropped (FSDP over "data" inside each pod, the pods' replicas).
+TP_TRAIN_STEPS = 3
+TP_TRAIN_WIRES = (("grad-wire-8", 2), ("grad-wire-16-narrow", 1))
+# the steps held block by block: grad-wire-8's second (error feedback
+# carried) and grad-wire-16-narrow's
+TP_TRAIN_HELD = (("grad-wire-8", 2), ("grad-wire-16-narrow", 1))
+TP_TRAIN_MESH = ((2, 2), ("data", "model"))
+TP_GRADCOMP_MESH = ((2, 2, 2), ("pod", "data", "model"))
+TP_TRAIN_LOSS_TOL = 1e-3       # of |loss|
+TP_TRAIN_GRAD_TOL = 2e-2       # of each leaf's max |g|: moe (g)'s EP limit
+TP_TRAIN_NORM_TOL = 1e-5       # relative
+TP_LOCAL = threading.local()   # the thread rank's coordinates and mesh
+
+
+def f32_ulps(a: float, b: float) -> int:
+    """|a - b| in float32 ulps (both finite, one sign)."""
+    ia, ib = (int(np.array(x, np.float32).view(np.int32)) for x in (a, b))
+    return abs(ia - ib)
+
+
+def f32_sum_adds(n: int) -> int:
+    """The adds that one value passes through in `codec.f32_sum` over n
+    values (each window of 32 folds in 31 adds, then the last fold): a
+    float32 sum of n non-negative values is within that many units of
+    2^-24 of the exact sum, relative."""
+    adds = 0
+    while n > 32:
+        adds += 31
+        n = -(-n // 32)
+    return adds + n - 1
+
+
+def eb_ulps_bound(n: int, n_block: int, ranks: int) -> int:
+    """How far in float32 ulps a block's bound eb_rel * sqrt(ss / n) may
+    lie from the whole leaf's: ss the whole leaf's sum of squares in one
+    order (`f32_sum` over n) or the blocks' sums (over n_block each)
+    psummed over `ranks` ranks; each within its adds of the exact sum,
+    halved by the square root, doubled into ulps, plus a rounding each
+    of the mean, the root and the product."""
+    return f32_sum_adds(n) + f32_sum_adds(n_block) + ranks - 1 + 4
+
+
+def tp_train_rows(m, batch: dict) -> dict:
+    """The rows of the rank's "data" block of a batch (a gradcomp pod then
+    takes its half of them, as the dry-run's cell gives them)."""
+    n, i = m.sizes["data"], m.coords()["data"]
+    per = next(iter(batch.values())).shape[0] // n
+    return {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def tp_applied(keep: dict):
+    """Wrap `optimizer.apply` for the block: each thread rank's gradient
+    blocks and the norm it clips by, as given, kept in `keep` under the
+    rank's coordinates (`TP_LOCAL.key`)."""
+    from repro_torch.optim import optimizer as O
+    real = O.apply
+
+    def apply(params, grads, state, cfg, **kw):
+        keep[TP_LOCAL.key] = (grads, kw.get("norm"))
+        return real(params, grads, state, cfg, **kw)
+
+    O.apply = apply
+    try:
+        yield keep
+    finally:
+        O.apply = real
+
+
+def tp_train_hand_count(cfg, b: int, s: int, nd: int, nm: int) -> dict:
+    """Rank 0's collective bytes of the full-precision step on the (nd,
+    nm) layout of a dense config (no remat; b rows of s tokens a rank), by
+    kind, from the layout's shapes as `MetaAxis` records them (an
+    all-reduce at its payload, any other kind at its result): each FSDP
+    block gathered over "data" where it is used and reduce-scattered in
+    the backward (the embedding twice: its lookup and the logits), the KV
+    product gathered over "model" and reduce-scattered back, the psums of
+    `wo` and `w2` (float32), the vocab lookup (bfloat16) and the CE's sum
+    and label logit, each forward and backward, the CE's pmax, the
+    replicated leaves' sums over "data" and "model" (the norms), the
+    metrics' mean and the global norm's psums."""
+    d, h, hd, g, f = (cfg.d_model, cfg.n_heads, cfg.head_dim,
+                      cfg.n_kv_heads, cfg.d_ff)
+    v, n_l, bf, f4 = cfg.padded_vocab, cfg.n_layers, 2, 4
+    tok = b * s
+    emb = v // nm * d * bf
+    layer = [d * h * hd // nm, d * 2 * g * hd // nm, h * hd // nm * d,
+             d * f // nm, d * f // nm, f // nm * d]
+    gathered = sum(layer) * bf
+    kv = tok * 2 * g * hd * bf
+    ag = 2 * emb + n_l * (gathered + kv)
+    rs = 2 * emb // nd + n_l * (gathered // nd + kv // nm)
+    ar = (2 * tok * d * bf + n_l * 4 * tok * d * f4 + 5 * tok * f4
+          + 2 * (d + 2 * n_l * d) * f4 + 3 * f4 + 2 * 7 * f4)
+    return {"all-gather": ag, "all-reduce": ar, "reduce-scatter": rs}
+
+
+def tp_train_meta(bundle, ocfg) -> dict:
+    """Rank 0's full-precision step of the (2, 2) layout counted on meta
+    (`launch.dryrun`'s path: its blocks, MetaAxis axes), without remat as
+    the thread ranks run it."""
+    from repro_torch.launch import cost
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as TL
+    from repro_torch.optim import optimizer as O
+    rec = cost.Recorder()
+    rmesh = DR.rank_mesh(M.Mesh(*TP_TRAIN_MESH), rec)
+    with torch.device("meta"):
+        mp = M.param_blocks(bundle.abstract_params(), rmesh, bundle.axes())
+        mo = O.init(mp, ocfg)
+        rows = TRAIN_BATCH // rmesh.sizes["data"]
+        mb = {k: torch.empty((rows, TRAIN_SEQ), dtype=torch.int32)
+              for k in ("tokens", "labels")}
+    step = TL.make_train_step(bundle, rmesh, ocfg, donate=True, remat=False)
+    return meta_count(lambda: step((mp, mo), mb),
+                      {"params": mp, "opt": mo, "batch": mb}, rec)
+
+
+def tp_train_one(bundle, fresh, batches, ocfg) -> dict:
+    """The one-rank full-precision steps (`make_train_step`, donating)
+    from fresh weights: each step's loss, grad norm and ms, and step 1's
+    gradient on the host, in bfloat16 and of the same weights in float32
+    (the model's activations too: `float32_stack`)."""
+    from repro_torch import tree as T
+    from repro_torch.launch import train as TL
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import optimizer as O
+    params = T.tree_map(lambda t: t.float(), fresh())
+    with float32_stack(TT):
+        _, g = TL.value_and_grad(bundle, params, batches[0])
+    g32 = T.tree_map(lambda t: t.cpu(), g)
+    del g, params
+    params = fresh()
+    state = (params, O.init(params, ocfg))
+    _, g = TL.value_and_grad(bundle, params, batches[0])
+    g1 = T.tree_map(lambda t: t.cpu(), g)
+    del g
+    step = TL.make_train_step(bundle, None, ocfg, donate=True)
+    out = {"loss": [], "grad_norm": [], "ms": [], "grad1": g1,
+           "grad1_f32": g32}
+    for i in range(TP_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, met = step(state, batches[i])
+        out["loss"].append(float(met["loss"]))
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["grad_norm"].append(float(met["grad_norm"]))
+    del state, params, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_mesh(bundle, fresh, batches, ocfg, one: dict) -> dict:
+    """TP_TRAIN_STEPS full-precision steps on the (2, 2) mesh of thread
+    ranks, each rank on its views of the weights and its blocks of
+    AdamW's state (`launch.mesh.rank_state`: views of the blocks that are
+    its alone, copies of the norms): each step's loss and one rank's on
+    the same weights, step 1's gradient joined from the blocks against
+    one rank's (float32 and bfloat16), the global norm against the
+    joined gradient's, and step 1's new master joined from the blocks
+    bit-equal to the whole update run with the mesh's gradient and norm;
+    the last step counted (FLOPs per thread, the peak) against rank 0's
+    on meta."""
+    from repro_torch import tree as T
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as TL
+    from repro_torch.optim import optimizer as O
+    meta = tp_train_meta(bundle, ocfg)
+    params = fresh()
+    ost = O.init(params, ocfg)
+    desc = M.Mesh(*TP_TRAIN_MESH)
+    shard = M.param_shardings(desc, bundle.axes(), params)
+    oshard = O.OptState(M.replicated(desc), shard, shard, shard)
+    coords = M.mesh_coords(desc)
+    states = {tuple(c.values()): (M.rank_state(params, shard, c),
+                                  M.rank_state(ost, oshard, c))
+              for c in coords}
+    flops = {}
+
+    def run(i, count=False):
+        def rank(m):
+            TP_LOCAL.key = tuple(m.coords().values())
+            step = TL.make_train_step(bundle, m, ocfg, donate=True)
+            rows = tp_train_rows(m, batches[i])
+            if not count:
+                return step(states[TP_LOCAL.key], rows)[1]
+            with FlopCounterMode(display=False) as fc:
+                met = step(states[TP_LOCAL.key], rows)[1]
+            flops[TP_LOCAL.key] = fc.get_total_flops()
+            return met
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mets = M.run_mesh_threads(*TP_TRAIN_MESH, rank)
+        torch.cuda.synchronize()
+        return mets, (time.perf_counter() - t0) * 1e3
+
+    keep = {}
+    with tp_applied(keep):
+        mets, ms1 = run(0)
+    losses, norms, ms = [[float(m["loss"]) for m in mets]], [
+        [float(m["grad_norm"]) for m in mets]], [ms1]
+    # step 1's gradient joined on the host, and the master check leaf by
+    # leaf: the whole update of one leaf from the fresh weights, given
+    # the mesh's gradient and norm
+    keys = [tuple(c.values()) for c in coords]
+    grad = M.assemble([T.tree_map(lambda t: t.cpu(), keep[k][0])
+                       for k in keys], shard, coords)
+    norm = keep[keys[0]][1]
+    del keep
+    whole_norm = float(O.global_norm(T.tree_map(lambda t: t.to(DEV), grad)))
+    master = M.assemble([T.tree_map(lambda t: t.cpu(), states[k][1].master)
+                         for k in keys], shard, coords)
+    p0 = fresh()
+    master_equal = True
+    for p, g, w in zip(T.leaves(p0), T.leaves(grad), T.leaves(master)):
+        one_leaf = {"x": p}
+        _, s1, _ = O.apply(one_leaf, {"x": g.to(DEV)},
+                           O.init(one_leaf, ocfg), ocfg, norm=norm)
+        master_equal &= planes_equal(s1.master["x"].cpu(), w)
+        del s1
+    del p0, master
+
+    def leaf_gaps(got, want):
+        return [float((a.float() - b.float()).abs().max()
+                      / b.float().abs().max())
+                for a, b in zip(T.leaves(got), T.leaves(want))]
+
+    gaps = {"mesh_vs_one_f32": leaf_gaps(grad, one["grad1_f32"]),
+            "mesh_vs_one_bf16": leaf_gaps(grad, one["grad1"]),
+            "one_bf16_vs_one_f32": leaf_gaps(one["grad1"], one["grad1_f32"])}
+    del grad
+
+    def same_weights_loss(i):
+        # one rank's loss of batch i on the mesh's weights (joined)
+        cur = M.assemble([states[k][0] for k in keys], shard, coords)
+        with torch.no_grad():
+            out = float(bundle.loss(cur, batches[i], remat=False)[0])
+        del cur
+        return out
+
+    same = [one["loss"][0]]
+    for i in range(1, TP_TRAIN_STEPS):
+        same.append(same_weights_loss(i))
+        count = i == TP_TRAIN_STEPS - 1
+        if count:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            DR._reset_launches()
+        mets, t = run(i, count=count)
+        losses.append([float(m["loss"]) for m in mets])
+        norms.append([float(m["grad_norm"]) for m in mets])
+        ms.append(t)
+    peak = torch.cuda.max_memory_allocated()
+    n = len(coords)
+    vs_meta = meta_vs_card(
+        "tp (v) train", dict(meta, flops=n * meta["flops"]),
+        DR.launches_by_b(launches()), sum(flops.values()), peak, ranks=n)
+    want = tp_train_hand_count(bundle.cfg, TRAIN_BATCH // 2, TRAIN_SEQ, 2, 2)
+    check(meta["collective_bytes"] == want,
+          f"tp (v): rank 0's collective bytes on meta "
+          f"{meta['collective_bytes']}, the layout's count {want}")
+    del states, params, ost
+    torch.cuda.empty_cache()
+    return {"loss": losses, "one_rank_loss_same_weights": same,
+            "grad_norm": norms, "ms": ms, "grad_gaps": gaps,
+            "whole_norm_of_mesh_grad": whole_norm,
+            "master_bit_equal": master_equal, "meta_vs_card": vs_meta,
+            "collective_bytes_meta": meta["collective_bytes"],
+            "collective_bytes_hand_count": want, "peak_device_GB": peak / 1e9}
+
+
+@contextlib.contextmanager
+def tp_held_blocks(label: str, names: list, shard, facts: dict,
+               plain: dict, keep: dict):
+    """Wrap compress_shard and compressed_mean for the block on the (2, 2,
+    2) mesh's 8 thread ranks: as the ranks finish each leaf, the rank at
+    (0, 0, 0) holds every block's pair of pods by `grad_check_leaf` (each
+    pod's mean bit-equal to the plain decode-and-sum of the wires the
+    pods sent, each residual within eb), and each pod's bound within
+    `eb_ulps_bound` of the bound `compress_shard` gives its whole leaf
+    (the blocks' inputs joined: the sum of squares in one order), while
+    the others wait.  The checks' own plain decodes are taken out of the
+    `plain_calls` count.  Pod 0's input of rank (0, 0)'s block of each leaf named in
+    `keep` is kept (float32)."""
+    from repro_torch.compression import grads as G
+    from repro_torch.core import codec as C
+    from repro_torch.launch import mesh as M
+    real_cs, real_cm = G.compress_shard, G.compressed_mean
+    slots = {}
+    pod_coords = M.mesh_coords(M.Mesh(*TP_TRAIN_MESH))
+
+    def barrier():
+        # a psum over each axis in turn waits for every rank of the mesh,
+        # and a rank that fails releases the others (`run_mesh_threads`)
+        for a in TP_GRADCOMP_MESH[1]:
+            TP_LOCAL.mesh.axis(a).psum(torch.zeros((), device=DEV))
+
+    def cs(*a, **kw):
+        out = real_cs(*a, **kw)
+        TP_LOCAL.shard = out[0]
+        return out
+
+    def cm(g, cfg, axis, **kw):
+        mean, resid = real_cm(g, cfg, axis, **kw)
+        i = getattr(TP_LOCAL, "i", 0)
+        TP_LOCAL.i = i + 1
+        slots[TP_LOCAL.key] = (g, TP_LOCAL.shard, mean, resid)
+        barrier()
+        if TP_LOCAL.key == (0, 0, 0):
+            counted = plain["calls"]
+            name, s = names[i], shard[i]
+            for c in pod_coords:
+                d, m = c["data"], c["model"]
+                ins, shards, means, resids = zip(
+                    *(slots[(p, d, m)] for p in range(2)))
+                grad_check_leaf(label, f"{name} block {d}, {m}", ins,
+                                shards, means, resids, facts)
+            for p in range(2):
+                whole = M.assemble(
+                    [{"g": slots[(p, c["data"], c["model"])][0]}
+                     for c in pod_coords], {"g": s}, pod_coords)["g"]
+                # compress_shard's bound on the whole leaf
+                flat = whole.reshape(-1).float()
+                inv_n = float(np.float32(1) / np.float32(flat.numel()))
+                f32 = dict(dtype=torch.float32, device=flat.device)
+                eb = float(torch.full((), cfg.eb_rel, **f32) * torch.sqrt(
+                    C.f32_sum(flat * flat) * torch.full((), inv_n, **f32)))
+                got = float(slots[(p, 0, 0)][1].enc.eb)
+                u = f32_ulps(got, eb)
+                lim = eb_ulps_bound(flat.numel(), slots[(p, 0, 0)][0]
+                                    .numel(), len(pod_coords))
+                facts["eb_ulps"] = max(facts.get("eb_ulps", 0), u)
+                facts["eb_ulps_bound"] = max(
+                    facts.get("eb_ulps_bound", 0), lim)
+                check(u <= lim, f"{label}: pod {p}'s bound of {name} is "
+                                f"{u} ulps from its whole leaf's "
+                                f"(bound {lim})")
+                del whole, flat
+            if name in keep:
+                keep[name] = slots[(0, 0, 0)][0].float()
+            plain["calls"] = counted
+        barrier()
+        return mean, resid
+
+    G.compress_shard, G.compressed_mean = cs, cm
+    try:
+        yield
+    finally:
+        G.compress_shard, G.compressed_mean = real_cs, real_cm
+
+
+def tp_train_gradcomp(bundle, fresh, batches, ocfg) -> tuple:
+    """The compressed step on the (2, 2, 2) ("pod", "data", "model") mesh
+    of 8 thread ranks: each pod's ranks on their blocks under
+    `param_shardings` of the pod's (2, 2) mesh ("pod" dropped), the two
+    pods sharing one state (`shared_state`: pod 0's ranks update it,
+    pod 1's wait), each (data, model) rank its own blocks and its blocks'
+    pod-stacked residuals; TP_TRAIN_WIRES' steps with error feedback,
+    TP_TRAIN_HELD's held (`tp_held_blocks`), every step with `plain_calls`
+    0 and a finite loss.
+    Returns (the lines, the launch counts, launches a step, w1's block
+    input)."""
+    from repro_torch import tree as T
+    from repro_torch.compression import grads as G
+    from repro_torch.configs.registry import get_pipeline
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as TL
+    from repro_torch.optim import optimizer as O
+    pod_desc = M.Mesh(*TP_TRAIN_MESH)
+    counts, steps, lines, keep = {}, 0, {}, {"layers/w1": None}
+    for spec, n_steps in TP_TRAIN_WIRES:
+        gcfg = G.GradCompressionConfig(eb_rel=GRAD_EB_REL,
+                                       pipeline=get_pipeline(spec))
+        params = fresh()
+        ost = O.init(params, ocfg)
+        shard = M.param_shardings(pod_desc, bundle.axes(), params)
+        oshard = O.OptState(M.replicated(pod_desc), shard, shard, shard)
+        states = {}
+        for c in M.mesh_coords(pod_desc):
+            p = M.rank_state(params, shard, c)
+            states[tuple(c.values())] = (p, M.rank_state(ost, oshard, c),
+                                         TL.init_residuals(p, 2))
+        names, flat_shard = leaf_names(params), T.leaves(shard)
+        losses, ms, facts_all = [], [], []
+        for i in range(n_steps):
+            facts = grad_facts()
+
+            def rank(m):
+                c = m.coords()
+                TP_LOCAL.key, TP_LOCAL.i = tuple(c.values()), 0
+                TP_LOCAL.mesh = m
+                step = TL.make_train_step_compressed(
+                    bundle, m, ocfg, gcfg, donate=True, shared_state=True)
+                st = states[(c["data"], c["model"])]
+                return step(st, tp_train_rows(m, batches[i]),
+                            m.axis("pod"))[1]
+
+            torch.cuda.synchronize()
+            reset_launches()
+            hold = (spec, i + 1) in TP_TRAIN_HELD
+            with plain_calls() as plain, (tp_held_blocks(
+                    f"tp (v) {spec} step {i + 1}", names, flat_shard, facts,
+                    plain, keep) if hold else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                mets = M.run_mesh_threads(*TP_GRADCOMP_MESH, rank)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            for k, v in launches().items():
+                counts[k] = counts.get(k, 0) + v
+            check(plain["calls"] == 0, f"tp (v) {spec}: the card's path "
+                                       "called a plain quantizer or codec")
+            loss = float(mets[0]["loss"])
+            check(np.isfinite(loss), f"tp (v) {spec}: loss {loss} at step "
+                                     f"{i + 1}")
+            losses.append(loss)
+            if hold:
+                facts_all.append(facts)
+            steps += 1
+        lines[spec] = {
+            "steps": n_steps, "loss": losses, "step_ms": ms,
+            "held_steps": [i for w, i in TP_TRAIN_HELD if w == spec],
+            "branches": sorted({b for f in facts_all
+                                for b in f["branch"].values()}),
+            "bytes_moved_per_step": [f["bytes_moved"] for f in facts_all],
+            "f32_allreduce_bytes_per_step": facts_all[-1]["f32_bytes"],
+            "max_resid_over_eb": max(f["max_resid_over_eb"]
+                                     for f in facts_all),
+            "eb_ulps_max": max(f.get("eb_ulps", 0) for f in facts_all),
+            "eb_ulps_bound": max(f.get("eb_ulps_bound", 0)
+                                 for f in facts_all),
+            "plain_calls": 0}
+        del states, params, ost
+        torch.cuda.empty_cache()
+    per_step = {k: v / steps for k, v in counts.items()}
+    return lines, counts, per_step, keep["layers/w1"]
+
+
+def tp_train(bundle, fresh, batches) -> list:
+    """tp (v): training on the reference's sharded layout, the train
+    phase's model and batches.  Prints its line; returns the kernel rows
+    of B8, B6, B7 and B2 under the caller "train on the layout"."""
+    from repro_torch.optim import optimizer as O
+    t0 = time.time()
+    ocfg = O.AdamWConfig(**TRAIN_OPT)
+    one = tp_train_one(bundle, fresh, batches, ocfg)
+    mesh = tp_train_mesh(bundle, fresh, batches, ocfg, one)
+    # each step's loss against one rank's on the same weights: step 1's
+    # one rank's own run, the later ones one rank's forward on the mesh's
+    # weights (the two runs' bfloat16 gradients part their trajectories;
+    # their gap is reported)
+    for i, (want, got) in enumerate(zip(mesh["one_rank_loss_same_weights"],
+                                        mesh["loss"])):
+        check(all(np.isfinite(x) for x in got),
+              f"tp (v): a loss {got} at step {i + 1}")
+        check(all(abs(x - want) <= TP_TRAIN_LOSS_TOL * abs(want)
+                  for x in got),
+              f"tp (v): the mesh's loss {got} at step {i + 1}, one rank's "
+              f"on the same weights {want}")
+    trajectory_gap = [abs(m[0] - o) / abs(o)
+                      for m, o in zip(mesh["loss"], one["loss"])]
+    # the norm over the ranks' blocks against the whole tree's norm of
+    # the same gradient (joined); one rank's own gradient differs from it
+    # by the bfloat16 products' order, which the gradient check bounds
+    whole = mesh["whole_norm_of_mesh_grad"]
+    norm_gap = max(abs(x - whole) for x in mesh["grad_norm"][0]) / whole
+    check(norm_gap <= TP_TRAIN_NORM_TOL,
+          f"tp (v): the global norm {mesh['grad_norm'][0]} over the blocks "
+          f"against {whole}, the whole tree's of the same gradient")
+    one_gap = abs(mesh["grad_norm"][0][0] - one["grad_norm"][0]) / abs(
+        one["grad_norm"][0])
+    # against one rank's gradient of the same weights in float32, each
+    # leaf within TP_TRAIN_GRAD_TOL or, where one rank's own bfloat16
+    # gradient lies further from it, no further than that (the witness:
+    # a token repeated hundreds of times sums its embedding row's
+    # bfloat16 gradient in the lookup's scatter)
+    gaps = mesh["grad_gaps"]
+    lims = [max(TP_TRAIN_GRAD_TOL, w) for w in gaps["one_bf16_vs_one_f32"]]
+    bad = [(n, x, lim) for n, x, lim in zip(
+        leaf_names(bundle.abstract_params()), gaps["mesh_vs_one_f32"], lims)
+        if x > lim]
+    check(not bad, f"tp (v): step 1's gradient of one rank's (float32): "
+                   f"(leaf, gap of max |g|, limit) {bad}")
+    check(mesh["master_bit_equal"], "tp (v): step 1's master joined from "
+          "the blocks differs from the whole update on the mesh's gradient")
+    wires, counts, per_step, w1 = tp_train_gradcomp(bundle, fresh, batches,
+                                                     ocfg)
+    rows = grad_kernel_rows(w1, counts, per_step, names=TRAIN_ROWS,
+                            chain="train on the layout")
+    del w1
+    counts_tok = torch.bincount(batches[0]["tokens"].reshape(-1).long())
+    top = counts_tok.argmax()
+    line = {"phase": "tp", "part": "(v) training on the layout",
+            "model": TRAIN_ARCH, "layers": f"{TRAIN_LAYERS} of 48",
+            "n_params": bundle.n_params(), "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "mesh": dict(zip(*TP_TRAIN_MESH[::-1])),
+            "gradcomp_mesh": dict(zip(*TP_GRADCOMP_MESH[::-1])),
+            "ranks": "threads on one card",
+            "one_rank": {k: v for k, v in one.items()
+                         if k not in ("grad1", "grad1_f32")},
+            "leaves": leaf_names(bundle.abstract_params()),
+            "full_precision": {k: v for k, v in mesh.items()},
+            "loss_tol": TP_TRAIN_LOSS_TOL, "grad_tol": TP_TRAIN_GRAD_TOL,
+            "norm_gap": norm_gap, "norm_tol": TP_TRAIN_NORM_TOL,
+            "norm_gap_to_one_rank": one_gap,
+            "loss_gap_to_one_rank_run": trajectory_gap,
+            "compressed": wires, "eb_rel": GRAD_EB_REL,
+            # (token, count) of step 1's most frequent token: its emb row
+            # sums that many bfloat16 gradients in the lookup's scatter
+            "top_token_step1": [int(top), int(counts_tok[top])],
+            "launches": counts, "seconds": time.time() - t0}
+    print(json.dumps(line), flush=True)
+    print(f"chip_smoke: phase tp (v) {time.time() - t0:.1f} s",
+          file=sys.stderr, flush=True)
+    return rows
+
+
 def train_phase(seed: int) -> list:
     """(a) internlm2-20b at full width on TRAIN_LAYERS layers: the
     full-precision step, then the compressed step for each of
     TRAIN_WIRES, every run from the same weights and batches; the lossy
-    coder on layer 0's wq master; (b) the loop and the checkpoint on the
-    reduced configuration.  Returns the kernel rows of B8, B6, B7 and B2
-    on the train path's w1 gradient."""
+    coder on layer 0's wq master; then tp (v), the same model and batches
+    on the reference's sharded layout (`tp_train`); (b) the loop and the
+    checkpoint on the reduced configuration.  Returns the kernel rows of
+    B8, B6, B7 and B2 on the train path's w1 gradient and on the
+    layout's w1 block."""
     import dataclasses
     from repro_torch.configs.registry import get
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
@@ -5144,6 +5698,7 @@ def train_phase(seed: int) -> list:
     rows = grad_kernel_rows(keep["layers/w1"], counts, per_step,
                             names=TRAIN_ROWS, chain="train")
     del keep
+    rows += tp_train(bundle, fresh, batches)
     loop = train_loop_check(seed)
     print(json.dumps({"phase": "train", "config": "loop",
                       "model": f"{TRAIN_ARCH} (reduced)", **loop,

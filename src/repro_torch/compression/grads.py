@@ -17,6 +17,10 @@ sum, bit-identical either way).
     per tensor (the reference's `lax.cond`), sends that tensor to the
     lossless `psum` for the step and its residual is 0.
 
+On the sharded layout each rank compresses its block of a leaf under
+the whole leaf's bound (its rms psummed over the axes that split the
+leaf, `split=`) and the pods average block by block.
+
 The functions run per rank with an axis object (`core.axis`): under
 `core.axis.run_threads` p ranks share one card; under `DistAxis` each
 rank is a process.  Entry points run on the card unless the caller passes
@@ -157,21 +161,35 @@ class CompressedShard:
 
 
 def compress_shard(g, cfg: GradCompressionConfig, *, integrity: bool = False,
-                   device="cuda"):
+                   device="cuda", split=()):
     """One pod-local gradient through the pipeline on `device`.  Returns
     (CompressedShard, Quantized): the second holds the local outlier and
     recon planes for the residual; only the shard goes on the wire.  The
     bound eb_rel * rms(g) stays on the device (rms sums in the
     reference's order, `codec.f32_sum`).  `integrity=True` attaches the
-    wire checksum."""
+    wire checksum.
+
+    `split`: where g is a rank's block of the pod's gradient leaf, the
+    `core.axis` axes that split the leaf.  The bound is then the whole
+    leaf's, as the reference computes it inside its pod: the block's
+    float32 sum of squares psummed over them, over the leaf's count; each
+    rank encodes its block under it."""
     pipe = cfg.pipe()
+    if split and SEL.is_auto_spec(cfg.pipeline):
+        raise NotImplementedError(
+            "'auto' picks its chain from the whole leaf's statistics; on a "
+            "rank's block of the sharded layout it would pick from the "
+            "block's: not supported on the layout yet")
     dev = resolve_device(device)
     flat = torch.as_tensor(g).to(dev).reshape(-1).to(torch.float32)
-    n = flat.shape[0]
+    n = total = flat.shape[0]
+    ss = C.f32_sum(flat * flat)
+    for ax in split:
+        ss = ax.psum(ss)
+        total *= ax.size
     # the reference's mean: its compiler turns / n into * (1/n) in float32
-    inv_n = float(np.float32(1) / np.float32(n))
-    ms = C.f32_sum(flat * flat) * torch.full((), inv_n, dtype=torch.float32,
-                                             device=dev)
+    inv_n = float(np.float32(1) / np.float32(total))
+    ms = ss * torch.full((), inv_n, dtype=torch.float32, device=dev)
     eb = torch.full((), cfg.eb_rel, dtype=torch.float32,
                     device=dev) * torch.sqrt(ms)
     enc, q = pipe.encode(flat, eb, device=dev, return_quantized=True,
@@ -181,7 +199,7 @@ def compress_shard(g, cfg: GradCompressionConfig, *, integrity: bool = False,
 
 def compressed_mean(g, cfg: GradCompressionConfig, axis, *,
                     transport: Transport | None = None,
-                    integrity: str | None = None, device="cuda"):
+                    integrity: str | None = None, device="cuda", split=()):
     """Compressed mean of g over `axis` (this rank's part of the
     collective).  Returns (mean, residual): the residual is this shard's
     error-feedback term, elementwise within eb (0 on the lossless
@@ -190,13 +208,17 @@ def compressed_mean(g, cfg: GradCompressionConfig, axis, *,
 
     `integrity='drop'`: every shard ships with its checksum, the reduce
     gathers, and a shard whose received wire fails the check is dropped;
-    the mean renormalizes by the count of shards that verified."""
+    the mean renormalizes by the count of shards that verified.
+
+    `split`: g is a rank's block of its pod's leaf, split over these axes
+    (`compress_shard`'s bound is the whole leaf's); the mean is the
+    block's, over `axis` (the pods' ranks that hold the same block)."""
     if integrity not in (None, "drop"):
         raise ValueError(f"integrity must be None or 'drop', "
                          f"got {integrity!r}")
     tp = TRANSPORT if transport is None else transport
     shard, q = compress_shard(g, cfg, integrity=integrity is not None,
-                              device=device)
+                              device=device, split=split)
     dev = q.recon.device
     flat = torch.as_tensor(g).to(dev).reshape(-1).to(torch.float32)
     n, p = flat.shape[0], axis.size
@@ -231,7 +253,7 @@ def compressed_mean(g, cfg: GradCompressionConfig, axis, *,
 
 def compressed_mean_tree(grads, residuals, cfg: GradCompressionConfig,
                          axis, transport: Transport | None = None, *,
-                         device="cuda", out=None):
+                         device="cuda", out=None, split=None):
     """Tree version with error feedback: each leaf g + r (a sum in g's
     dtype, as the reference's) is compressed-averaged over `axis`, leaf by
     leaf in the reference's order (`repro_torch.tree`), and its mean cast
@@ -243,14 +265,20 @@ def compressed_mean_tree(grads, residuals, cfg: GradCompressionConfig,
     pod-stacked buffer) that each leaf's new residual is written into as
     soon as it is computed, so no second residual tree is held; it is the
     residual tree returned.  It may be `residuals` itself: each leaf is
-    read before it is written."""
+    read before it is written.
+
+    `split`: on a rank's blocks of the sharded layout, for each leaf in
+    that order the axes that split it (`compressed_mean`): each block is
+    compressed under its whole leaf's bound and averaged over the pods,
+    and the wire's bytes are the sum of the blocks' planes."""
     leaves_g, tdef = T.flatten(grads)
     leaves_r = T.leaves(residuals)
     leaves_o = None if out is None else T.leaves(out)
     out_g, out_r = [], []
     for i, (g, r) in enumerate(zip(leaves_g, leaves_r)):
         m, nr = compressed_mean(g + r.to(g.dtype), cfg, axis,
-                                transport=transport, device=device)
+                                transport=transport, device=device,
+                                split=() if split is None else split[i])
         out_g.append(m.to(g.dtype))
         if leaves_o is not None:
             nr = leaves_o[i].copy_(nr)

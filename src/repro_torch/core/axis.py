@@ -16,6 +16,9 @@ object that each rank's code holds, with the same four collectives:
                                  exchange for them all on thread ranks
     axis.ppermute(t, perm)    -> what (src, rank) in perm sends here, else 0
     axis.pmax(t), axis.psum(t), axis.pmean(t)
+    axis.all_gather_object(obj)
+                              -> every rank's object, rank order (thread
+                                 ranks only)
     axis.all_to_all(t, split_axis, concat_axis)
                               -> `lax.all_to_all(..., tiled=True)`: t cut
                                  into `size` chunks along split_axis, chunk
@@ -181,6 +184,11 @@ class ThreadAxis(_RankOrder):
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         return self._exchange(t, torch.stack)
+
+    def all_gather_object(self, obj) -> list:
+        """Every rank's Python object, in rank order (the objects
+        themselves: thread ranks share one process)."""
+        return self._exchange(obj, list)
 
     def ppermute(self, t: torch.Tensor, perm) -> torch.Tensor:
         src = [s for s, d in perm if d == self.rank]

@@ -15,16 +15,16 @@ collective bytes while the program runs.
 
 What a rank holds (`held_bytes`) beside the reference's layout
 (`layout_bytes`, its `arg_bytes`):
-  * params: the dense, vlm and MoE families' prefill and decode cells
-    (`LAYOUT_FAMILIES`) hold and run the reference's layout, the rank's
-    blocks under `mesh.param_shardings` (`mesh.param_blocks`: FSDP over
-    the data axes, heads / mlp / vocab / experts over "model"), so held
-    equals layout; every other cell holds them whole but for the MoE
-    experts, of which the rank holds its block over "model" (training on
-    the layout waits for a later slice, and so do the hybrid's, encdec's
-    and ssm's layouts);
+  * params: the dense, vlm and MoE families' cells (`LAYOUT_FAMILIES`:
+    train, gradcomp, prefill and decode) hold and run the reference's
+    layout, the rank's blocks under `mesh.param_shardings` (FSDP over
+    the data axes, heads / mlp / vocab / experts over "model"; gradcomp
+    with "pod" dropped, `drop_pod`: FSDP over "data" inside each pod,
+    the pods' replicas), so held equals layout; the hybrid, encdec and
+    ssm cells hold them whole but for the MoE experts, of which the rank
+    holds its block over "model" (their layouts wait for a later slice);
   * optimizer state (train): AdamW's mu, nu and float32 master of the
-    params the rank holds;
+    params the rank holds (on the layout its blocks: ZeRO's);
   * caches: on the layout families the rank's block under the
     reference's decode-cache layout (`mesh.cache_layouts`: the data axes
     on the batch, "model" on the sequence), else its block over the data
@@ -33,11 +33,13 @@ What a rank holds (`held_bytes`) beside the reference's layout
     puts "model" on a prefill's sequence, where the port's activations
     stay whole over "model");
   * gradcomp: the pod-stacked float32 residuals the compressed step
-    takes, and the batch of the rank's rows over "data" from which pod 0
-    takes its rows.
+    takes (on the layout of the rank's blocks), and the batch of the
+    rank's rows over "data" from which pod 0 takes its rows.
 
 The programs (`cell_program`): train runs the loss, its gradient over
-`MICROBATCHES` slices (float32 sums / micro), the data mean and AdamW
+`MICROBATCHES` slices (float32 sums / micro; on the layout each layer
+rematerialized, the FSDP gather's backward a reduce-scatter, then the
+replicated leaves' sums), the data mean and AdamW
 (`launch.train.make_train_step`, donating the state); gradcomp the
 compressed step over a MetaAxis "pod" (`make_train_step_compressed`);
 prefill `ModelBundle.prefill`; decode `ModelBundle.serve_step` at
@@ -218,10 +220,14 @@ def cell_program(arch_name: str, shape_name: str, desc: M.Mesh,
     abstract = bundle.abstract_params()
     axes = bundle.axes()
     pspecs = M.param_shardings(desc, axes, abstract)
-    on_layout = (cfg.family in LAYOUT_FAMILIES
-                 and shape.kind in ("prefill", "decode"))
+    on_layout = cfg.family in LAYOUT_FAMILIES
+    gradcomp = shape.kind == "train" and variant == "gradcomp"
+    if gradcomp:
+        if "pod" not in desc.axis_names:
+            raise ValueError("gradcomp needs the multi-pod mesh")
+        pspecs = T.tree_map(drop_pod, pspecs)
     if on_layout:
-        params = M.param_blocks(abstract, desc, axes, coords)
+        params = M.local_views(abstract, pspecs, coords)
     else:
         params = M.local_views(abstract, expert_blocks(desc, axes, pspecs),
                                coords)
@@ -230,13 +236,11 @@ def cell_program(arch_name: str, shape_name: str, desc: M.Mesh,
         opt_cfg = opt.AdamWConfig(total_steps=1000)
         batch = bundle.input_specs(shape)
         b_lay = batch_layouts(desc, batch)
-        if variant == "gradcomp":
-            if "pod" not in desc.axis_names:
-                raise ValueError("gradcomp needs the multi-pod mesh")
-            pspecs = T.tree_map(drop_pod, pspecs)
+        if gradcomp:
             n_pods = desc.sizes["pod"]
             ostate = opt.init(params, opt_cfg)
-            resid = init_residuals(params, n_pods)
+            # on the layout the rank's block of the residuals: its pod's row
+            resid = init_residuals(params, 1 if on_layout else n_pods)
             # the rank's rows over "data": pod 0 takes its share of them
             rows = M.Sharding(desc, ("data",))
             local = {k: M.local_view(v, rows, {"data": 0})

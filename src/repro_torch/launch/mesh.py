@@ -26,7 +26,11 @@ ThreadGroup`s: NCCL refuses two ranks on one card) and as processes
 
 `local_view` gives a rank its block of a tensor under a sharding, and
 `local_views` of a tree: views, not copies (tensors are mutable: the
-views of ranks that share a tensor must be read only).  `param_blocks`
+views of ranks that share a tensor must be read only; `rank_state`
+copies what ranks share, for a state a rank updates in place, and
+`assemble` joins the ranks' blocks into the global tree).
+`replicated_axes` names the axes a leaf's block is replicated over: the
+axes a training rank sums that leaf's gradient over.  `param_blocks`
 is a rank's views of a parameter tree under `param_shardings`;
 `gather_dim` makes a sharded dimension whole again on a rank's mesh (the
 FSDP all-gather over the data axes, or a gather over "model").
@@ -45,7 +49,7 @@ import numpy as np
 import torch
 
 from .. import tree as T
-from ..core.axis import DistAxis, ThreadGroup, run_threads
+from ..core.axis import DistAxis, ThreadAxis, ThreadGroup, run_threads
 
 LOGICAL_RULES = {
     "heads": "model",
@@ -303,6 +307,79 @@ def block_shape(shape, s: Sharding) -> tuple:
                              f"over {e}")
         out[i] //= n
     return tuple(out)
+
+
+def replicated_axes(s: Sharding) -> tuple:
+    """The mesh axes that `s`'s spec does not split, in mesh order: every
+    rank along them holds the same block of the leaf.  An axis that
+    `logical_to_spec` dropped because it does not divide its dim is one
+    of them."""
+    used = {a for e in s.spec for a in _names(e)}
+    return tuple(a for a in s.mesh.axis_names if a not in used)
+
+
+def assemble(blocks: list, shardings, coords: list):
+    """The global tree from the ranks' trees of blocks (`blocks[i]` the
+    rank at `coords[i]`'s, under the tree of `Sharding`s `shardings`):
+    the inverse of `local_views`.  A block that ranks share is taken from
+    the last of them that holds it."""
+    shards, tdef = T.flatten(shardings)
+    firsts = T.leaves(blocks[0])
+    outs = []
+    for t, s in zip(firsts, shards):
+        shape = [n * _axis_size(e, s.mesh.sizes) for n, e in
+                 zip(t.shape, tuple(s.spec) + (None,) * t.dim())]
+        outs.append(t.new_empty(shape))
+    for tree, c in zip(blocks, coords):
+        for out, t, s in zip(outs, T.leaves(tree), shards):
+            local_view(out, s, c).copy_(t)
+    return T.unflatten(tdef, outs)
+
+
+def rank_state(tree, shardings, coords: dict):
+    """A thread rank's own blocks of `tree` (params, optimizer state)
+    under `shardings`, to update in place: a view of the global tensor
+    where the block is the rank's alone, a copy where other ranks of the
+    mesh hold the same block (a leaf replicated over an axis of more than
+    one rank), so that no two ranks write one tensor."""
+    leaves, tdef = T.flatten(tree)
+    out = []
+    for t, s in zip(leaves, T.leaves(shardings)):
+        v = local_view(t, s, coords)
+        shared = any(s.mesh.sizes[a] > 1 for a in replicated_axes(s))
+        out.append(v.clone() if shared else v)
+    return T.unflatten(tdef, out)
+
+
+def drop_axis(mesh: Mesh, name: str) -> Mesh:
+    """`mesh` without the axis `name` (a rank's mesh keeps its other
+    axes): e.g. a pod's ("data", "model") mesh inside ("pod", "data",
+    "model").  A mesh without it is returned as it is."""
+    if name not in mesh.axis_names:
+        return mesh
+    keep = [i for i, n in enumerate(mesh.axis_names) if n != name]
+    axes = None if mesh.axes is None else {
+        n: a for n, a in mesh.axes.items() if n != name}
+    return Mesh([mesh.shape[i] for i in keep],
+                [mesh.axis_names[i] for i in keep], axes=axes)
+
+
+def on_threads(mesh) -> bool:
+    """Whether a rank's mesh holds thread ranks (`run_mesh_threads`)."""
+    return mesh is not None and mesh.axes is not None and any(
+        isinstance(a, ThreadAxis) for a in mesh.axes.values())
+
+
+def gather_objects(mesh: Mesh, names, obj) -> list:
+    """Every thread rank's `obj` over the mesh axes `names`, the same list
+    on each, in row-major order of those axes (the ranks' coordinates
+    along the others are the caller's)."""
+    out = [obj]
+    for name in reversed(tuple(names)):
+        ax = mesh.axis(name)
+        if ax.size > 1:
+            out = [o for part in ax.all_gather_object(out) for o in part]
+    return out
 
 
 def greedy_sharding(mesh: Mesh, shape, skip_dims=(), batch_size=None):

@@ -5,9 +5,15 @@ Two step variants:
   * make_train_step            - the baseline: the batch's gradient
     (`micro` slices accumulated in float32, the reference dry-run's
     MICROBATCHES), then AdamW.  On a rank's mesh the batch is the rank's
-    rows and the gradient is averaged over the data axes in place
-    (`data_mean`: the reference's full-precision all-reduce, which XLA
-    inserts); with one card it is that card's sum.
+    rows and the gradient is averaged over the data axes (the
+    reference's full-precision all-reduce, which XLA inserts): with whole
+    weights each leaf in place (`data_mean`); on the reference's layout
+    (the rank's blocks under `param_shardings`: FSDP over the data axes,
+    heads / mlp / vocab / experts over "model") through the FSDP
+    gather's backward, a reduce-scatter, and a sum over the axes a
+    leaf's block is replicated over (`replica_sum`), then AdamW on the
+    blocks (ZeRO) clipped by the norm over the ranks.  With one card it
+    is that card's sum.
   * make_train_step_compressed - the paper's technique on the wire: the
     step runs per pod, over a collective axis (`core.axis`), as
     `compression.grads.compressed_mean_tree` does.  Each pod takes its
@@ -15,7 +21,9 @@ Two step variants:
     guaranteed-error-bounded compressed mean with error feedback; then
     every pod applies the same AdamW update to its replica, so the
     replicas stay bit-identical.  The state carries a pod-stacked float32
-    residual tree (checkpointed: restart-exact).
+    residual tree (checkpointed: restart-exact).  On the layout each pod
+    runs on its ranks' blocks (FSDP over "data" inside the pod), and each
+    block crosses the wire under its whole leaf's bound.
 
 Under `core.axis.run_threads(p, ...)` the p pods are threads sharing one
 card, each with its own replica or (shared_state=True) all holding one
@@ -42,7 +50,9 @@ from ..data.pipeline import DataConfig, TokenPipeline
 from ..models import build
 from ..optim import optimizer as opt
 from ..core.axis import _tree_sum
-from .mesh import (batch_shardings_for, data_axes, local_views,
+from ..models.transformer import param_layout
+from .mesh import (batch_shardings_for, data_axes, drop_axis,
+                   gather_objects, local_views, on_threads, replicated_axes,
                    run_mesh_threads)
 
 
@@ -56,7 +66,8 @@ def _to_device(batch: dict, dev: torch.device) -> dict:
 
 
 def value_and_grad(bundle, params, batch: dict, mesh=None,
-                   moe_data_axes=None, mean_axes=None):
+                   moe_data_axes=None, mean_axes=None, *, remat=None,
+                   reduce: bool = True):
     """(loss, (ce, aux)) of `bundle.loss` and its gradient tree, like
     params.  The gradient is `torch.autograd.grad` with respect to
     detached aliases of the params, so no `.grad` field is written: pods
@@ -77,33 +88,156 @@ def value_and_grad(bundle, params, batch: dict, mesh=None,
     `core.axis.MetaAxis` axes in `launch.dryrun`) `batch` is the rank's
     own rows; the loss and the gradient are then averaged over
     `mean_axes` (default: the mesh's data axes), as the reference's train
-    step averages the gradient over the devices that split its batch."""
+    step averages the gradient over the devices that split its batch:
+      * whole weights (and experts over "model"): each leaf's gradient
+        averaged over those axes (`data_mean`);
+      * the rank's blocks under `param_shardings` (`ModelBundle.layout`):
+        the gradient of the mean loss over the gradient's axes (`mean_axes`
+        and "model", whose ranks share the tokens), reaching each block
+        through the collectives' backward: the FSDP gather's is the
+        reduce-scatter over the data axes.  Then each leaf's gradient is
+        summed over the axes of those that its block is replicated over
+        (`replica_sum`).  A rank of `dist_mesh` or `MetaAxis` takes the
+        backward of its own loss over the count of those ranks, each
+        layer rematerialized (the recomputed collectives run again in the
+        backward); thread ranks run the layers without remat and one
+        backward over the graph they share (`_shared_grad`).
+    `reduce=False` returns the rank's metrics and gradient before any sum
+    or mean over the ranks (`accumulate` reduces after its slices)."""
     flat, tdef = T.flatten(params)
     xs = [p.detach().requires_grad_(True) for p in flat]
     tree = T.unflatten(tdef, xs)
+    rank_mesh = mesh is not None and mesh.axes is not None
+    shard = layout_shardings(bundle, params, mesh) if rank_mesh else None
+    threads = shard is not None and on_threads(mesh)
+    if remat is None:
+        remat = not threads
     with torch.enable_grad():
         if mesh is not None and mesh.axes is None:
             loss, (ce, aux) = _mesh_loss(bundle, tree, batch, mesh,
                                          moe_data_axes)
         else:
-            loss, (ce, aux) = bundle.loss(tree, batch, mesh,
+            loss, (ce, aux) = bundle.loss(tree, batch, mesh, remat=remat,
                                           moe_data_axes=moe_data_axes)
-        gs = torch.autograd.grad(loss, xs, allow_unused=True,
-                                 materialize_grads=True)
+        if shard is None:
+            gs = torch.autograd.grad(loss, xs, allow_unused=True,
+                                     materialize_grads=True)
+        else:
+            axes = grad_axes(mesh, mean_axes)
+            if threads:
+                gs = _shared_grad(mesh, loss, xs, axes)
+            else:
+                n = int(np.prod([mesh.sizes[a] for a in axes]))
+                gs = torch.autograd.grad(loss / n, xs, allow_unused=True,
+                                         materialize_grads=True)
     metrics = (loss.detach(), (ce.detach(), torch.as_tensor(aux).detach()))
-    grads = T.unflatten(tdef, list(gs))
-    if mesh is not None and mesh.axes is not None:
-        metrics, grads = data_mean((metrics, grads), mesh, mean_axes)
-    return metrics, grads
+    out = (metrics, T.unflatten(tdef, list(gs)))
+    if rank_mesh and reduce:
+        out = rank_reduce(out, bundle, params, mesh, mean_axes)
+    return out
+
+
+def grad_axes(mesh, mean_axes=None) -> tuple:
+    """The axes of more than one rank that a rank's gradient on the layout
+    spans, in mesh order: `mean_axes` (default: the data axes), whose
+    ranks split the batch, and "model", whose ranks share the tokens."""
+    names = data_axes(mesh) if mean_axes is None else tuple(mean_axes)
+    return tuple(a for a in mesh.axis_names
+                 if (a in names or a == "model") and mesh.sizes[a] > 1)
+
+
+def layout_shardings(bundle, params, mesh):
+    """Each leaf's `Sharding` (in tree order) where `params` are the
+    rank's blocks under `param_shardings` on the rank's `mesh`
+    (`ModelBundle.layout`), else None (no mesh, or whole weights)."""
+    if mesh is None or bundle.layout(params, mesh) is None:
+        return None
+    return T.leaves(param_layout(bundle.cfg, mesh.shape, mesh.axis_names))
+
+
+def split_axes(shard, mesh) -> list:
+    """For each leaf's `Sharding`, the rank's `core.axis` axes of more
+    than one rank that split the leaf."""
+    return [[mesh.axis(a) for a in mesh.axis_names
+             if a not in replicated_axes(s) and mesh.sizes[a] > 1]
+            for s in shard]
+
+
+def _shared_grad(mesh, loss, xs: list, axes: tuple) -> list:
+    """Thread ranks on the layout: the rank's gradient of the mean of the
+    data blocks' losses (each block's from its rank at "model" 0, as
+    `_mesh_loss` takes it) over its aliases `xs`, from one backward over
+    the graph the ranks of `axes` share.  The thread collectives built
+    each rank's result from the others' tensors, so that backward reaches
+    every rank's blocks (the FSDP gather's reduce-scatter happens in it);
+    it runs on the rank at coordinate 0 of every axis while the others
+    wait, and no collective waits inside it."""
+    every = gather_objects(mesh, axes, (mesh.coords(), loss, xs))
+    me = [c for c, _, _ in every].index(mesh.coords())
+    lead = None
+    if me == 0:
+        losses = [l_ for c, l_, _ in every if c.get("model", 0) == 0]
+        objective = _tree_sum(losses) / len(losses)
+        flat = [x for _, _, xx in every for x in xx]
+        gs = torch.autograd.grad(objective, flat, allow_unused=True,
+                                 materialize_grads=True)
+        k = len(xs)
+        lead = [gs[i * k:(i + 1) * k] for i in range(len(every))]
+    del every
+    return list(gather_objects(mesh, axes, lead)[0][me])
+
+
+def replica_sum(grads, shard, mesh, axes) -> object:
+    """Each leaf's gradient summed over those of `axes` that its block is
+    replicated over (`launch.mesh.replicated_axes` of its `Sharding`):
+    the norms, the router, a dim its axes do not divide, and the data
+    mean of a leaf that the data axes do not split.  Every rank that
+    holds the block gets the same sum (the ranks' order).  Returns a new
+    tree."""
+    flat, tdef = T.flatten(grads)
+    out = []
+    for g, s in zip(flat, shard):
+        for a in replicated_axes(s):
+            if a in axes:
+                g = mesh.axis(a).psum(g)
+        out.append(g)
+    return T.unflatten(tdef, out)
+
+
+def rank_reduce(out, bundle, params, mesh, mean_axes=None):
+    """A rank's (metrics, grads) from `value_and_grad(..., reduce=False)`
+    reduced over the ranks: on the layout the metrics' mean over
+    `mean_axes` and `replica_sum`; with whole weights `data_mean`."""
+    shard = layout_shardings(bundle, params, mesh)
+    if shard is None:
+        return data_mean(out, mesh, mean_axes)
+    (loss, (ce, aux)), grads = out
+    names = data_axes(mesh) if mean_axes is None else tuple(mean_axes)
+    vals = torch.stack([loss, ce, aux.to(loss.dtype)])
+    for a in names:
+        if a in mesh.axis_names and mesh.sizes[a] > 1:
+            vals = mesh.axis(a).pmean(vals)
+    return ((vals[0], (vals[1], vals[2])),
+            replica_sum(grads, shard, mesh, grad_axes(mesh, mean_axes)))
+
+
+def sharded_norm(bundle, params, grads, mesh):
+    """The global norm of `grads` over the ranks where they are the rank's
+    blocks on the layout (`optimizer.global_norm` with each leaf's split
+    axes), else None (`optimizer.apply` takes the tree's own)."""
+    shard = layout_shardings(bundle, params, mesh)
+    if shard is None:
+        return None
+    return opt.global_norm(grads, split_axes(shard, mesh))
 
 
 def data_mean(tree, mesh, axes=None):
     """Every tensor leaf of `tree` averaged over the rank mesh's `axes`
     (default: its data axes; an axis of size 1 is skipped), written into
     the leaf in place (one leaf's copy and mean are held at a time): the
-    gradient mean of data parallelism.  The ranks read a copy, so a
-    thread rank that writes its leaf early changes no other's mean.
-    Returns the tree."""
+    gradient mean of data parallelism on whole weights.  The ranks read a
+    copy, so a thread rank that writes its leaf early changes no other's
+    mean.  Returns the tree."""
     names = data_axes(mesh) if axes is None else tuple(axes)
     axes_ = [mesh.axis(n) for n in names
              if n in mesh.axis_names and mesh.sizes[n] > 1]
@@ -148,13 +282,16 @@ def _mesh_loss(bundle, params, batch: dict, mesh, moe_data_axes):
             (mean([o[1][0] for o in firsts]), mean([o[1][1] for o in firsts])))
 
 
-def accumulate(bundle, params, batch: dict, mesh, micro: int):
+def accumulate(bundle, params, batch: dict, mesh, micro: int, *,
+               remat=None):
     """`value_and_grad` over `micro` sequential slices of the batch's rows
     (gradient accumulation): the float32 sum of the slices' gradients
     divided by `micro`, the slices' mean loss (the reference dry-run's
-    `MICROBATCHES` scan); then the data mean on a rank's mesh."""
+    `MICROBATCHES` scan); then the reduction over a rank mesh's ranks
+    (`rank_reduce`: the data mean, or on the layout the replicated
+    axes' sums)."""
     if micro == 1:
-        return value_and_grad(bundle, params, batch, mesh)
+        return value_and_grad(bundle, params, batch, mesh, remat=remat)
     rows = next(iter(batch.values())).shape[0]
     if rows % micro:
         raise ValueError(f"a batch of {rows} rows does not split into "
@@ -164,8 +301,8 @@ def accumulate(bundle, params, batch: dict, mesh, micro: int):
     acc, metrics = None, []
     for i in range(micro):
         mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-        m, g = value_and_grad(bundle, params, mb, mesh,
-                              mean_axes=() if rank_mesh else None)
+        m, g = value_and_grad(bundle, params, mb, mesh, remat=remat,
+                              reduce=False)
         g = T.tree_map(lambda t: t.to(torch.float32), g)
         if acc is None:
             acc = g
@@ -179,23 +316,30 @@ def accumulate(bundle, params, batch: dict, mesh, micro: int):
     loss, ce, aux = (torch.stack(v).mean() for v in zip(
         *[(m[0], m[1][0], m[1][1]) for m in metrics]))
     out = ((loss, (ce, aux)), grads)
-    return data_mean(out, mesh) if rank_mesh else out
+    return rank_reduce(out, bundle, params, mesh) if rank_mesh else out
 
 
 def make_train_step(bundle, mesh, opt_cfg: opt.AdamWConfig, *,
-                    donate: bool = False, micro: int = 1):
+                    donate: bool = False, micro: int = 1, remat=None):
     """step(state=(params, opt_state), batch) -> (state, metrics).  With
     donate=True the update is written into the state's tensors
     (`optimizer.apply`).  micro > 1 accumulates the gradient over that
     many slices of the batch (`accumulate`).  On a rank's mesh `batch` is
-    the rank's rows, and the gradient is averaged over the data axes."""
+    the rank's rows, and the gradient is averaged over the data axes.  On
+    the layout (params and opt_state the rank's blocks: ZeRO's) AdamW
+    runs on the blocks, clipped by the norm over the ranks
+    (`sharded_norm`); thread ranks each hold their own state
+    (`launch.mesh.rank_state`: no two write one tensor).  `remat`: each
+    layer rematerialized (default: except on thread ranks of the
+    layout)."""
     def step(state, batch):
         params, ostate = state
         batch = _to_device(batch, _device_of(params))
         (loss, (ce, aux)), grads = accumulate(bundle, params, batch, mesh,
-                                              micro)
+                                              micro, remat=remat)
+        norm = sharded_norm(bundle, params, grads, mesh)
         params, ostate, metrics = opt.apply(params, grads, ostate, opt_cfg,
-                                            donate=donate)
+                                            donate=donate, norm=norm)
         metrics.update(loss=loss, ce=ce, aux=aux)
         return (params, ostate), metrics
 
@@ -212,10 +356,13 @@ def make_train_step_compressed(bundle, mesh, opt_cfg: opt.AdamWConfig,
     `batch` is the global batch; pod r takes its rows [r B / p, (r + 1) B
     / p), as the reference's shard_map hands each pod its block.
     `residuals` is the pod-stacked tree (`init_residuals`): pod r reads
-    row r.  With donate=False the step is pure, as the reference's: the
-    pods' new rows are gathered into a new stacked tree (the reference's
-    shard_map assembles it from the pods' blocks).  With donate=True pod
-    r writes its new residual into row r in place, leaf by leaf, and no
+    row r; or each pod's own row alone (its block under the reference's
+    P("pod", ...), `init_residuals(params, 1)`, as a rank of the layout
+    holds it).  With donate=False the step is pure, as the reference's:
+    the pods' new rows are gathered into a new stacked tree (the
+    reference's shard_map assembles it from the pods' blocks; a pod's own
+    row stays its own).  With donate=True pod r writes its new residual
+    into its row in place, leaf by leaf, and no
     second tree is held: every row is new where the pods share the
     tensors (threads), only row r where each pod holds its own copy
     (processes).  The MoE layers see the pod's own tokens
@@ -227,10 +374,24 @@ def make_train_step_compressed(bundle, mesh, opt_cfg: opt.AdamWConfig,
     not fit): the pods' means are the same bits, rank 0 applies the
     update in place (it needs donate=True) and the others wait for it;
     every pod returns the one state, and only rank 0's metrics have
-    "grad_norm" and "lr"."""
+    "grad_norm" and "lr".
+
+    On the reference's gradcomp layout (`mesh` a rank's ("pod", "data",
+    "model") mesh, params the rank's blocks under `param_shardings` with
+    "pod" dropped: FSDP over "data" inside each pod, every pod its
+    replica) the pod's gradient is `value_and_grad`'s on the pod's
+    ("data", "model") mesh, each block is compressed under its whole
+    leaf's bound and averaged over the pods block by block
+    (`compressed_mean_tree(split=)`), the residual rows are the rank's
+    blocks, and AdamW runs on the blocks (the norm over the pod's
+    ranks)."""
     if shared_state and not donate:
         raise ValueError("shared_state=True updates the one state in "
                          "place: pass donate=True")
+
+    # a pod's own mesh: the layout's FSDP and the MoE's data mean run
+    # over "data" inside the pod; the pods meet only in the compressed mean
+    pod_mesh = None if mesh is None else drop_axis(mesh, "pod")
 
     def step(state, batch, axis):
         params, ostate, resid = state
@@ -243,20 +404,31 @@ def make_train_step_compressed(bundle, mesh, opt_cfg: opt.AdamWConfig,
                              f"{p} pods")
         per = rows // p
         local = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
-        row = T.tree_map(lambda t: t[r], resid)
+        # the pods' stacked rows, or (p > 1) the pod's own row alone: its
+        # block under the reference's P("pod", ...)
+        n_rows = T.leaves(resid)[0].shape[0]
+        if n_rows not in (p, 1):
+            raise ValueError(f"residuals of {n_rows} rows for {p} pods")
+        own = n_rows < p
+        row = T.tree_map(lambda t: t[0 if own else r], resid)
         (loss, (ce, aux)), grads = value_and_grad(
-            bundle, params, local, mesh, moe_data_axes=("data",),
+            bundle, params, local, pod_mesh, moe_data_axes=("data",),
             mean_axes=("data",))
+        shard = layout_shardings(bundle, params, pod_mesh)
+        split = None if shard is None else split_axes(shard, pod_mesh)
         grads, new_row = G.compressed_mean_tree(
             grads, row, gc_cfg, axis, device=dev,
-            out=row if donate else None)
+            out=row if donate else None, split=split)
         if not donate:
-            resid = T.tree_map(axis.all_gather, new_row)
+            resid = T.tree_map(lambda t: t[None] if own
+                               else axis.all_gather(t), new_row)
         loss = axis.psum(loss) / p
         metrics = {}
         if r == 0 or not shared_state:
+            norm = None if split is None else opt.global_norm(grads, split)
             params, ostate, metrics = opt.apply(params, grads, ostate,
-                                                opt_cfg, donate=donate)
+                                                opt_cfg, donate=donate,
+                                                norm=norm)
         if shared_state:            # the others wait for rank 0's update
             axis.psum(torch.zeros((), device=dev))
         metrics.update(loss=loss, ce=ce, aux=aux)

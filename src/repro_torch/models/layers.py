@@ -8,8 +8,10 @@ The reference writes them as global math with sharding constraints at a
 few seams (`ShardCtx`); on one card those constraints are the identity,
 so the port has none.  On a rank of the reference's layout
 (`transformer.forward` and `serve.serve_step` with the rank's parameter
-blocks) three helpers do what GSPMD does there: `vocab_embed` (the
+blocks) four helpers do what GSPMD does there: `vocab_embed` (the
 rank's "vocab" rows, a masked lookup and a psum over "model"),
+`vocab_ce` (the training loss's cross-entropy from the rank's "vocab"
+block of the logits: a pmax and two psums over "model"),
 `row_parallel` (a product whose contracted dim is split over "model":
 the rank's partial product in float32, then a psum) and `decode_attention` with
 `return_stats` (a rank's sequence block, its (o, m, l) to merge across
@@ -183,18 +185,63 @@ def vocab_embed(emb: torch.Tensor, tokens: torch.Tensor, axis):
     return axis.psum(torch.where(mine[..., None], rows, neg0))
 
 
+def vocab_ce(logits: torch.Tensor, labels: torch.Tensor, axis):
+    """The cross-entropy lse - ll of each token from logits float32 [...,
+    V / n], the rank's block of the "vocab" dim over `axis` (n ranks,
+    columns axis.rank * V / n on), and int labels [...]: M is the pmax of
+    the blocks' maxima (detached: lse does not depend on it), lse =
+    log(psum(sum exp(l - M))) + M, and the label's logit comes from the
+    rank whose columns hold it (a masked gather, -0.0 elsewhere, then a
+    psum, as `vocab_embed` does).  The one-rank logsumexp less the label's
+    logit within float32 reordering; the gradient reaches each rank's
+    block through the psums (its softmax block less its one-hot block)."""
+    n = logits.shape[-1]
+    m = axis.pmax(logits.detach().amax(-1))
+    s = axis.psum(torch.exp(logits - m[..., None]).sum(-1))
+    lse = torch.log(s) + m
+    local = labels.to(torch.int64) - axis.axis_index() * n
+    mine = (local >= 0) & (local < n)
+    ll = logits.gather(-1, torch.where(mine, local, torch.zeros_like(
+        local))[..., None])[..., 0]
+    neg0 = torch.full((), -0.0, dtype=logits.dtype, device=logits.device)
+    return lse - axis.psum(torch.where(mine, ll, neg0))
+
+
+class _MatmulF32(torch.autograd.Function):
+    """`matmul_f32` off the CPU: one bfloat16 GEMM with a float32 output
+    (which has no derivative of its own); its gradient is the float32
+    product's, as the CPU form differentiates, rounded to each input's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, a2, w):
+        ctx.save_for_backward(a2, w)
+        return torch.mm(a2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a2, w = ctx.saved_tensors
+        ga = gw = None
+        if ctx.needs_input_grad[0]:
+            ga = (g @ w.to(torch.float32).t()).to(a2.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = (a2.to(torch.float32).t() @ g).to(w.dtype)
+        return ga, gw
+
+
 def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a [..., K] @ w [K, N] with a float32 result that rounds no
     bfloat16 product: on the card (and meta) one bfloat16 GEMM with a
     float32 output (`torch.mm(..., out_dtype=)`), on the CPU, which has
-    no such GEMM, the float32 product of the same values."""
+    no such GEMM, the float32 product of the same values; the gradient
+    is the float32 product's either way."""
     if a.dtype == torch.float32 and w.dtype == torch.float32:
         return a @ w
     a2 = a.reshape(-1, a.shape[-1])
     if a.device.type == "cpu":
         out = a2.to(torch.float32) @ w.to(torch.float32)
     else:
-        out = torch.mm(a2, w, out_dtype=torch.float32)
+        out = _MatmulF32.apply(a2, w)
     return out.reshape(*a.shape[:-1], w.shape[-1])
 
 

@@ -8,9 +8,10 @@ rank's blocks (`launch.mesh.param_blocks`; the dense, vlm and MoE
 families) the forward pass and the decode step run the reference's
 layout (`models.transformer`, `models.serve`): the rank's cache block
 (a `serve.RankCache` from `make_cache(..., mesh=)`), and the rank's
-"vocab" block of the logits.  With whole weights the MoE layers run
-expert parallel over its "model" axis (`models.moe`) and every other
-layer replicated on each rank."""
+"vocab" block of the logits, and `loss` takes its cross-entropy across
+the ranks' blocks (`layers.vocab_ce`).  With whole weights the MoE
+layers run expert parallel over its "model" axis (`models.moe`) and
+every other layer replicated on each rank."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -19,6 +20,7 @@ import torch
 
 from ..configs.base import ArchConfig, ShapeConfig
 from . import encdec, mamba, serve, transformer, xlstm_stack
+from . import layers as L
 from .params import abstract, axes_tree, count_params, materialize
 from .transformer import DTYPE
 
@@ -60,18 +62,33 @@ class ModelBundle(NamedTuple):
     def loss(self, params, batch: dict, mesh=None, remat: bool = True,
              moe_data_axes=None):
         """The training loss ce + 0.01 aux: ce the mean over tokens of the
-        float32 logsumexp of the logits less the label's logit, aux the
-        layers' load-balance loss.  batch: {"tokens", "labels"} int [B,
-        S], and for encdec "frames" [B, enc_context, D].  Returns (loss,
-        (ce, aux)), 0-d float32 tensors."""
+        float32 logsumexp of the logits less the label's logit (on a rank
+        of the layout over the ranks' "vocab" blocks, `layers.vocab_ce`;
+        the mean over the rank's tokens), aux the layers' load-balance
+        loss.  batch: {"tokens", "labels"} int [B, S], and for encdec
+        "frames" [B, enc_context, D].  Returns (loss, (ce, aux)), 0-d
+        float32 tensors."""
         logits, aux = self._forward(params, batch, mesh, remat,
                                     moe_data_axes)
         logits = logits.to(torch.float32)
         labels = batch["labels"].to(torch.int64)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = logits.gather(-1, labels[..., None])[..., 0]
-        ce = torch.mean(lse - ll)
+        spec = self.layout(params, mesh)
+        if transformer._split(transformer._entry(spec, "emb", 0), mesh):
+            # the rank's "vocab" block of the logits
+            ce = torch.mean(L.vocab_ce(logits, labels, mesh.axis("model")))
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = logits.gather(-1, labels[..., None])[..., 0]
+            ce = torch.mean(lse - ll)
         return ce + 0.01 * aux, (ce, aux)
+
+    def layout(self, params, mesh):
+        """The specs tree of the reference's layout where `params` are the
+        rank's blocks under `param_shardings` on the rank's `mesh`
+        (`transformer.rank_layout`, the LAYOUT_FAMILIES), else None."""
+        if mesh is None or self.cfg.family not in transformer.LAYOUT_FAMILIES:
+            return None
+        return transformer.rank_layout(self.cfg, params, mesh)
 
     def make_cache(self, batch: int, seq: int, quantized: bool = False, *,
                    device="cuda", mesh=None):

@@ -22,7 +22,11 @@ things (`rank_layout` tells which, and raises on anything else):
 
   * the rank's blocks under `launch.mesh.param_shardings` (`param_blocks`;
     the dense, vlm and MoE families): the reference's layout, run where
-    GSPMD puts its collectives.  Inside the layer loop each layer's
+    GSPMD puts its collectives, for serving and for training (the
+    gradient reaches the rank's blocks through the collectives'
+    backward: the FSDP gather's is a reduce-scatter over the data axes,
+    the psums' a psum; `launch.train`; the cross-entropy over the
+    "vocab" blocks is `layers.vocab_ce`).  Inside the layer loop each layer's
     "embed" blocks are gathered over the data axes (FSDP), then dropped.
     q comes from the rank's `wq` columns (whole heads); k and v from its
     `wkv` block, gathered over "model" (a block can split a KV head: the
@@ -35,9 +39,14 @@ things (`rank_layout` tells which, and raises on anything else):
     the logits are the rank's "vocab" block.  A dim that its axes do not
     divide is whole on every rank and runs so (no psum over it);
   * whole weights, the experts whole or the rank's block over "model"
-    alone (the train step's layout): the MoE layers run expert parallel
-    over "model" (`moe.moe_ffn`), every other layer replicated on each
-    rank.  The hybrid runs only so (its Mamba layout waits).
+    alone: the MoE layers run expert parallel over "model"
+    (`moe.moe_ffn`), every other layer replicated on each rank.  The
+    hybrid runs only so (its Mamba layout waits), and the MoE experts'
+    "embed" dim on the layout is gathered with the rest of the layer.
+
+While autograd records, `remat` checkpoints each layer on either form;
+thread ranks of the layout train without it (`launch.train`: a
+recomputed layer would call a thread collective inside the backward).
 
 One implementation serves both: the sublayers take the layer's specs
 (`lspec`, None for whole weights), and a dim that no "model" axis of
@@ -310,22 +319,30 @@ def _period(cfg: ArchConfig, pp: dict, x: torch.Tensor,
 # ------------------------------------------------ the reference's layout --
 
 @functools.lru_cache(maxsize=None)
-def _shardings(cfg: ArchConfig, shape: tuple, names: tuple):
-    """(global shapes, specs, logical axes, axis sizes) of the parameter
-    tree of `cfg` under `param_shardings` on a mesh of `shape` and axis
-    `names` ({name: tuple} trees; stacked leaves keep their layer dim,
-    spec entry None).  A mesh without "data" (a ("model",) mesh) or
-    "model" has it at size 1."""
+def param_layout(cfg: ArchConfig, shape: tuple, names: tuple):
+    """`launch.mesh.param_shardings` of the parameter tree of `cfg` on a
+    mesh of `shape` and axis `names` (a tree of `Sharding`s on a
+    description; stacked leaves keep their layer dim, spec entry None).
+    A mesh without "data" (a ("model",) mesh) or "model" has it at size
+    1."""
     if not {"pod", "data"} & set(names):
         shape, names = (1,) + tuple(shape), ("data",) + tuple(names)
     if "model" not in names:
         shape, names = tuple(shape) + (1,), tuple(names) + ("model",)
-    desc = MESH.Mesh(shape, names)
     specs = param_specs(cfg)      # ParamSpecs carry the shapes: no tensor
-    axes = axes_tree(specs)
-    shard = MESH.param_shardings(desc, axes, specs)
+    return MESH.param_shardings(MESH.Mesh(shape, names), axes_tree(specs),
+                                specs)
+
+
+@functools.lru_cache(maxsize=None)
+def _shardings(cfg: ArchConfig, shape: tuple, names: tuple):
+    """(global shapes, specs, logical axes, axis sizes) of `param_layout`
+    ({name: tuple} trees)."""
+    specs = param_specs(cfg)
+    shard = param_layout(cfg, shape, names)
     return (ptree_map(lambda p: tuple(p.shape), specs),
-            T.tree_map(lambda s_: s_.spec, shard), axes, desc.sizes)
+            T.tree_map(lambda s_: s_.spec, shard), axes_tree(specs),
+            T.leaves(shard)[0].mesh.sizes)
 
 
 def _is_shape(x) -> bool:

@@ -10,6 +10,11 @@ leaf order, each summed as the reference's CPU build sums a plane
 (`codec.f32_sum`).  XLA's float32 `pow` and `cos` can differ from
 torch's in the last bit (ROADMAP C-port-7).
 
+On a rank of the sharded layout the state's mu, nu and master are the
+rank's blocks of the params' (the reference's ZeRO layout,
+`repro/optim/optimizer.py`); `apply` runs on them as it is, given the
+global norm over the ranks (`global_norm(grads, split)`).
+
 The reference's update is pure; so is `apply` unless the caller passes
 donate=True (the counterpart of jit's buffer donation): then the new
 params and state are written into the given tensors and the given trees
@@ -73,12 +78,31 @@ def schedule(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, split=None) -> torch.Tensor:
     """sqrt of the float32 sum, leaf by leaf in the reference's order, of
-    each leaf's sum of squares."""
+    each leaf's sum of squares.
+
+    On a rank's blocks (ZeRO: the gradient's blocks are the params'),
+    `split` lists for each leaf in that order the `core.axis` axes that
+    split it: the block's sum of squares is psummed over them, so each
+    element counts once and a leaf replicated over an axis counts once,
+    not once per replica.  Leaves split over the same axes share one
+    psum an axis."""
+    sums = [f32_sum(x.to(torch.float32).square()) for x in T.leaves(tree)]
+    if split is not None:
+        groups: dict = {}
+        for i, axes in enumerate(split):
+            if axes:
+                groups.setdefault(tuple(axes), []).append(i)
+        for axes, idx in groups.items():
+            v = torch.stack([sums[i] for i in idx])
+            for ax in axes:
+                v = ax.psum(v)
+            for j, i in enumerate(idx):
+                sums[i] = v[j]
     total = torch.zeros((), dtype=torch.float32, device=_device(tree))
-    for x in T.leaves(tree):
-        total = total + f32_sum(x.to(torch.float32).square())
+    for s in sums:
+        total = total + s
     return torch.sqrt(total)
 
 
@@ -108,13 +132,16 @@ def _update(g, mu, nu, master, scale, lr, b1c, b2c, cfg: AdamWConfig,
 
 
 def apply(params, grads, state: OptState, cfg: AdamWConfig, *,
-          donate: bool = False):
+          donate: bool = False, norm=None):
     """Returns (new_params, new_state, metrics {"grad_norm", "lr"}).  With
     donate=True the new params and state are the given ones, updated in
-    place (`state.step` too)."""
+    place (`state.step` too).  `norm`: the global norm to clip by (a 0-d
+    float32 tensor; default `global_norm(grads)`): on a rank's blocks the
+    norm over the ranks (`global_norm(grads, split)`), and the update is
+    elementwise, so each block's is the whole update's block."""
     with torch.no_grad():
         step = state.step + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if norm is None else norm
         clip = torch.full((), cfg.clip_norm, dtype=torch.float32,
                           device=gnorm.device)
         scale = torch.minimum(clip / (gnorm + 1e-9),

@@ -307,20 +307,37 @@ def test_whole_decode_cells_run_on_meta(tmp_path, arch):
 
 
 @pytest.mark.parametrize("arch,shape,mesh,variant", [
-    ("olmoe-1b-7b", "train_4k", "multi", "gradcomp"),
+    ("xlstm-350m", "decode_32k", "multi", "baseline"),
     ("jamba-1.5-large-398b", "decode_32k", "single", "baseline")])
 def test_cells_off_the_layout_run_on_meta(tmp_path, arch, shape, mesh,
                                           variant):
-    """A cell whose rank holds whole weights but the experts' block over
-    "model" (MoE training; every hybrid cell) runs on a production mesh
-    whose data axes split the experts' "embed" dim under param_shardings
-    (the rank holds it whole): held params above the layout's, FLOPs
-    counted."""
+    """A cell whose rank holds whole weights (the ssm family) or whole
+    but the experts' block over "model" (every hybrid cell) runs on a
+    production mesh whose axes split them under param_shardings: held
+    params above the layout's, FLOPs counted."""
     rec = DR.run_cell(arch, shape, mesh, variant, results_dir=tmp_path,
                       force=True)
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec["held_by"]["params"] > rec["layout_by"]["params"]
     assert rec["flops"] > 0
+
+
+def test_whole_train_cell_runs_on_the_layout(tmp_path):
+    """The MoE family's compressed train cell (the cheapest train cell on
+    meta) on the reference's gradcomp layout: the rank holds its blocks
+    of the params under param_shardings with "pod" dropped, its blocks of
+    AdamW's state and its pod's row of the residuals, exactly the
+    layout's bytes (the batch's tokens stay whole over "model", as a
+    prefill's do); the FSDP gather's backward is a reduce-scatter, B8 and
+    B2 launch."""
+    rec = DR.run_cell("olmoe-1b-7b", "train_4k", "multi", "gradcomp",
+                      results_dir=tmp_path, force=True)
+    assert rec["status"] == "ok", rec.get("traceback")
+    for k in ("params", "opt", "resid"):
+        assert rec["held_by"][k] == rec["layout_by"][k], k
+    assert rec["collective_bytes"]["reduce-scatter"] > 0
+    assert set(rec["launches"]) == {"B8", "B2"}
+    assert rec["peak_bytes"] >= rec["held_bytes"] and rec["flops"] > 0
 
 
 def test_a_stopped_cell_is_recorded_with_its_site(tmp_path, monkeypatch):
